@@ -8,9 +8,9 @@ top-level `${name}`, and relative `${.sibling}`), merged with
 `class_name` key via importlib.
 
 Class paths of the repo's other `goliath_*` package (the JAX reference)
-and of the original code base (`ca_code.models.rgca.AutoEncoder`) are
-remapped to their goliath_torch equivalents, so the repo's config files
-work unmodified.
+and of the original code base (`ca_code.models.rgca.AutoEncoder`,
+`torch.optim.Adam`) are remapped to their goliath_torch equivalents, so the
+repo's config files work unmodified.
 """
 
 from __future__ import annotations
@@ -185,6 +185,8 @@ _CLASS_ALIASES = {
     "ca_code.loss": "goliath_torch.losses",
     "ca_code.nn": "goliath_torch.nn",
     "ca_code.utils": "goliath_torch.utils",
+    "torch.optim.Adam": "goliath_torch.optim.Adam",
+    "torch.optim.AdamW": "goliath_torch.optim.AdamW",
 }
 
 

@@ -58,3 +58,25 @@ def load_params(module: nn.Module, path: str) -> None:
     state: Dict[str, torch.Tensor] = torch.load(path, map_location=device,
                                                 weights_only=True)
     module.load_state_dict(state, strict=True)
+
+
+def opt_state_from_jax(optimizer, module: nn.Module, mu: Mapping[str, Any],
+                       nu: Mapping[str, Any], count: int) -> None:
+    """Load an ``optax.adam`` / ``adamw`` state into the port's optimizer
+    (``goliath_torch.optim.ChainedOptimizer``) in place.
+
+    ``mu`` and ``nu`` are the first and second moments as flax-shaped trees
+    of numpy arrays over all of ``module``'s parameters, ``count`` the number
+    of steps taken. Where the JAX optimizer was built with ``per_module``
+    groups, each group's ``ScaleByAdamState`` holds the moments of its own
+    parameters only (the others are masked): merge the groups' trees into
+    one before the call, in the process that has JAX; their counts are
+    equal."""
+    mu, nu = params_from_jax(mu), params_from_jax(nu)
+    state = optimizer.inner.state
+    for name, p in module.named_parameters():
+        state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(p.device).reshape(p.shape).clone(),
+            "exp_avg_sq": nu[name].to(p.device).reshape(p.shape).clone(),
+        }

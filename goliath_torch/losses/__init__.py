@@ -4,10 +4,14 @@ A string registry maps loss names to constructors ``(assets, **kwargs) ->
 callable(preds, targets) -> scalar``. ``ModularLoss`` aggregates the losses
 of a config's ``loss.losses`` section with fixed weights or schedules.
 
-Ported so far: the losses ``run_test`` keeps from ``configs/rgca.yml``
-(rgb_l1, rgb_ssim, psnr, geom_l2, l2_reg, bound_primscale, negcolor). The
-rest (kl, learn_blur, backlit_reg, Laplacians, perceptual, ...) come with
-the training slice (ROADMAP queue 1); a config naming one raises.
+Ported: every loss the RGCA configs name, for eval and training (rgb_l1,
+rgb_l2, rgb_ssim, psnr, mask_l1, geom_l2, the Laplacian and region geometry
+losses, kl, face_kl, learn_blur, backlit_reg, l2_reg, list_l1_reg,
+bound_primscale, negcolor, primvolsum, alphaprior). The losses of paths not
+ported yet (region_rgb_l1, rgb_l1_focus, rgb_l1_phys, pose_shadow_l2, the
+perceptual losses) are not registered (ROADMAP queue 1); a config naming
+one raises. ``.detach()`` stands where the JAX package has
+``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import logging
 import math
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from goliath_torch.config import load_from_config
@@ -42,6 +47,18 @@ def register_loss_by_fn(loss_name: Optional[str] = None):
 
         loss_registry[name] = ctor
         return fn
+
+    return _register
+
+
+def register_loss(loss_name: str):
+    """Register a class ``(assets, **kwargs) -> callable(preds, targets)``."""
+
+    def _register(cls):
+        if loss_name in loss_registry:
+            logger.warning(f"loss {loss_name} already registered")
+        loss_registry[loss_name] = cls
+        return cls
 
     return _register
 
@@ -164,6 +181,21 @@ class ModularLoss:
 # ---------------------------------------------------------------------------
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| whose gradient at exactly 0 is +1, the JAX package's convention
+    (``torch.abs`` gives 0 there). It matters where a loss starts at its
+    kink: ``learn_blur``'s weights are initialized to exactly 1."""
+    return torch.where(x >= 0, x, -x)
+
+
+def kl_loss(mu, logvar):
+    return -0.5 * torch.mean(1.0 + logvar - mu**2 - torch.exp(logvar))
+
+
+def compute_laplacian(x, nbs_idxs, nbs_weights):
+    return x + (x[:, nbs_idxs] * nbs_weights[None, :, :, None]).sum(2)
+
+
 def _get_mask(preds, targets, mask_key, like, mask_erode=None,
               ddisc_key="depth_disc_mask"):
     mask = targets.get(mask_key, preds.get(mask_key, None))
@@ -177,6 +209,128 @@ def _get_mask(preds, targets, mask_key, like, mask_erode=None,
     return mask
 
 
+class _TopologyLoss:
+    """Base of the losses that read the mesh topology from the assets. The
+    neighbour tables follow the device of the tensors they meet."""
+
+    def __init__(self, assets, region_mask_name=None):
+        topo = assets.topology
+        self.nbs_idxs = torch.from_numpy(np.asarray(topo.nbs_idxs)).long()
+        self.nbs_weights = torch.from_numpy(
+            np.asarray(topo.nbs_weights, np.float32))
+        self.weight_mask = None
+        if region_mask_name is not None:
+            self.weight_mask = torch.from_numpy(
+                np.asarray(assets[region_mask_name], np.float32))
+
+    def _to(self, device):
+        if self.nbs_idxs.device != device:
+            self.nbs_idxs = self.nbs_idxs.to(device)
+            self.nbs_weights = self.nbs_weights.to(device)
+            if self.weight_mask is not None:
+                self.weight_mask = self.weight_mask.to(device)
+
+    def laplacian(self, x):
+        self._to(x.device)
+        return compute_laplacian(x, self.nbs_idxs, self.nbs_weights)
+
+    def region(self, x):
+        self._to(x.device)
+        return x * self.weight_mask[None, :, None]
+
+
+@register_loss("geom_lap")
+class LaplacianLoss(_TopologyLoss):
+    def __init__(self, assets, src_key="geom", tgt_key="registration_vertices"):
+        super().__init__(assets)
+        self.src_key, self.tgt_key = src_key, tgt_key
+
+    def __call__(self, preds, targets):
+        lp = self.laplacian(preds[self.src_key])
+        lt = self.laplacian(targets[self.tgt_key])
+        return torch.mean((lp - lt) ** 2)
+
+
+@register_loss("geom_lap_penalty")
+class LaplacianPenaltyLoss(_TopologyLoss):
+    def __init__(self, assets, src_key="geom"):
+        super().__init__(assets)
+        self.src_key = src_key
+
+    def __call__(self, preds, targets):
+        lp = self.laplacian(preds[self.src_key])
+        return torch.mean(torch.mean(lp**2, dim=-1))
+
+
+@register_loss("geom_lap_template")
+class LaplacianTemplateLoss(_TopologyLoss):
+    def __init__(self, assets, src_key="geom", dst_key="geom_template_posed"):
+        super().__init__(assets)
+        self.src_key, self.dst_key = src_key, dst_key
+
+    def __call__(self, preds, targets):
+        lp = self.laplacian(preds[self.src_key])
+        lt = self.laplacian(preds[self.dst_key].detach())
+        return torch.mean((lp - lt) ** 2)
+
+
+@register_loss("region_geom_l2")
+class RegionGeomL2Loss(_TopologyLoss):
+    def __init__(self, assets, region_mask_name, src_key="geom",
+                 tgt_key="registration_vertices"):
+        super().__init__(assets, region_mask_name)
+        self.src_key, self.tgt_key = src_key, tgt_key
+
+    def __call__(self, preds, batch):
+        return torch.mean(
+            self.region(preds[self.src_key] - batch[self.tgt_key]) ** 2)
+
+
+@register_loss("region_lap")
+class RegionLaplacianLoss(_TopologyLoss):
+    def __init__(self, assets, region_mask_name, src_key="geom",
+                 tgt_key="registration_vertices"):
+        super().__init__(assets, region_mask_name)
+        self.src_key, self.tgt_key = src_key, tgt_key
+
+    def __call__(self, preds, batch):
+        lp = self.laplacian(preds[self.src_key])
+        lt = self.laplacian(batch[self.tgt_key])
+        return torch.mean(self.region(lp - lt) ** 2)
+
+
+@register_loss("region_lap_penalty")
+class RegionLaplacianPenaltyLoss(_TopologyLoss):
+    def __init__(self, assets, region_mask_name, src_key="geom"):
+        super().__init__(assets, region_mask_name)
+        self.src_key = src_key
+
+    def __call__(self, preds, batch):
+        return torch.mean(
+            self.region(self.laplacian(preds[self.src_key])) ** 2)
+
+
+@register_loss("head_geom_l2")
+class HeadGeomL2Loss(RegionGeomL2Loss):
+    def __init__(self, assets, **kwargs):
+        super().__init__(assets, region_mask_name="full_head_mask_geom",
+                         **kwargs)
+
+
+@register_loss("head_lap")
+class HeadLaplacianLoss(RegionLaplacianLoss):
+    def __init__(self, assets, **kwargs):
+        super().__init__(assets, region_mask_name="full_head_mask_geom",
+                         **kwargs)
+
+
+@register_loss("mouth_eyes_lap_penalty")
+class MouthEyesLaplacianLoss(RegionLaplacianPenaltyLoss):
+    def __init__(self, assets, **kwargs):
+        super().__init__(assets, region_mask_name="mouth_eyes_mask_geom",
+                         **kwargs)
+
+
 @register_loss_by_fn("geom_l2")
 def loss_geom_l2(preds, targets, src_key="geom",
                  tgt_key="registration_vertices", dst_key=None):
@@ -186,11 +340,19 @@ def loss_geom_l2(preds, targets, src_key="geom",
 
 
 @register_loss_by_fn()
+def rgb_l2(preds, targets, src_key="rendered_rgb", tgt_key="image",
+           mask_key="image_mask", ddisc_key="depth_disc_mask", mask_erode=None):
+    mask = _get_mask(preds, targets, mask_key, preds[src_key], mask_erode,
+                     ddisc_key)
+    return torch.mean(((preds[src_key] - targets[tgt_key]) * mask) ** 2)
+
+
+@register_loss_by_fn()
 def rgb_l1(preds, targets, src_key="rendered_rgb", tgt_key="image",
            mask_key="image_mask", ddisc_key="depth_disc_mask", mask_erode=None):
     mask = _get_mask(preds, targets, mask_key, preds[src_key], mask_erode,
                      ddisc_key)
-    return torch.mean(torch.abs((preds[src_key] - targets[tgt_key]) * mask))
+    return torch.mean(_abs((preds[src_key] - targets[tgt_key]) * mask))
 
 
 @register_loss_by_fn()
@@ -205,6 +367,11 @@ def psnr(preds, targets, src_key="rendered_rgb", tgt_key="image",
 
 
 @register_loss_by_fn()
+def mask_l1(preds, targets, src_key="rendered_mask", tgt_key="image_mask"):
+    return torch.mean(_abs(preds[src_key] - targets[tgt_key]))
+
+
+@register_loss_by_fn()
 def rgb_ssim(preds, targets, src_key="rendered_rgb", tgt_key="image",
              mask_key="image_mask", normalize_mask=True):
     mask = targets.get(mask_key, preds.get(mask_key, None))
@@ -213,6 +380,21 @@ def rgb_ssim(preds, targets, src_key="rendered_rgb", tgt_key="image",
     if normalize_mask:
         return 1.0 - ssim(targets[tgt_key], preds[src_key], mask=mask)
     return 1.0 - ssim(mask * targets[tgt_key], mask * preds[src_key])
+
+
+@register_loss_by_fn("learn_blur")
+def learn_blur_reg_loss(preds, batch=None):
+    return torch.mean(_abs(preds["learn_blur_weights"] - 1.0))
+
+
+@register_loss_by_fn("kl")
+def loss_kl(preds, batch=None, prefix="embs_"):
+    return kl_loss(preds[f"{prefix}mu"], preds[f"{prefix}logvar"])
+
+
+@register_loss_by_fn("face_kl")
+def loss_face_kl(preds, batch=None, prefix="face_embs_"):
+    return kl_loss(preds[f"{prefix}mu"], preds[f"{prefix}logvar"])
 
 
 @register_loss_by_fn("bound_primscale")
@@ -236,3 +418,34 @@ def loss_negcolor(preds, batch=None, key="diff_color"):
 @register_loss_by_fn("l2_reg")
 def loss_l2_reg(preds, batch=None, key="spec_dnml"):
     return torch.mean(preds[key] ** 2)
+
+
+@register_loss_by_fn("list_l1_reg")
+def loss_list_l1_reg(preds, batch=None, key="spec_dnml"):
+    loss = 0.0
+    for term in preds[key]:
+        loss = loss + torch.mean(_abs(term))
+    return loss
+
+
+@register_loss_by_fn("backlit_reg")
+def loss_backlit_reg(preds, batch=None, key="color_rand",
+                     cos_key="cos_weight"):
+    weight = (-preds[cos_key]).clamp(min=0.0) ** 2
+    return torch.sum(weight * preds[key].clamp(min=0.0)) / (
+        1.0 + torch.sum(weight))
+
+
+@register_loss_by_fn("primvolsum")
+def loss_primvolsum(preds, batch=None, primscale_ref=100.0):
+    primscale = preds["primscale"]
+    return torch.mean(torch.sum(torch.prod(primscale_ref / primscale, dim=-1),
+                                dim=-1))
+
+
+@register_loss_by_fn("alphaprior")
+def loss_alphaprior(preds, batch=None, key="alpha"):
+    alpha = preds[key]
+    flat = alpha.reshape(alpha.shape[0], -1)
+    return torch.mean(
+        torch.log(0.1 + flat) + torch.log(0.1 + 1.0 - flat) - (-2.20727))

@@ -33,11 +33,10 @@
 // Pixels of a tile whose pairs ended early idle in the block; a later
 // change can split long tiles or skip masked pixels per warp.
 //
-// The drop tests (sigma < 0, alpha < 1/255) are discontinuous: a pair
-// kept by one version and dropped by the other changes a pixel by up to
-// alpha*T ~ 0.004*T. So sigma and the raw alpha are rounded exactly as the
-// plain PyTorch version rounds them (no FMA contraction); only the
-// compositing sums differ in order.
+// The drop tests (sigma < 0, alpha < 1/255) are discontinuous, so sigma,
+// the raw alpha and the T update come from splat_alpha.cuh, which rounds
+// them exactly as the plain PyTorch version does and which the backward
+// kernel (K2) shares; only the compositing sums differ in order.
 //
 // Plain C interface, bound to PyTorch by csrc/bindings.cpp, which
 // allocates the outputs. The launcher allocates nothing, launches on the given stream and does not
@@ -46,11 +45,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define ALPHA_CLIP 0.999f
-#define ALPHA_MIN (1.0f / 255.0f)
-#define T_EPS 1e-4f
-#define MAX_C 8
-#define ROW_HEAD 8  // x, y, a, b, c, op, 0, 0 then C color channels
+#include "splat_alpha.cuh"
 
 __global__ void __launch_bounds__(1024)
 compositor_fwd_kernel(const float* __restrict__ rows, int feat, int n_chan,
@@ -92,24 +87,13 @@ compositor_fwd_kernel(const float* __restrict__ rows, int feat, int n_chan,
     __syncthreads();
     for (int r = 0; r < n; ++r) {
       const float* d = s_rows + r * feat;
-      // sigma and raw alpha rounded step by step in the plain version's
-      // order (the _rn intrinsics keep nvcc from contracting into FMAs),
-      // so the keep/drop tests below decide alike for every pair
-      const float dx = __fsub_rn(d[0], px);
-      const float dy = __fsub_rn(d[1], py);
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(d[2], dx), dx),
-                                   __fmul_rn(__fmul_rn(d[4], dy), dy));
-      const float sigma = __fadd_rn(__fmul_rn(0.5f, quad),
-                                    __fmul_rn(__fmul_rn(d[3], dx), dy));
-      const float raw =
-          __fmul_rn(d[5], expf(-fminf(fmaxf(sigma, 0.0f), 60.0f)));
-      const float alpha = fminf(ALPHA_CLIP, raw);
-      if (sigma < 0.0f || alpha < ALPHA_MIN) continue;
-      const float w = alpha * T;
+      const PairAlpha pa = pair_alpha(d, px, py);
+      if (!pa.keep) continue;
+      const float w = pa.alpha * T;
 #pragma unroll
       for (int c = 0; c < MAX_C; ++c)
         if (c < n_chan) acc[c] += w * d[ROW_HEAD + c];
-      T *= 1.0f - alpha;
+      T = transmit(T, pa.alpha);
     }
   }
 

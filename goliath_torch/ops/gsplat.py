@@ -1,4 +1,4 @@
-"""3D Gaussian splatting, forward (port of the JAX package's ops/gsplat.py).
+"""3D Gaussian splatting (port of the JAX package's ops/gsplat.py).
 
 Pipeline per sample:
   * ``project_gaussians`` — EWA projection: quat/scale -> cov3d ->
@@ -11,14 +11,18 @@ Pipeline per sample:
     to back and early-outs once the tile is opaque.
 ``rasterize_reference`` is the exact O(pixels x gaussians) oracle.
 
+Gradients: the compositor has a hand-written backward, as in the JAX
+package (``gsplat_cuda.RasterizeTiled``: K2 computes per-pair gradients,
+``reduce_sorted_pair_grads`` here sums them per primitive on the scan K3).
+Projection and everything before it differentiate by plain autograd; the
+binning carries no gradient.
+
 The compositor is always K1 (the kernel on CUDA tensors, its plain version
 on CPU tensors), so ``render``'s ``use_pallas`` and ``pallas_inner`` select
 nothing here; they are accepted so the JAX package's configs load
 unchanged. K1 follows the Pallas kernel's truncation window, which differs
 from the JAX XLA compositor's (``use_pallas=False``) only in tiles that
 overflow ``max_pairs_per_tile``.
-
-Forward only: gradients need K2/K3 (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -177,6 +181,36 @@ def rasterize_reference(
 
 
 # ---------------------------------------------------------------------------
+# per-prim reduction of the compositor backward's per-pair gradients
+# ---------------------------------------------------------------------------
+
+
+def reduce_sorted_pair_grads(sorted_g: torch.Tensor, perm: torch.Tensor,
+                             prim_offsets: torch.Tensor,
+                             prim_ends: torch.Tensor) -> torch.Tensor:
+    """Per-pair gradients in sorted-pair order [budget, F] -> per-prim sums,
+    channel-first [F, N], without a scatter-add (the JAX package's
+    ops/gsplat.py:339-376, its scan branch).
+
+    ``perm[s]`` is the pre-sort slot of sorted pair ``s``, a true
+    permutation of [0, budget) (the index output of the binning's sort), so
+    one indexed store puts the rows into pre-sort order, where each prim's
+    pairs are contiguous (the JAX package sorts with the columns as
+    payloads to the same end). K3 takes the F prefix sums, and a prim's sum
+    is the difference of the prefix at its two slot bounds (0 where the
+    bound is 0). The differences cancel float32 prefixes over the whole
+    budget, as in the JAX package."""
+    budget, F = sorted_g.shape
+    presort = sorted_g.new_empty(F, budget)
+    presort.index_copy_(1, perm.long(), sorted_g.T)
+    csum = gsplat_cuda.cumsum_cols(presort)                    # [F, budget]
+    bounds = torch.cat([prim_offsets, prim_ends[-1:]]).long()  # [N + 1]
+    bvals = torch.where((bounds > 0)[None],
+                        csum[:, (bounds - 1).clamp(0, budget - 1)], 0.0)
+    return bvals[:, 1:] - bvals[:, :-1]
+
+
+# ---------------------------------------------------------------------------
 # full render (batched)
 # ---------------------------------------------------------------------------
 
@@ -292,7 +326,8 @@ def render(
     tile_shard_mesh=None,
     tile_shard_axis: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
-    """Batched gaussian-splat render (forward).
+    """Batched gaussian-splat render, differentiable with respect to
+    primpos, primqvec, primscale, opacity and colors.
 
     Returns dict(render [B,3,H,W], final_T [B,1,H,W], alpha [B,1,H,W],
     depth [B,1,H,W] if return_depth, radii [B,N] if return_radii).
@@ -322,7 +357,8 @@ def render(
         )
         out, T_final = gsplat_cuda.rasterize_tiled(
             xys, conics, op_s, chan, valid, binning.sorted_prim,
-            binning.tile_start, binning.tile_end, cam_img_h, cam_img_w,
+            binning.tile_start, binning.tile_end, binning.perm,
+            binning.prim_offsets, binning.prim_ends, cam_img_h, cam_img_w,
             tile_size, max_pairs_per_tile, chunk, ntx, nty,
         )
         outs.append(out)

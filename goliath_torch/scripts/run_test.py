@@ -12,7 +12,7 @@ from __future__ import annotations
 import logging
 import random
 import sys
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, Optional
 
 from goliath_torch import test as test_lib
 from goliath_torch.config import Config, load_config, load_from_config
@@ -20,27 +20,12 @@ from goliath_torch.convert import load_params
 from goliath_torch.data.pipeline import DataLoader
 from goliath_torch.losses import ModularLoss
 from goliath_torch.ops.backend import resolve_device
+from goliath_torch.scripts.run_train import build_dataset
 
 logger = logging.getLogger(__name__)
 
 TRAIN_ONLY_LOSSES = {"learn_blur", "backlit_reg", "kl", "face_kl",
                      "pose_shadow_l2"}
-
-
-def build_dataset(data_cfg: Dict[str, Any], **kwargs):
-    """The dataset a config's ``data`` section names. Only the synthetic
-    fixture is ported; capture datasets wait for ``BodyDataset`` (ROADMAP
-    queue 1, data/dataloader.py)."""
-    data_cfg = dict(data_cfg)
-    if not data_cfg.pop("synthetic", False):
-        raise NotImplementedError(
-            "capture datasets (BodyDataset) are not ported yet (ROADMAP "
-            "queue 1, data/dataloader.py); use data.synthetic=true")
-    from goliath_torch.data.synthetic import SyntheticDataset
-
-    for k in ("root_path", "shared_assets_path", "split", "fully_lit_only"):
-        data_cfg.pop(k, None)
-    return SyntheticDataset(**data_cfg, **kwargs)
 
 
 def main(config: Config, device: str = "cuda",

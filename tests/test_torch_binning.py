@@ -14,6 +14,10 @@ from goliath_torch.ops.gsplat_cuda import cumsum1d, cumsum1d_plain
 from goliath_tpu.ops import binning as jb
 from goliath_tpu.ops.gsplat_pallas import cumsum1d_pl
 
+# tiny shapes: more intra-op threads only contend with the other test
+# workers of a parallel run
+torch.set_num_threads(1)
+
 _FIELDS = ("sorted_prim", "tile_start", "tile_end", "perm", "prim_offsets",
            "prim_ends", "tile_of_pair")
 

@@ -9,6 +9,7 @@ last ulp of exp/log. Integer outputs (the processed-block count) are
 compared exactly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +19,10 @@ from goliath_torch.ops import gsplat as tg
 from goliath_torch.ops import gsplat_cuda
 from goliath_tpu.ops import gsplat as jg
 from goliath_tpu.ops import gsplat_pallas
+
+# tiny shapes: more intra-op threads only contend with the other test
+# workers of a parallel run
+torch.set_num_threads(1)
 
 ATOL = RTOL = 1e-4
 
@@ -124,7 +129,8 @@ def test_render_matches_jax_pallas_path(monkeypatch, return_depth):
     kw = dict(return_depth=return_depth, tile_size=16,
               max_pairs_per_tile=256, chunk=32, pallas_inner=16,
               pair_budget_mult=4)
-    ref = jg.render(W, H, *map(jnp.asarray, scene), use_pallas=True, **kw)
+    ref = jax.jit(lambda *a: jg.render(W, H, *a, use_pallas=True, **kw))(
+        *map(jnp.asarray, scene))
     got = tg.render(W, H, *map(torch.from_numpy, scene), **kw)
     assert set(got) == set(ref)
     for k in ref:
@@ -144,9 +150,14 @@ def test_render_raises_on_unported_branches(monkeypatch):
 
 
 def test_compositor_backward_raises_until_k2():
+    """The backward raised until K2 was ported; now it runs (K2's plain
+    version on the CPU) and gives finite, non-zero color gradients
+    (tests/test_torch_gsplat_bwd.py holds them against the JAX package)."""
     rng = np.random.RandomState(6)
     scene = [torch.from_numpy(a) for a in _scene(rng, 1, 20, 16, 16)]
     scene[6].requires_grad_(True)
     out = tg.render(16, 16, *scene, max_pairs_per_tile=64, chunk=16)
-    with pytest.raises(NotImplementedError, match="K2"):
-        out["render"].sum().backward()
+    out["render"].sum().backward()
+    grad = scene[6].grad
+    assert grad.shape == scene[6].shape
+    assert bool(torch.isfinite(grad).all()) and bool(grad.abs().sum() > 0)

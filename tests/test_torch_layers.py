@@ -16,6 +16,10 @@ from goliath_torch.convert import params_from_jax
 from goliath_torch.nn import layers as tl
 from goliath_tpu.nn import layers as jl
 
+# tiny shapes: more intra-op threads only contend with the other test
+# workers of a parallel run
+torch.set_num_threads(1)
+
 ATOL = RTOL = 1e-5
 
 

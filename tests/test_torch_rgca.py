@@ -37,6 +37,10 @@ from goliath_tpu.data.synthetic import SyntheticDataset as JSyntheticDataset
 from goliath_tpu.ops import gsplat_pallas
 from goliath_tpu.scripts import run_test as j_run_test
 
+# tiny shapes: more intra-op threads only contend with the other test
+# workers of a parallel run
+torch.set_num_threads(1)
+
 ATOL = RTOL = 1e-4
 DEPTH_RTOL = 5e-4
 _CFG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -87,7 +91,7 @@ def test_autoencoder_forward_matches_jax(monkeypatch):
     jm = load_from_config(_model_cfg(cfg), assets=ds.static_assets)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     params = jm.init(jax.random.PRNGKey(0), jb)
-    ref = jm.apply(params, jb, train=False)
+    ref = jax.jit(lambda p: jm.apply(p, jb, train=False))(params)
 
     tm = t_load_from_config(_model_cfg(cfg), assets=ds.static_assets,
                             device="cpu")

@@ -30,6 +30,10 @@ from goliath_tpu.utils import sampling as jsampling
 from goliath_tpu.utils import sh as jsh
 from goliath_tpu.utils import ssim as jssim
 
+# tiny shapes: more intra-op threads only contend with the other test
+# workers of a parallel run
+torch.set_num_threads(1)
+
 ATOL = RTOL = 1e-5
 
 
@@ -156,8 +160,9 @@ def test_ssim_and_image_losses_match_jax():
         assert set(td) == set(jd)
         for k in jd:
             _close(td[k], jd[k], atol=1e-4)
+    # a loss of a path that is not ported yet
     with pytest.raises(ValueError, match="not registered"):
-        tlosses.ModularLoss({"kl": 0.002})
+        tlosses.ModularLoss({"rgb_l1_focus": 0.002})
 
 
 def test_config_remaps_class_names_onto_the_port():
