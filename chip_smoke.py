@@ -30,9 +30,18 @@ the final result line:
      after: finite losses, moving parameters, a gradient in every parameter
      group, the expected launch counts, step times, peak memory and one
      profiled step;
-  9. both entry points on configs/rgca_synthetic.yml on the card against
-     the CPU (plain versions) as the small-input reference;
- 10. per kernel: check result, launches on the two paths, time, the plain
+  9. the mesh eval path: goliath_torch.scripts.run_test.main on
+     configs/mesh_vae.yml at full width (65,536-face sphere, 2048x1334
+     image), 3 test frames, counts set to 0 just before and read just
+     after, keeping the inputs the run hands to K5 and K4, then one
+     profiled forward of its last frame;
+ 10. K5 (mesh z-buffer) against its plain version on the K5 inputs of the
+     mesh path's first frame, face index and depth equal bit for bit; K4
+     against torch.cumsum on the mesh path's six scans, exactly;
+ 11. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+     path at a small size, on the card against the CPU (plain versions) as
+     the small-input reference;
+ 12. per kernel: check result, launches on the three paths, time, the plain
      version's time, the least time the card could take (bound) and the
      library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -162,6 +171,33 @@ def check_k4(gc, torch):
     return worst
 
 
+def profile_forward(torch, model, batch, card_line, label: str,
+                    **apply_kw) -> None:
+    """One model forward under torch.profiler: wall time (ending in a
+    synchronise), device busy time of the kernels, the device's idle share
+    of the wall time and the busiest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.apply(batch, **apply_kw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: an operator's device time repeats its kernels'
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"{label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms in "
+        f"{sum(r[1] for r in rows)} kernels, idle share "
+        f"{max(0.0, 1.0 - busy / wall_ms):.3f} on {card_line}")
+    for ms, count, key in rows[:12]:
+        log(f"  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+
+
 def capture_frame(torch, device, card_line):
     """Run the full-width model on one synthetic frame: keep the inputs the
     main path hands to K1 (per-prim arrays and binning) and to K4 (the two
@@ -200,26 +236,8 @@ def capture_frame(torch, device, card_line):
         gsplat_cuda.rasterize_tiled, binning.cumsum1d = orig_rt, orig_cs
     torch.cuda.synchronize()
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
-                                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.apply(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels only: an operator's device time repeats its kernels'
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    log(f"profiled frame (model forward, one sample): wall {wall_ms:.3f} ms,"
-        f" device busy {busy:.3f} ms in {sum(r[1] for r in rows)} kernels, "
-        f"idle share {max(0.0, 1.0 - busy / wall_ms):.3f} on {card_line}")
-    for ms, count, key in rows[:12]:
-        log(f"  {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    profile_forward(torch, model, batch, card_line,
+                    "profiled frame (model forward, one sample)")
     del model
     return seen
 
@@ -709,9 +727,10 @@ def train_path(gc, torch, card_line):
     # train=False forward the loop's summary takes at iteration 0; K4 twice
     # per render
     n = TRAIN_BATCH * TRAIN_STEPS
-    expected = {"pair_grads": n, "cumsum_cols": n,
-                "compositor_fwd": n + TRAIN_BATCH,
-                "cumsum1d": 2 * (n + TRAIN_BATCH)}
+    expected = {name: 0 for name in gc.LAUNCHES}
+    expected.update(pair_grads=n, cumsum_cols=n,
+                    compositor_fwd=n + TRAIN_BATCH,
+                    cumsum1d=2 * (n + TRAIN_BATCH))
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
     if "latest" not in written:
@@ -720,10 +739,13 @@ def train_path(gc, torch, card_line):
 
 
 def small_reference(torch):
-    """Phase 9: both entry points at configs/rgca_synthetic.yml size on the
-    card (kernels) against the CPU (plain versions): the eval means, and two
-    training steps (the losses of the second depend on the first one's
-    update) with the gradients of the first."""
+    """Phase 11: both RGCA entry points at configs/rgca_synthetic.yml size
+    on the card (kernels) against the CPU (plain versions): the eval means,
+    and two training steps (the losses of the second depend on the first
+    one's update) with the gradients of the first; then the mesh eval path
+    at the size of tests/test_torch_mesh_vae_run_test.py."""
+    import numpy as np
+
     from goliath_torch import train as train_lib
     from goliath_torch.config import load_config
     from goliath_torch.scripts import run_test, run_train
@@ -765,6 +787,277 @@ def small_reference(torch):
             and set(g_got) == set(g_ref)):
         raise AssertionError("the card's training steps disagree with the "
                              "CPU's")
+
+    # the sphere's pole fans are faces with two equal corners: their
+    # normals are 0/0 up to rounding, so the card's and the CPU's roundings
+    # of the posed mesh turn them into other numbers; the template is moved
+    # by N(0, 0.5) per vertex (as in tests/test_torch_mesh_vae.py) so that
+    # every face has a well-defined normal
+    build = run_test.build_dataset
+
+    def jittered(data_cfg, **kw):
+        ds = build(data_cfg, **kw)
+        v = ds.static_assets["template_mesh_unscaled"]
+        ds.static_assets["template_mesh_unscaled"] = (
+            v + np.random.RandomState(7).randn(*v.shape) * 0.5).astype(
+                np.float32)
+        return ds
+
+    cfg = mesh_config(MESH_SMALL)
+    run_test.build_dataset = jittered
+    try:
+        got = run_test.main(cfg, device=DEVICE)
+        ref = run_test.main(cfg, device="cpu")
+    finally:
+        run_test.build_dataset = build
+    worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
+    log(f"small-input mesh eval reference (card vs CPU plain): means "
+        f"{json.dumps(got)}; max rel diff {worst:.3e} (tolerance "
+        f"{SMALL_RTOL})")
+    if not worst <= SMALL_RTOL:
+        raise AssertionError("the card's mesh eval disagrees with the CPU's")
+
+
+MESH_DATA = {"synthetic": True, "img_h": 2048, "img_w": 1334,
+             "uv_size": 1024, "n_lat": 128, "n_lon": 256, "n_cams": 4,
+             "n_frames": 3}
+# the small mesh config of tests/test_torch_mesh_vae_run_test.py
+MESH_SMALL = [
+    'test.data={"synthetic": true, "img_h": 48, "img_w": 48, "uv_size": 64, '
+    '"n_cams": 2, "n_frames": 2, "seed": 2}',
+    'model.encoder={"n_embs": 16, "enc_size": 64}',
+    'model.encoder_face={"n_embs": 8, "enc_size": 32}',
+    'model.decoder={"init_uv_size": 16, "n_pose_dims": 6, '
+    '"n_pose_enc_channels": 8, "n_embs": 16, "n_embs_enc_channels": 8, '
+    '"n_face_embs": 8, "n_init_channels": 16, "n_min_channels": 4, '
+    '"uv_size": 64}',
+    'model.decoder_view={"net_uv_size": 64, "n_init_ftrs": 4}',
+    'model.shadow_net={"uv_size": 128, "shadow_size": 32, "n_dims": 8}',
+    'model.renderer={"image_height": 48, "image_width": 48, '
+    '"max_faces_per_tile": 128, "chunk": 16}',
+    'model.pixel_cal={"image_height": 48, "image_width": 48, "ds_rate": 8}']
+# K5's float32 operations per (row, pixel) evaluation, counted in
+# csrc/zbuffer.cu: 12 for the edge functions, 6 for izp, a max, a division
+# and 5 comparisons
+K5_OPS_PER_EVAL = 25
+
+
+def mesh_config(overrides=()):
+    """configs/mesh_vae.yml for run_test on synthetic data: the full-width
+    data of MESH_DATA (or what ``overrides`` set), the 3-joint synthetic
+    skeleton's 6 local pose dims, and the eval losses synthetic data runs
+    (rgb_l1, geom_l2, geom_lap with their schedules; mask_l1 against
+    image_mask: effnet needs weights that are not in the repo, head_geom_l2
+    and head_lap a capture asset, and no segmentation_fgbg is generated)."""
+    from goliath_torch.config import Config, load_config
+
+    cfg = load_config(str(ROOT / "configs" / "mesh_vae.yml"), overrides=[
+        f"test.data={yaml_flow(MESH_DATA)}", "test.ckpt=null",
+        "test.n_test_frames=3", "test.vis_path=null",
+        "model.decoder.n_pose_dims=6", *overrides])
+    losses = {k: cfg.loss.losses[k]
+              for k in ("rgb_l1", "geom_l2", "geom_lap", "mask_l1")}
+    losses["mask_l1"]["tgt_key"] = "image_mask"
+    cfg.loss.losses = Config.wrap(losses)
+    return cfg
+
+
+# the sphere covers 0.445-0.460 of each mesh frame's image; a binning fault
+# upstream of K5 and its plain version would leave holes in both
+MESH_MIN_COVERED = 0.3
+
+
+def mesh_eval_path(gc, torch, card_line, captured):
+    """run_test.main on configs/mesh_vae.yml at full width, counts reset
+    just before: 3 frames with finite losses that each cover at least
+    MESH_MIN_COVERED of the image, K5 once and K4 twice per frame, no splat
+    kernel. Keeps in ``captured`` the run's own inputs to K5 (first frame)
+    and to K4 (every scan), copied to the host without a synchronise so
+    that they add nothing to the run's device memory, then profiles a
+    second run of the last frame on the run's model."""
+    from goliath_torch.ops import binning, rasterizer
+    from goliath_torch.scripts import run_test
+
+    cfg = mesh_config()
+    frames, covered, k4_inputs, built = [], [], [], {}
+    orig_zb, orig_cs = rasterizer.zbuffer, binning.cumsum1d
+    orig_build = run_test.load_from_config
+
+    def to_host(x):   # pinned memory, no synchronise
+        return x.to("cpu", non_blocking=True) \
+            if isinstance(x, torch.Tensor) else x
+
+    def zb(*args):
+        if "k5" not in captured:
+            captured["k5"] = tuple(to_host(a) for a in args)
+        index_img, z_img = orig_zb(*args)
+        covered.append(((index_img >= 0).sum(), index_img.numel()))
+        return index_img, z_img
+
+    def cs(x):
+        k4_inputs.append(to_host(x))
+        return orig_cs(x)
+
+    def build(*a, **kw):
+        model = built["model"] = orig_build(*a, **kw)
+        orig_apply = model.apply
+
+        def apply(batch, **akw):
+            built["batch"] = batch   # the frame the loop holds anyway
+            return orig_apply(batch, **akw)
+
+        model.apply = apply
+        return model
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rasterizer.zbuffer, binning.cumsum1d = zb, cs
+    run_test.load_from_config = build
+    gc.reset_launch_counts()
+    try:
+        means = run_test.main(cfg, device=DEVICE, frame_seconds=frames)
+        torch.cuda.synchronize()
+        launches = dict(gc.LAUNCHES)
+    finally:
+        rasterizer.zbuffer, binning.cumsum1d = orig_zb, orig_cs
+        run_test.load_from_config = orig_build
+    peak = torch.cuda.max_memory_allocated()
+    captured["k4"] = k4_inputs
+    covered = [int(n) / size for n, size in covered]
+    log(f"mesh path launches: {launches}")
+    log(f"mesh eval means: {json.dumps(means)}")
+    for i, sec in enumerate(frames):
+        log(f"mesh frame {i}: wall {sec:.4f} s on {card_line}")
+    log(f"peak device memory (mesh eval): {peak / 2**30:.3f} GiB on "
+        f"{card_line}")
+    log(f"mesh frames: covered share {[round(c, 4) for c in covered]} "
+        f"(floor {MESH_MIN_COVERED})")
+    if len(frames) != 3 or not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError("mesh eval losses are not finite")
+    if len(covered) != 3 or not all(c >= MESH_MIN_COVERED for c in covered):
+        raise AssertionError("a mesh frame rendered too little of the mesh")
+    expected = {name: 0 for name in gc.LAUNCHES}
+    expected.update(zbuffer=3, cumsum1d=6)
+    if launches != expected:
+        raise AssertionError(f"mesh path launch counts {launches} != "
+                             f"{expected}")
+    profile_forward(torch, built.pop("model"), built.pop("batch"), card_line,
+                    "profiled mesh frame (mesh_vae forward of the last "
+                    "frame, run again)", train=False)
+    return launches
+
+
+def k4_mesh_check(gc, torch, inputs):
+    """K4 on the mesh path's own scans (per frame: the [faces] tile counts
+    and the [budget] slot marks) against torch.cumsum, exactly."""
+    worst = 0
+    for i, x in enumerate(inputs):
+        x = x.to(DEVICE)
+        err = int((gc.cumsum1d(x).long()
+                   - torch.cumsum(x, 0, dtype=torch.int32).long())
+                  .abs().max())
+        log(f"K4 mesh scan {i}: M={x.numel()} total={int(x.long().sum())} "
+            f"max_abs_err={err} (tolerance: none, exact)")
+        worst = max(worst, err)
+    if len(inputs) != 6 or worst:
+        raise AssertionError("K4 differs from torch.cumsum on the mesh "
+                             "path's scans")
+    return worst
+
+
+def face_box_evals(rows, start, win_end, ts, ntx, img_h, img_w):
+    """Row-pixel evaluations the z-buffer needs on this data: for each row
+    in a tile's window, the tile's pixel centres inside the face's screen
+    bounding box (a pixel outside it fails an edge test whatever the depth).
+    The corners are the pairwise intersections of the row's three edge
+    lines, in float64; rows that cannot hit (|inv_area|*valid = 0) need
+    none."""
+    import torch
+
+    n = (win_end - start).clamp(min=0)
+    tile = torch.repeat_interleave(torch.arange(len(n), device=n.device), n)
+    first = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    r = start[tile] + torch.arange(len(tile), device=n.device) - first
+    d = rows[r].double()
+    a, b, c = d[:, 0:3], d[:, 3:6], d[:, 6:9]
+    xs, ys = [], []
+    for i, j in ((0, 1), (1, 2), (2, 0)):
+        det = a[:, i] * b[:, j] - a[:, j] * b[:, i]
+        xs.append((b[:, i] * c[:, j] - b[:, j] * c[:, i]) / det)
+        ys.append((c[:, i] * a[:, j] - c[:, j] * a[:, i]) / det)
+    xs, ys = torch.stack(xs, 1), torch.stack(ys, 1)
+    x0 = ((tile % ntx) * ts).double()
+    y0 = ((tile // ntx) * ts).double()
+
+    def span(lo, hi, t0, size):   # pixels p of the tile with lo <= p+0.5 <= hi
+        first_p = torch.maximum(torch.ceil(lo - 0.5), t0)
+        last_p = torch.minimum(torch.minimum(torch.floor(hi - 0.5),
+                                             t0 + ts - 1),
+                               torch.full_like(t0, size - 1))
+        return (last_p - first_p + 1).clamp(min=0)
+
+    cnt = (span(xs.amin(1), xs.amax(1), x0, img_w)
+           * span(ys.amin(1), ys.amax(1), y0, img_h))
+    ok = (d[:, 9] > 0) & torch.isfinite(xs).all(1) & torch.isfinite(ys).all(1)
+    return int(cnt[ok].sum())
+
+
+def check_k5(gc, torch, args):
+    """K5 against its plain version on the mesh path's first frame (the
+    arguments its rasterize call handed to K5): face index equal on every
+    pixel and depth equal bit for bit."""
+    from goliath_torch.ops import rasterizer_cuda as rc
+
+    args = tuple(a.to(DEVICE) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    (rows, sorted_prim, tile_start, tile_end, img_h, img_w, ts, ntx, nty,
+     chunk, mfpt) = args
+    idx, z = rc.zbuffer(*args)
+    p_idx, p_z = rc.zbuffer_plain(*args)
+    torch.cuda.synchronize()
+    idx_bad = int((idx != p_idx).sum())
+    z_bad = int((z.view(torch.int32) != p_z.view(torch.int32)).sum())
+    err = float((z - p_z).abs().max())
+    covered = float((idx >= 0).float().mean())
+    pairs = (tile_end - tile_start).long()
+    nchunks = mfpt // chunk + 1
+    start = tile_start.long()
+    win_end = torch.minimum(tile_end.long(),
+                            (start // chunk + nchunks) * chunk)
+    in_window = int((win_end - start).clamp(min=0).sum())
+    design_evals = in_window * ts * ts
+    evals = face_box_evals(rows, start, win_end, ts, ntx, img_h, img_w)
+    nbytes = 64 * in_window + 8 * img_h * img_w
+    b_ms, b_by = bound_ms(nbytes, K5_OPS_PER_EVAL * evals)
+    log(f"K5 rows={tuple(rows.shape)} tiles={ntx * nty} ({ntx}x{nty} of "
+        f"{ts}px) pairs={int(pairs.sum())} faces per tile: max "
+        f"{int(pairs.max())} mean {float(pairs.float().mean()):.2f} "
+        f"(mean over non-empty {float(pairs[pairs > 0].float().mean()):.2f});"
+        f" tiles over max_faces_per_tile={mfpt}: {int((pairs > mfpt).sum())}"
+        f"; covered share {covered:.4f} (floor {MESH_MIN_COVERED}); "
+        f"mismatches: face index {idx_bad}, depth bits {z_bad} (max abs "
+        f"{err:.3e}); tolerance: none, both exact")
+    if idx_bad or z_bad:
+        bad = torch.nonzero(idx != p_idx)[:10].tolist()
+        log(f"K5 first mismatching pixels (y, x): {bad}")
+        raise AssertionError("K5 differs from its plain version")
+    if not covered >= MESH_MIN_COVERED:
+        raise AssertionError("K5's frame covers too little of the image")
+    ms = cuda_ms(lambda: rc.zbuffer(*args), reps=50)
+    plain_ms = cuda_ms(lambda: rc.zbuffer_plain(*args), reps=2, warmup=1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = K5_OPS_PER_EVAL * evals / FP32_OPS_PER_S * 1e3
+    log(f"K5 timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+        f"ms by {b_by} ({ms / b_ms:.1f}x the bound): bytes {nbytes} "
+        f"({in_window} rows in the windows at 64 B, 8 B per pixel written) "
+        f"-> {t_bytes:.4f} ms; operations: {evals} row-pixel evaluations "
+        f"inside the faces' bounding boxes at {K5_OPS_PER_EVAL} each -> "
+        f"{t_ops:.4f} ms (this design evaluates every pixel of the tile: "
+        f"{design_evals}, {design_evals / max(evals, 1):.1f}x as many); "
+        f"library: none (no PyTorch call computes a z-buffer)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
 
 
 def main() -> int:
@@ -832,23 +1125,35 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase("main_path", main_path, gc, torch, card_line)
     phase("train_path", train_path, gc, torch, card_line)
+    torch.cuda.empty_cache()
+    mesh_inputs = {}
+    phase("mesh_eval_path", mesh_eval_path, gc, torch, card_line,
+          mesh_inputs)
+    if "k5" in mesh_inputs:
+        phase("k5_check", check_k5, gc, torch, mesh_inputs["k5"])
+    if "k4" in mesh_inputs:
+        phase("k4_mesh", k4_mesh_check, gc, torch, mesh_inputs["k4"])
+    del mesh_inputs
+    torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
 
-    eval_launches = phases.get("main_path", {})
-    train_launches = phases.get("train_path", {})
+    paths = {"eval": phases.get("main_path", {}),
+             "train": phases.get("train_path", {}),
+             "mesh": phases.get("mesh_eval_path", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check"]),
               "pair_grads": ("K2", ["k2_check", "backward_check"]),
               "cumsum_cols": ("K3", ["k3_check", "backward_check"]),
-              "cumsum1d": ("K4", ["k4_timing", "k4_exact"])}
+              "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh"]),
+              "zbuffer": ("K5", ["k5_check"])}
     verdicts = []
     for name, (kid, keys) in checks.items():
         entries[name] = dict(
             name=name, route="cuda",
             source=f"goliath_torch/ops/csrc/{gc.SOURCES[name]}",
             replaces=replaces(gc, name),
-            launches=eval_launches.get(name, 0) + train_launches.get(name, 0),
-            launches_eval_path=eval_launches.get(name, 0),
-            launches_train_path=train_launches.get(name, 0),
+            launches=sum(p.get(name, 0) for p in paths.values()),
+            **{f"launches_{k}_path": p.get(name, 0)
+               for k, p in paths.items()},
             **phases.get(keys[0], {}))
         ok = all(k in phases for k in keys)
         verdicts.append(f"{kid} {name}: {'ok' if ok else 'FAILED'}")

@@ -12,8 +12,11 @@ a ported path is a hand-written CUDA C++ kernel for ``sm_90a`` under
 kernel; a CPU tensor runs the kernel's plain PyTorch version
 (``ops/backend.py``).
 
-Ported so far: the RGCA eval render (``scripts/run_test.py``). Training,
-the mesh and MVP paths and the remaining kernels are queued in ROADMAP.md.
+Ported so far: the RGCA eval render (``scripts/run_test.py``), the RGCA
+training step (``scripts/run_train.py``) and the mesh_vae full-body eval
+render (``scripts/run_test.py`` on ``configs/mesh_vae.yml``, with the mesh
+z-buffer kernel K5). The other model paths and the remaining kernels are
+queued in ROADMAP.md.
 """
 
 __version__ = "0.1.0"

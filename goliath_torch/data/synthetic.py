@@ -1,19 +1,23 @@
 """Synthetic capture fixture: a textured UV-sphere in a camera ring (port of
-the JAX package's data/synthetic.py, head captures with noise targets).
+the JAX package's data/synthetic.py, with noise targets).
 
 Generates static assets (topology, verts mean/var, color mean, camera ids,
-neighbour tables) and per-(frame, camera) samples with the keys the head
-dataset yields. Every array comes from numpy ``RandomState`` draws in the
-JAX package's order, so both packages see the same data for the same seed.
+neighbour tables, and the body-model assets of the mesh path: a 3-joint
+momentum skeleton from ``make_synthetic_lbs``, the unscaled template mesh,
+skeleton scales, the AO mean and the floor pose) and per-(frame, camera)
+samples with the keys the head and body datasets yield (``pose`` and
+``ambient_occlusion`` for the body models). Every array comes from numpy
+``RandomState`` draws in the JAX package's order, so both packages see the
+same data for the same seed.
 
-``render_targets=True`` (lambert-lit targets drawn by the mesh rasterizer)
-raises until the rasterizer is ported (ROADMAP queue 2, K5), and the
-body-model assets (LBS skeleton, floor) come with the body and hand paths.
+``render_targets=True`` (lambert-lit targets drawn with the mesh
+rasterizer, per-frame seeding) is not ported yet and raises (ROADMAP
+queue 1, mesh path).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -84,8 +88,75 @@ def make_camera_ring(n_cams: int, img_h: int, img_w: int,
     return np.stack(Ks), np.stack(Rts), np.stack(poss)
 
 
+def make_synthetic_lbs(v: np.ndarray, vi: np.ndarray, vt: np.ndarray,
+                       vti: np.ndarray, n_joints: int = 3):
+    """Tiny momentum-format skeleton: a chain of joints along +y with
+    nearest-2-joint linear skinning. Returns (model_json, lbs_config_dict)
+    for ``goliath_torch.utils.lbs``."""
+    ys = np.linspace(v[:, 1].min(), v[:, 1].max(), n_joints)
+    bones = []
+    for j in range(n_joints):
+        bones.append({
+            "Name": f"joint{j}",
+            "Parent": j - 1 if j > 0 else 2**30,  # root parent out of range
+            "PreRotation": [0.0, 0.0, 0.0, 1.0],
+            "TranslationOffset": [
+                0.0, float(ys[j] - (ys[j - 1] if j > 0 else 0.0)), 0.0
+            ],
+        })
+
+    # skin weights: blend between the two nearest chain joints by y
+    weights_flat: List = []
+    offsets = [0]
+    for vert in v:
+        y = vert[1]
+        j = int(np.clip(np.searchsorted(ys, y) - 1, 0, n_joints - 2))
+        t = (y - ys[j]) / max(ys[j + 1] - ys[j], 1e-6)
+        t = float(np.clip(t, 0.0, 1.0))
+        weights_flat.append((j, 1.0 - t))
+        weights_flat.append((j + 1, t))
+        offsets.append(len(weights_flat))
+
+    model_json = {
+        "Skeleton": {"Bones": bones},
+        "SkinnedModel": {
+            "RestPositions": v.tolist(),
+            "RestVertexNormals": np.zeros_like(v).tolist(),
+            "SkinningWeights": weights_flat,
+            "SkinningOffsets": offsets,
+            "Faces": {
+                "Indices": np.asarray(vi).reshape(-1).tolist(),
+                "TextureIndices": np.asarray(vti).reshape(-1).tolist(),
+            },
+            "TextureCoordinates": np.asarray(vt).reshape(-1).tolist(),
+        },
+    }
+
+    # params: [root tx ty tz rx ry rz | per-child-joint rx ry rz | scales(J)]
+    n_pose = 6 + 3 * (n_joints - 1)
+    n_params = n_pose + n_joints
+    transform = np.zeros((7 * n_joints, n_params), np.float32)
+    for c in range(6):  # root tx..rz
+        transform[c, c] = 1.0
+    for j in range(1, n_joints):
+        for c in range(3):  # child rx..rz
+            transform[j * 7 + 3 + c, 6 + 3 * (j - 1) + c] = 1.0
+    for j in range(n_joints):  # per-joint scale channels
+        transform[j * 7 + 6, n_pose + j] = 1.0
+
+    lbs_config_dict = {
+        "channel_names": ["tx", "ty", "tz", "rx", "ry", "rz", "sc"],
+        "transform": transform,
+        "transform_offsets": np.zeros((1, 7 * n_joints), np.float32),
+        "limits": [],
+        "nr_scaling_params": n_joints,
+        "nr_position_params": n_pose,
+    }
+    return model_json, lbs_config_dict
+
+
 class SyntheticDataset:
-    """Map-style dataset of head-capture-shaped samples (numpy)."""
+    """Map-style dataset of capture-shaped samples (numpy)."""
 
     def __init__(
         self,
@@ -103,8 +174,8 @@ class SyntheticDataset:
     ):
         if render_targets:
             raise NotImplementedError(
-                "render_targets=True needs the mesh rasterizer, which is not "
-                "ported yet (ROADMAP queue 2, K5)")
+                "render_targets=True (rasterized lambert-lit targets) is not "
+                "ported yet (ROADMAP queue 1, mesh path)")
         self.rng = np.random.RandomState(seed)
         self.img_h, self.img_w = img_h, img_w
         self.uv_size = uv_size
@@ -121,7 +192,10 @@ class SyntheticDataset:
         color_mean = (
             self.rng.rand(3, uv_size, uv_size).astype(np.float32) * 128 + 64
         )
-        self.n_pose_total = 6 + 3 * 2  # the JAX fixture's 3-joint chain
+        n_joints = 3
+        lbs_model_json, lbs_config_dict = make_synthetic_lbs(
+            v, vi, vt, vti, n_joints)
+        self.n_pose_total = 6 + 3 * (n_joints - 1)
         self.static_assets = AttrDict({
             "topology": {
                 "v": v, "vi": vi, "vt": vt, "vti": vti,
@@ -133,8 +207,15 @@ class SyntheticDataset:
             "color_mean": color_mean,
             "camera_ids": self.camera_ids,
             "n_pose_dims": n_pose_dims,
+            "lbs_model_json": lbs_model_json,
+            "lbs_config_dict": lbs_config_dict,
+            "template_mesh_unscaled": v,
+            "skeleton_scales": np.zeros((1, n_joints), np.float32),
+            "ao_mean": np.full((1, uv_size, uv_size), 0.5, np.float32),
             "tex_mean": color_mean,
             "tex_var": 64.0**2,
+            "floor_Rt": np.concatenate(
+                [np.eye(3), np.zeros((3, 1))], 1).astype(np.float32),
         })
 
     def __len__(self) -> int:

@@ -1,5 +1,5 @@
 """Weight-normalized layers with untied biases (port of
-the JAX package's nn/layers.py, the layers RGCA uses).
+the JAX package's nn/layers.py, the layers RGCA and mesh_vae use).
 
 Weight normalization is w = v * g / ||v||_F: ONE Frobenius norm over the
 whole of v and a per-output-channel gain g (the JAX package's nn/layers.py:53-58,
@@ -77,6 +77,28 @@ class LinearWN(_WNBase):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight(), self.bias)
+
+
+class Conv2dWN(_WNBase):
+    """Weight-normalized conv, weight (out, in/groups, kh, kw), tied
+    per-channel bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, groups: int = 1,
+                 use_bias: bool = True, alpha: float = 0.2,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        k = kernel_size
+        std = glorot_gain(alpha) * math.sqrt(
+            2.0 / ((in_channels + out_channels) * k * k))
+        v = _uniform((out_channels, in_channels // groups, k, k), std,
+                     generator)
+        self._init_wn(v, (out_channels,), use_bias)
+        self.stride, self.padding, self.groups = stride, padding, groups
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.weight(), self.bias, self.stride,
+                        self.padding, 1, self.groups)
 
 
 class Conv2dWNUB(_WNBase):

@@ -1,6 +1,7 @@
-// PyTorch bindings of the splat path's CUDA kernels (K1 compositor_fwd.cu,
-// K2 compositor_bwd.cu, K3 and K4 cumsum.cu). Built together with them by torch.utils.cpp_extension.load
-// in goliath_torch/ops/gsplat_cuda.py. Each binding checks its tensors,
+// PyTorch bindings of the port's CUDA kernels (K1 compositor_fwd.cu,
+// K2 compositor_bwd.cu, K3 and K4 cumsum.cu, K5 zbuffer.cu). Built together
+// with them by torch.utils.cpp_extension.load in
+// goliath_torch/ops/gsplat_cuda.py. Each binding checks its tensors,
 // allocates the outputs, launches on the current stream of the tensors'
 // device and raises with the CUDA error if the launch fails.
 
@@ -26,6 +27,12 @@ extern "C" int goliath_compositor_fwd(
     const int32_t* tile_end, int n_tiles, int ntx, int tile_size, int img_h,
     int img_w, int chunk, int nchunks, float* out_img, float* out_T,
     int32_t* out_cnt, cudaStream_t stream);
+extern "C" int goliath_zbuffer(const float* rows, const int32_t* sorted_prim,
+                               const int32_t* tile_start,
+                               const int32_t* tile_end, int n_tiles, int ntx,
+                               int tile_size, int img_h, int img_w, int chunk,
+                               int nchunks, int32_t* index_img, float* z_img,
+                               cudaStream_t stream);
 
 static void check_launch(int err, const char* name) {
   TORCH_CHECK(err == 0, name, " failed to launch: ",
@@ -154,6 +161,42 @@ at::Tensor compositor_bwd(const at::Tensor& rows, const at::Tensor& tile_start,
   return grads;
 }
 
+// rows [R, 16] f32 face rows and sorted_prim [R] i32 in sorted-pair order;
+// tile_start/tile_end [ntx * nty] i32 with 0 <= start <= end <= R. Returns
+// (face index [H, W] i32, -1 where empty; depth [H, W] f32).
+std::vector<at::Tensor> zbuffer(const at::Tensor& rows,
+                                const at::Tensor& sorted_prim,
+                                const at::Tensor& tile_start,
+                                const at::Tensor& tile_end, int64_t ntx,
+                                int64_t tile_size, int64_t img_h,
+                                int64_t img_w, int64_t chunk,
+                                int64_t nchunks) {
+  check_input(rows, at::kFloat, 2, "rows");
+  check_input(sorted_prim, at::kInt, 1, "sorted_prim");
+  check_input(tile_start, at::kInt, 1, "tile_start");
+  check_input(tile_end, at::kInt, 1, "tile_end");
+  for (const at::Tensor* t : {&sorted_prim, &tile_start, &tile_end})
+    TORCH_CHECK(t->device() == rows.device(),
+                "all tensors must share a device");
+  TORCH_CHECK(rows.size(1) == 16, "rows must be [R, 16]");
+  TORCH_CHECK(sorted_prim.numel() == rows.size(0),
+              "sorted_prim must have one entry per row");
+  const int64_t n_tiles = tile_start.numel();
+  TORCH_CHECK(tile_end.numel() == n_tiles, "tile bounds differ in length");
+  const c10::cuda::CUDAGuard guard(rows.device());
+  at::Tensor index_img = at::empty({img_h, img_w}, tile_start.options());
+  at::Tensor z_img = at::empty({img_h, img_w}, rows.options());
+  check_launch(
+      goliath_zbuffer(rows.data_ptr<float>(), sorted_prim.data_ptr<int32_t>(),
+                      tile_start.data_ptr<int32_t>(),
+                      tile_end.data_ptr<int32_t>(), n_tiles, ntx, tile_size,
+                      img_h, img_w, chunk, nchunks,
+                      index_img.data_ptr<int32_t>(), z_img.data_ptr<float>(),
+                      at::cuda::getCurrentCUDAStream().stream()),
+      "zbuffer");
+  return {index_img, z_img};
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("cumsum_cols_f32", &cumsum_cols_f32,
         "K3: inclusive float32 prefix sums along dim 1 of [F, M]");
@@ -161,4 +204,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K2: tile compositor backward, per-pair gradients");
   m.def("cumsum_i32", &cumsum_i32, "K4: inclusive int32 prefix sum");
   m.def("compositor_fwd", &compositor_fwd, "K1: tile compositor forward");
+  m.def("zbuffer", &zbuffer, "K5: mesh z-buffer, nearest face per pixel");
 }

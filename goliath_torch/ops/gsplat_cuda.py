@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the splat path, their plain versions, and
-the build and binding code (counterpart of the JAX package's ops/gsplat_pallas.py).
+the build and binding code of all the port's kernels (counterpart of the
+JAX package's ops/gsplat_pallas.py).
 
-Kernels (sources in ``ops/csrc/``) are built at first use into one
+Kernels (sources in ``ops/csrc/``; the mesh z-buffer K5 of
+``ops/rasterizer_cuda.py`` among them) are built at first use into one
 extension module with ``torch.utils.cpp_extension.load``: nvcc compiles each
 ``.cu`` for ``sm_90a`` and the host compiler ``csrc/bindings.cpp``, whose
 bindings check their tensors and launch on the current stream. The build
@@ -54,12 +56,14 @@ NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
 SOURCES = {"compositor_fwd": "compositor_fwd.cu",
            "pair_grads": "compositor_bwd.cu",
            "cumsum_cols": "cumsum.cu",
-           "cumsum1d": "cumsum.cu"}
+           "cumsum1d": "cumsum.cu",
+           "zbuffer": "zbuffer.cu"}
 REPLACES = {
     "compositor_fwd": "ops/gsplat_pallas.py:245",
     "pair_grads": "ops/gsplat_pallas.py:471",
     "cumsum_cols": "ops/gsplat_pallas.py:169",
     "cumsum1d": "ops/gsplat_pallas.py:110",
+    "zbuffer": "ops/rasterizer_pallas.py:28",
 }
 
 # launches of each kernel since the last reset_launch_counts()

@@ -1,15 +1,18 @@
 """UV-domain geometry core (port of the JAX package's utils/geom.py, the part
-RGCA uses).
+the RGCA and mesh_vae paths use).
 
 * Host-side tables (numpy, computed once when a ``GeometryModule`` is
   built): rasterize the UV layout into per-texel face/vertex-index and
-  barycentric images; vertex -> texcoord and first-ring neighbour tables.
-  Copied from the JAX package so that this package never imports it.
+  barycentric images, optionally impainted from the nearest valid texel
+  (scipy's Euclidean distance transform); vertex -> texcoord and
+  first-ring neighbour tables. Copied from the JAX package so that this
+  package never imports it.
 * Device-side ops (torch): vertex -> UV transfer (``values_to_uv``, a
-  gather and a barycentric lerp), UV -> vertex sampling, vertex normals.
+  gather and a barycentric lerp), UV -> vertex sampling, vertex normals,
+  view cosines, the depth-discontinuity mask.
 
-Impainting, TBN frames, projections and view-texture unprojection come
-with the paths that use them (ROADMAP queue 1).
+TBN frames, projections and view-texture unprojection come with the paths
+that use them (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -129,6 +132,32 @@ def make_uv_barys(
     return face_index, bary.astype(np.float32)
 
 
+def index_image_impaint(
+    index_image: np.ndarray,
+    bary_image: Optional[np.ndarray] = None,
+    distance_threshold: float = 100.0,
+):
+    """Fill empty texels from their nearest valid texel (scipy's Euclidean
+    distance transform, which picks the same nearest texel as the JAX
+    package's)."""
+    from scipy import ndimage
+
+    if index_image.ndim == 3:
+        valid = (index_image != -1).any(axis=-1)
+    else:
+        valid = index_image != -1
+    dist, (src_i, src_j) = ndimage.distance_transform_edt(
+        ~valid, return_indices=True)
+    fill = (~valid) & (dist < distance_threshold)
+    out = index_image.copy()
+    out[fill] = index_image[src_i[fill], src_j[fill]]
+    if bary_image is not None:
+        bout = bary_image.copy()
+        bout[fill] = bary_image[src_i[fill], src_j[fill]]
+        return out, bout
+    return out
+
+
 def compute_v2uv(n_verts: int, vi: np.ndarray, vti: np.ndarray, n_max: int = 4
                  ) -> np.ndarray:
     """Vertex index -> up to n_max texture-coordinate indices."""
@@ -225,25 +254,51 @@ def vert_normals(v: torch.Tensor, vi: torch.Tensor, eps: float = 1e-5
                            + eps * eps)
 
 
+def compute_view_cos(verts: torch.Tensor, faces: torch.Tensor,
+                     camera_pos: torch.Tensor) -> torch.Tensor:
+    """Cosine between each vertex normal and the direction from the camera
+    to the vertex: [B, V]."""
+    vn = vert_normals(verts, faces)
+    v2c = verts - camera_pos[:, None]
+    v2c = v2c / torch.linalg.norm(v2c, dim=-1, keepdim=True).clamp(min=1e-12)
+    return torch.einsum("bnd,bnd->bn", vn, v2c)
+
+
+def depth_discontinuity_mask(depth: torch.Tensor, threshold: float = 40.0,
+                             pool_ksize: int = 3) -> torch.Tensor:
+    """Sobel-magnitude depth discontinuities of [B, 1, H, W] depth, dilated
+    by a ``pool_ksize`` box (boolean [B, 1, H, W])."""
+    kernel = torch.tensor(
+        [[[[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]]],
+         [[[-1, -2, -1], [0, 0, 0], [1, 2, 1]]]],
+        dtype=depth.dtype, device=depth.device)
+    g = torch.nn.functional.conv2d(depth, kernel, padding=1)
+    disc = (torch.linalg.norm(g, dim=1, keepdim=True) > threshold).to(
+        depth.dtype)
+    pad = pool_ksize // 2
+    pooled = torch.nn.functional.max_pool2d(disc, pool_ksize, stride=1,
+                                            padding=pad)
+    return pooled > 0.0
+
+
 # ---------------------------------------------------------------------------
 # GeometryModule
 # ---------------------------------------------------------------------------
 
 
 class GeometryModule:
-    """UV <-> vertex transfer tables (the JAX package's utils/geom.py:405-495).
+    """UV <-> vertex transfer tables (the JAX package's utils/geom.py:441-497).
 
     The index and barycentric images are computed once on the host and
-    kept on ``device`` as tensors."""
+    kept on ``device`` as tensors. With ``impaint`` the empty texels within
+    ``impaint_threshold`` texels of the layout take their nearest valid
+    texel's entries."""
 
     def __init__(self, vi: np.ndarray, vt: np.ndarray, vti: np.ndarray,
                  v2uv: Optional[np.ndarray], uv_size: int,
                  flip_uv: bool = False, impaint: bool = False,
+                 impaint_threshold: float = 100.0,
                  device: Union[str, torch.device] = "cuda"):
-        if impaint:
-            raise NotImplementedError(
-                "UV impainting is not ported yet (ROADMAP queue 1, the "
-                "mesh path's utils/geom.py)")
         device = resolve_device(device)
         self.uv_size = uv_size
         self.vi_np = np.asarray(vi, dtype=np.int64)
@@ -254,6 +309,11 @@ class GeometryModule:
         face_index, bary_image = make_uv_barys(self.vt_np, self.vti_np,
                                                uv_size=uv_size,
                                                flip_uv=flip_uv)
+        if impaint:
+            index_image, bary_image = index_image_impaint(
+                index_image, bary_image, impaint_threshold)
+            face_index = index_image_impaint(
+                face_index, distance_threshold=impaint_threshold)
         self.index_image_np = index_image
         self.bary_image_np = bary_image
         self.face_index_image_np = face_index

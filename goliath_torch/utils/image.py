@@ -1,11 +1,13 @@
 """Image utilities (port of the JAX package's utils/image.py, the part the
-ported losses and summaries call: mask morphology, the sRGB curve and the
-difference-image remap). The rest of the color pipeline comes with the
-paths that use it.
+ported losses, summaries and models call: mask morphology, the sRGB curve,
+the difference-image remap and the host-side gaussian blur of mesh_vae's
+texture mean). The rest of the color pipeline comes with the paths that
+use it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -43,3 +45,17 @@ def erode(x: torch.Tensor, ks: int) -> torch.Tensor:
     if x.dtype == torch.bool:
         return ~dilate(~x, ks)
     return 1 - dilate(1 - x, ks)
+
+
+def gaussian_blur_np(x: np.ndarray, ksize: int) -> np.ndarray:
+    """Host-side gaussian blur of [B, C, H, W] with torchvision's default
+    sigma = 0.3*((k-1)*0.5 - 1) + 0.8 (scipy, as the JAX package)."""
+    from scipy import ndimage
+
+    sigma = 0.3 * ((ksize - 1) * 0.5 - 1) + 0.8
+    out = np.empty_like(x)
+    for b in range(x.shape[0]):
+        for c in range(x.shape[1]):
+            out[b, c] = ndimage.gaussian_filter(x[b, c], sigma,
+                                                truncate=ksize / (2 * sigma))
+    return out

@@ -1,16 +1,24 @@
 """Image sampling by gather and lerp (port of the JAX package's utils/sampling.py,
-the part ``utils/geom.py`` uses).
+the parts the RGCA and mesh_vae paths use).
 
 ``grid_sample`` follows torch's convention and the JAX package's formula
 term for term (four gathers, zero or border padding), so both packages give
-the same numbers. ``interpolate_bilinear``, ``grid_sample_3d`` and
-``avg_pool2d`` come with the paths that use them (ROADMAP queue 1).
+the same numbers. ``interpolate_bilinear`` builds the JAX package's
+separable two-tap interpolation matrices (in float64, then float32) and
+applies them as matrix products, so its weights are those of the JAX
+package to the bit; ``F.interpolate`` computes its weights in float32 from
+a float32 scale, which differs in the last bits wherever the ratio of the
+sizes is not a power of two (the pixel bias of mesh_vae, 166 -> 1334).
+``grid_sample_3d`` and ``avg_pool2d`` come with the paths that use them
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Literal
 
+import numpy as np
 import torch
 
 
@@ -73,4 +81,45 @@ def grid_sample(
                 w = w * valid.to(image.dtype)
             out = out + _gather2d(image, yi.clamp(0, H - 1),
                                   xi.clamp(0, W - 1)) * w[:, None]
+    return out
+
+
+@lru_cache(maxsize=64)
+def _interp_matrix(n_in: int, n_out: int, align_corners: bool,
+                   device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """Static 1-D bilinear interpolation matrix [n_out, n_in] (2 taps/row),
+    the JAX package's ``_interp_matrix``, on ``device``. Built once per
+    (sizes, device, dtype): a frame would otherwise copy it to the card at
+    every call."""
+    if align_corners:
+        xs = np.linspace(0.0, n_in - 1.0, n_out, dtype=np.float64)
+    else:
+        xs = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    x0 = np.clip(np.floor(xs), 0, n_in - 1)
+    x1 = np.clip(x0 + 1, 0, n_in - 1)
+    w = np.clip(xs - x0, 0.0, 1.0)
+    m = np.zeros((n_out, n_in), np.float32)
+    rows = np.arange(n_out)
+    m[rows, x0.astype(np.int64)] += (1.0 - w).astype(np.float32)
+    m[rows, x1.astype(np.int64)] += w.astype(np.float32)
+    return torch.from_numpy(m).to(device=device, dtype=dtype)
+
+
+def interpolate_bilinear(image: torch.Tensor,
+                         scale_factor: float | None = None,
+                         size: tuple[int, int] | None = None,
+                         align_corners: bool = False) -> torch.Tensor:
+    """``F.interpolate(mode='bilinear')`` for [B, C, H, W] as the separable
+    matrix products out = My @ img @ Mx^T of the JAX package."""
+    B, C, H, W = image.shape
+    if size is None:
+        size = (int(H * scale_factor), int(W * scale_factor))
+    Ho, Wo = size
+    out = image
+    if Ho != H:
+        my = _interp_matrix(H, Ho, align_corners, image.device, image.dtype)
+        out = torch.einsum("oh,bchw->bcow", my, out)
+    if Wo != W:
+        mx = _interp_matrix(W, Wo, align_corners, image.device, image.dtype)
+        out = torch.einsum("pw,bchw->bchp", mx, out)
     return out

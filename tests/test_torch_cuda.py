@@ -5,7 +5,8 @@ imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: K4 exact (integer scan); K1 atol 1e-4 / rtol 1e-4 on color and
+Tolerances: K4 exact (integer scan); K5 exact, face index and depth (the
+same float32 operations, each rounded on its own, in the same order); K1 atol 1e-4 / rtol 1e-4 on color and
 transmittance (sequential compositing against the plain version's
 per-chunk cumprod, float32) and the processed-block count exact. K3:
 2e-6 of each row's largest running sum against a float64 scan, 1e-5
@@ -14,7 +15,9 @@ against the float32 torch.cumsum (float32 sums in other orders over up to
 largest entry (the same float32 sums over a tile's pixels in other orders;
 the suffix-from-total identity cancels terms as large as the column's
 largest). Gradients of render on the card against the CPU: rtol 1e-3 with
-atol 1e-3 of each gradient's largest entry.
+atol 1e-3 of each gradient's largest entry. The mesh RenderLayer on the card
+against the CPU: the same coverage, the same face on >= 99.9% of the
+pixels, the image at atol/rtol 1e-4 where the face agrees.
 """
 
 import numpy as np
@@ -211,3 +214,72 @@ def test_render_on_the_card_matches_the_cpu(cuda):
     for k in ref:
         torch.testing.assert_close(got[k].cpu(), ref[k], atol=1e-4,
                                    rtol=1e-4)
+
+
+def _mesh_scene(dev, H, W, n_lat, n_lon):
+    from goliath_torch.data.synthetic import make_camera_ring, \
+        make_sphere_mesh
+    from goliath_torch.ops import rasterizer as tr
+
+    v, vi, _vt, _vti = make_sphere_mesh(n_lat, n_lon)
+    K, Rt, _ = make_camera_ring(3, H, W)
+    v_pix = tr.transform(torch.from_numpy(v[None]).expand(3, -1, -1),
+                         torch.from_numpy(K), torch.from_numpy(Rt))
+    return v_pix[1].to(dev), torch.from_numpy(vi).to(dev)
+
+
+@pytest.mark.parametrize("mfpt,chunk,ts", [
+    (256, 32, 16),   # no overflow
+    (16, 8, 16),     # overflowing tiles: the chunk-aligned window cuts them
+    (64, 32, 32),    # 1024-thread blocks, ragged image edge
+])
+def test_zbuffer_kernel_matches_plain(cuda, mfpt, chunk, ts):
+    """K5 against its plain version on the same face rows: the face index
+    and the depth equal bit for bit (both round each product and sum on its
+    own, in the TPU kernel's order)."""
+    from goliath_torch.ops import rasterizer as tr
+    from goliath_torch.ops import rasterizer_cuda as rc
+
+    H, W = 72, 100
+    v_pix, vi = _mesh_scene(cuda, H, W, 16, 32)
+    rows, b = tr.bin_faces(v_pix, vi, H, W, ts)
+    args = (rows, b.sorted_prim, b.tile_start, b.tile_end, H, W, ts,
+            b.num_tiles_x, b.num_tiles_y, chunk, mfpt)
+    before = dict(gc.LAUNCHES)
+    idx, z = rc.zbuffer(*args)
+    assert gc.LAUNCHES["zbuffer"] == before["zbuffer"] + 1
+    p_idx, p_z = rc.zbuffer_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, p_idx) and torch.equal(z, p_z)
+    assert float((idx >= 0).float().mean()) > 0.1
+    if mfpt == 16:
+        assert int((b.tile_end - b.tile_start).max()) > mfpt
+
+
+def test_render_layer_on_the_card_matches_the_cpu(cuda):
+    """RenderLayer (K4 and K5 on the card) against the CPU (plain versions):
+    the same coverage, the same face on all but tie pixels of shared edges
+    (v_pix is rounded differently by the card's batched matrix products),
+    and the image at atol/rtol 1e-4 where the face agrees."""
+    from goliath_torch.data.synthetic import make_camera_ring, \
+        make_sphere_mesh
+    from goliath_torch.ops import rasterizer as tr
+
+    H, W = 72, 100
+    v, vi, vt, vti = make_sphere_mesh(16, 32)
+    K, Rt, _ = make_camera_ring(2, H, W)
+    tex = np.random.RandomState(5).rand(2, 3, 32, 32).astype(np.float32)
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        rl = tr.RenderLayer(H, W, vi, vt, vti, device=dev)
+        outs.append(rl(torch.from_numpy(np.stack([v, v])).to(dev),
+                       torch.from_numpy(tex).to(dev),
+                       torch.from_numpy(K).to(dev),
+                       torch.from_numpy(Rt).to(dev)))
+    ref, got = outs[0], {k: t.cpu() for k, t in outs[1].items()}
+    assert torch.equal(ref["index_img"] == -1, got["index_img"] == -1)
+    same = ref["index_img"] == got["index_img"]
+    assert float(same.float().mean()) >= 0.999
+    m = same[:, None]
+    torch.testing.assert_close(got["render"] * m, ref["render"] * m,
+                               atol=1e-4, rtol=1e-4)

@@ -61,8 +61,18 @@ def test_geometry_module_matches_jax():
     _close(tg.vn(torch.from_numpy(verts)), jg.vn(jnp.asarray(verts)))
     _close(tg.to_uv(torch.from_numpy(verts)), jg.to_uv(jnp.asarray(verts)),
            atol=1e-4)  # positions ~100: 1e-6 relative
-    with pytest.raises(NotImplementedError, match="impaint"):
-        tgeom.GeometryModule(vi, vt, vti, None, uv_size=8, impaint=True)
+    # impainted tables: every empty texel within the threshold takes its
+    # nearest valid texel's entries, as in the JAX package
+    ji = jgeom.GeometryModule(vi, vt, vti, None, uv_size=24, impaint=True,
+                              impaint_threshold=3.0)
+    ti = tgeom.GeometryModule(vi, vt, vti, None, uv_size=24, impaint=True,
+                              impaint_threshold=3.0, device="cpu")
+    np.testing.assert_array_equal(ti.index_image_np, ji.index_image)
+    np.testing.assert_array_equal(ti.bary_image_np, ji.bary_image)
+    np.testing.assert_array_equal(ti.face_index_image_np, ji.face_index_image)
+    assert (ti.index_image_np != -1).sum() > (tg.index_image_np != -1).sum()
+    _close(ti.to_uv(torch.from_numpy(verts)), ji.to_uv(jnp.asarray(verts)),
+           atol=1e-4)
 
 
 @pytest.mark.parametrize("mode,padding,align", [
