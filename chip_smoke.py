@@ -21,29 +21,45 @@ the final result line:
      index_add_ of the same pair gradients;
   6. K3 (float32 column scan) against torch.cumsum at [10, 3,145,728], on
      random values and on K2's pair gradients;
-  7. the eval path: goliath_torch.scripts.run_test.main on configs/rgca.yml
+  7. P1 (the compositor ablation probe, variants of K1): full equal to K1
+     bit for bit on the frame, every variant against its plain version on
+     small frames, every variant timed on the frame, then
+     goliath_torch.scripts.probe_kernel.main on its own 1M-Gaussian scene;
+  8. the eval path: goliath_torch.scripts.run_test.main on configs/rgca.yml
      with synthetic data at full width and 3 test frames, with every
      kernel's launch count set to 0 just before and read just after;
-  8. the training path: goliath_torch.scripts.run_train.main on
+  9. the training path: goliath_torch.scripts.run_train.main on
      configs/rgca.yml with synthetic data at full width, the config's batch
      size 4 and 3 steps, counts again set to 0 just before and read just
      after: finite losses, moving parameters, a gradient in every parameter
      group, the expected launch counts, step times, peak memory and one
      profiled step;
-  9. the mesh eval path: goliath_torch.scripts.run_test.main on
+ 10. the batch-folded training path: the same run with
+     GOLIATH_GSPLAT_FOLD=1 (one binning, K6 forward and backward and one
+     reduce for the 4 samples), the same checks, its own launch counts, and
+     its losses beside the per-sample path's; then K6 forward and backward
+     against their plain versions on the first fold step's own inputs;
+ 11. the XLA block window (use_pallas false): K1 and K2 in that mode
+     against their plain versions on a small frame whose tiles overflow,
+     and one run_test frame of configs/rgca_synthetic.yml (use_pallas
+     unset) that must take that window alone;
+ 12. K7 (float32 row scan) against torch.cumsum(x, 0) at [2,097,152, 10]
+     and at a ragged M, goliath_torch.scripts.profile_reduce.main, and the
+     presort reduce on K7 against the channel-first reduce on K3;
+ 13. the mesh eval path: goliath_torch.scripts.run_test.main on
      configs/mesh_vae.yml at full width (65,536-face sphere, 2048x1334
      image), 3 test frames, counts set to 0 just before and read just
      after, keeping the inputs the run hands to K5 and K4, then one
      profiled forward of its last frame;
- 10. K5 (mesh z-buffer) against its plain version on the K5 inputs of the
+ 14. K5 (mesh z-buffer) against its plain version on the K5 inputs of the
      mesh path's first frame, face index and depth equal bit for bit; K4
      against torch.cumsum on the mesh path's six scans, exactly;
- 11. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+ 15. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
      path at a small size, on the card against the CPU (plain versions) as
      the small-input reference;
- 12. per kernel: check result, launches on the three paths, time, the plain
-     version's time, the least time the card could take (bound) and the
-     library call's time, as one JSON line.
+ 16. per kernel (and per mode of a kernel): check result, launches on each
+     path, time, the plain version's time, the least time the card could
+     take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -99,23 +115,6 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() in ms over `reps` calls (CUDA events)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -148,7 +147,10 @@ def replaces(gc, name: str) -> str:
     port names no module of the JAX reference package, so the package is
     the directory beside it that holds the file."""
     path, line = gc.REPLACES[name].split(":")
-    hits = sorted(ROOT.glob(f"*/{path}"))
+    if (ROOT / path).is_file():   # a script of the repo itself
+        return gc.REPLACES[name]
+    hits = sorted(h for h in ROOT.glob(f"*/{path}")
+                  if h.relative_to(ROOT).parts[0] != "goliath_torch")
     return f"{hits[0].relative_to(ROOT)}:{line}" if hits else gc.REPLACES[name]
 
 
@@ -220,9 +222,9 @@ def capture_frame(torch, device, card_line):
     seen = {"k1": None, "k4": []}
     orig_rt, orig_cs = gsplat_cuda.rasterize_tiled, binning.cumsum1d
 
-    def rt(*args):
+    def rt(*args, **kw):
         seen["k1"] = args
-        return orig_rt(*args)
+        return orig_rt(*args, **kw)
 
     def cs(x):
         seen["k4"].append(x.clone())
@@ -242,9 +244,29 @@ def capture_frame(torch, device, card_line):
     return seen
 
 
+def processed_evals(tile_start, tile_end, cnt, chunk, nchunks, ts,
+                    window="pallas"):
+    """Data-dependent work of K1 and K2: the (pair, pixel) evaluations of
+    the rows each tile composites, over the blocks j < cnt[t] of its
+    window."""
+    start = tile_start.long().cpu()
+    end = tile_end.long().cpu()
+    c = cnt.long().cpu()
+    first = start if window == "xla" else (start // chunk) * chunk
+    evals = 0
+    for j in range(nchunks):
+        base = first + j * chunk
+        lo = base.maximum(start)
+        hi = (base + chunk).minimum(end)
+        evals += int(((hi - lo).clamp(min=0) * (c > j)).sum())
+    return evals * ts * ts
+
+
 def check_k1(gc, torch, args, frame):
     """Phase 4: K1 against its plain version on a full-width frame. Leaves
     the pair rows, K1's outputs and the evaluation count in ``frame``."""
+    from goliath_torch.utils.timing import cuda_ms
+
     (xys, conics, op_s, chan, valid, sorted_prim, tile_start, tile_end,
      _perm, _offsets, _ends, img_h, img_w, ts, maxpp, chunk, ntx,
      nty) = args
@@ -275,17 +297,7 @@ def check_k1(gc, torch, args, frame):
     if not (torch.isfinite(img).all() and torch.isfinite(T).all()):
         raise AssertionError("K1 output is not finite")
 
-    # data-dependent work: rows each tile composites, per processed block
-    start = tile_start.long().cpu()
-    end = tile_end.long().cpu()
-    c = cnt.long().cpu()
-    evals = 0
-    for j in range(nchunks):
-        base = (start // chunk + j) * chunk
-        lo = torch.maximum(base, start)
-        hi = torch.minimum(base + chunk, end)
-        evals += int(((hi - lo).clamp(min=0) * (c > j)).sum())
-    evals *= ts * ts
+    evals = processed_evals(tile_start, tile_end, cnt, chunk, nchunks, ts)
     ops = 16 * evals  # the alpha test of each (pair, pixel) evaluated
     nbytes = (rows.numel() * 4 + 2 * tile_start.numel() * 4
               + img.numel() * 4 + T.numel() * 4 + cnt.numel() * 4)
@@ -302,9 +314,43 @@ def check_k1(gc, torch, args, frame):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
+def compare_pair_grads(gc, torch, got, ref, C, label):
+    """Hold K2's (or K6's) per-pair gradients against its plain version's,
+    per column, over the rows that carry a gradient; every other row must
+    be exactly zero in both. Returns the largest absolute error."""
+    groups = {"position": (0, 2), "conic": (2, 5), "opacity": (5, 6),
+              "color": (6, 6 + C), "pad": (6 + C, gc.PAIR_GRAD_COLS)}
+    carries = ref.abs().sum(1) > 0
+    worst, bad = 0.0, []
+    for name, (lo, hi) in groups.items():
+        res = [entries_over(got[:, k], ref[:, k], carries, K2_RTOL,
+                            K2_ATOL_OF_TYPICAL) for k in range(lo, hi)]
+        worst = max([worst] + [r[0] for r in res])
+        log(f"{label} {name} columns {lo}..{hi - 1}: max_abs_err "
+            f"{[f'{r[0]:.3e}' for r in res]}, largest |ref| "
+            f"{[f'{r[1]:.3e}' for r in res]}, median |ref| "
+            f"{[f'{r[2]:.3e}' for r in res]}, entries over tolerance "
+            f"{[r[3] for r in res]}, share of the absolute allowance used "
+            f"{[f'{r[4]:.3f}' for r in res]}")
+        if any(r[3] for r in res):
+            bad.append(name)
+    written = int(carries.sum())
+    same_zero = bool(torch.equal(got.abs().sum(1) == 0, ~carries))
+    log(f"{label} out={tuple(got.shape)} rows with a gradient={written} of "
+        f"{got.shape[0]}, zero rows agree={same_zero} (tolerance per column: "
+        f"rtol {K2_RTOL} + {K2_ATOL_OF_TYPICAL} of the column's median |ref|"
+        f" over those rows; all other rows exactly zero)")
+    if bad or not same_zero:
+        raise AssertionError(f"{label} differs from its plain version in "
+                             f"{bad}")
+    return worst
+
+
 def check_k2(gc, torch, args, frame):
     """Phase 5a: K2 against its plain version on the full-width frame, with
     seeded upstream gradients. Leaves K2's pair gradients in ``frame``."""
+    from goliath_torch.utils.timing import cuda_ms
+
     (_xys, _conics, _op, chan, _valid, sorted_prim, tile_start, tile_end,
      _perm, _offsets, _ends, _h, _w, ts, _maxpp, chunk, ntx, nty) = args
     rows, img, T, cnt = (frame[k] for k in ("rows", "img", "T", "cnt"))
@@ -322,30 +368,7 @@ def check_k2(gc, torch, args, frame):
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError("K2 output is not finite")
-    groups = {"position": (0, 2), "conic": (2, 5), "opacity": (5, 6),
-              "color": (6, 6 + C), "pad": (6 + C, gc.PAIR_GRAD_COLS)}
-    carries = ref.abs().sum(1) > 0
-    worst, bad = 0.0, []
-    for name, (lo, hi) in groups.items():
-        res = [entries_over(got[:, k], ref[:, k], carries, K2_RTOL,
-                            K2_ATOL_OF_TYPICAL) for k in range(lo, hi)]
-        worst = max([worst] + [r[0] for r in res])
-        log(f"K2 {name} columns {lo}..{hi - 1}: max_abs_err "
-            f"{[f'{r[0]:.3e}' for r in res]}, largest |ref| "
-            f"{[f'{r[1]:.3e}' for r in res]}, median |ref| "
-            f"{[f'{r[2]:.3e}' for r in res]}, entries over tolerance "
-            f"{[r[3] for r in res]}, share of the absolute allowance used "
-            f"{[f'{r[4]:.3f}' for r in res]}")
-        if any(r[3] for r in res):
-            bad.append(name)
-    written = int(carries.sum())
-    same_zero = bool(torch.equal(got.abs().sum(1) == 0, ~carries))
-    log(f"K2 out={tuple(got.shape)} rows with a gradient={written} of "
-        f"{budget}, zero rows agree={same_zero} (tolerance per column: rtol "
-        f"{K2_RTOL} + {K2_ATOL_OF_TYPICAL} of the column's median |ref| over"
-        f" those rows; all other rows exactly zero)")
-    if bad or not same_zero:
-        raise AssertionError(f"K2 differs from its plain version in {bad}")
+    worst = compare_pair_grads(gc, torch, got, ref, C, "K2")
 
     # 16 operations for the alpha test of every evaluation the forward's
     # cnt reaches, 22 + 4C more for each that passes it (counted in
@@ -467,6 +490,8 @@ def check_backward(gc, torch, args, frame):
 def check_k3(gc, torch, frame):
     """Phase 6: K3 against torch.cumsum at [10, 3,145,728], on random values
     and on the frame's pair gradients in pre-sort order."""
+    from goliath_torch.utils.timing import cuda_ms
+
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     real = frame["presort"].contiguous()
     F, M = real.shape
@@ -505,6 +530,8 @@ def check_k3(gc, torch, frame):
 def time_k4(gc, torch, inputs):
     """K4 per render: both scans of the binning, at the main path's
     inputs ([N] tile counts and [budget] slot marks)."""
+    from goliath_torch.utils.timing import cuda_ms
+
     errs = []
     for x in inputs:
         errs.append(int((gc.cumsum1d(x).long()
@@ -539,8 +566,8 @@ def main_path(gc, torch, card_line):
     alphas = []
     orig_rt = gc.rasterize_tiled
 
-    def rt(*args):
-        out, T = orig_rt(*args)
+    def rt(*args, **kw):
+        out, T = orig_rt(*args, **kw)
         alphas.append(T)
         return out, T
 
@@ -643,10 +670,16 @@ class StepProbe:
         return timed
 
 
-def train_path(gc, torch, card_line):
-    """Phase 8: run_train.main at full width (configs/rgca.yml, synthetic
-    data at 2048x1334 and uv 1024, batch 4, 3 steps, no resume), counts
-    reset just before."""
+def run_training(gc, torch, card_line, label, expected, record,
+                 patch=None):
+    """run_train.main at full width (configs/rgca.yml, synthetic data at
+    2048x1334 and uv 1024, batch 4, 3 steps, no resume), counts reset just
+    before and read just after: finite losses that move, a finite, non-zero
+    gradient in every parameter group, a checkpoint, and exactly the launch
+    counts ``expected`` lists (every other kernel 0). ``patch`` (a context
+    manager) wraps the run. Leaves the step totals in ``record[label]``."""
+    import contextlib
+
     from torch.autograd import DeviceType
 
     from goliath_torch import train as train_lib
@@ -664,37 +697,40 @@ def train_path(gc, torch, card_line):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        gc.reset_launch_counts()
-        with StepProbe(torch, train_lib, profile_step=TRAIN_STEPS - 1) as probe:
-            iteration, last = run_train.main(cfg, device=DEVICE)
-            torch.cuda.synchronize()
-            launches = dict(gc.LAUNCHES)
+        with patch or contextlib.nullcontext():
+            gc.reset_launch_counts()
+            with StepProbe(torch, train_lib,
+                           profile_step=TRAIN_STEPS - 1) as probe:
+                iteration, last = run_train.main(cfg, device=DEVICE)
+                torch.cuda.synchronize()
+                launches = dict(gc.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
         with open(Path(run_dir) / "tb" / "scalars.jsonl") as f:
             scalars = [json.loads(line) for line in f]
         written = sorted(p.name for p in
                          (Path(run_dir) / "checkpoints").iterdir())
-    log(f"train path launches: {launches}")
+    record[label] = probe.totals
+    log(f"{label} launches: {launches}")
     logged = {}
     for rec in scalars:
         logged.setdefault(rec["step"], {})[rec["tag"]] = rec["value"]
     for step in sorted(logged):
-        log(f"step {step} losses: {json.dumps(logged[step])}")
+        log(f"{label} step {step} losses: {json.dumps(logged[step])}")
     for i, sec in enumerate(probe.seconds):
         note = " (under torch.profiler)" if i == probe.profile_step else ""
-        log(f"train step {i}: wall {sec:.4f} s{note}, total loss "
+        log(f"{label} step {i}: wall {sec:.4f} s{note}, total loss "
             f"{probe.totals[i]:.6f}, batch {TRAIN_BATCH} on {card_line}")
-    log(f"peak device memory (training, batch {TRAIN_BATCH}): "
+    log(f"{label} peak device memory (training, batch {TRAIN_BATCH}): "
         f"{peak / 2**30:.3f} GiB on {card_line}")
-    log(f"gradients per parameter group [all finite, some non-zero]: "
-        f"{probe.groups}; checkpoints written: {written}")
+    log(f"{label} gradients per parameter group [all finite, some non-zero]:"
+        f" {probe.groups}; checkpoints written: {written}")
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in probe.profile.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     wall_ms = probe.seconds[probe.profile_step] * 1e3
-    log(f"profiled train step {probe.profile_step}: wall {wall_ms:.3f} ms, "
+    log(f"{label} profiled step {probe.profile_step}: wall {wall_ms:.3f} ms, "
         f"device busy {busy:.3f} ms in {sum(r[1] for r in rows)} kernels, "
         f"idle share {max(0.0, 1.0 - busy / wall_ms):.3f} on {card_line}")
     for ms, count, key in rows[:14]:
@@ -723,18 +759,85 @@ def train_path(gc, torch, card_line):
             finite and nonzero for finite, nonzero in probe.groups.values()):
         raise AssertionError(f"parameter groups without a finite, non-zero "
                              f"gradient: {probe.groups}")
-    # K2 and K3 once per sample per step; K1 also once per sample of the
-    # train=False forward the loop's summary takes at iteration 0; K4 twice
-    # per render
-    n = TRAIN_BATCH * TRAIN_STEPS
-    expected = {name: 0 for name in gc.LAUNCHES}
-    expected.update(pair_grads=n, cumsum_cols=n,
-                    compositor_fwd=n + TRAIN_BATCH,
-                    cumsum1d=2 * (n + TRAIN_BATCH))
-    if launches != expected:
-        raise AssertionError(f"launch counts {launches} != {expected}")
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(expected)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
     if "latest" not in written:
         raise AssertionError("no checkpoint was written")
+    return launches
+
+
+def train_path(gc, torch, card_line, record):
+    """Phase 8: the per-sample training path. K2 and K3 once per sample per
+    step; K1 also once per sample of the train=False forward the loop's
+    summary takes at iteration 0; K4 twice per render."""
+    n = TRAIN_BATCH * TRAIN_STEPS
+    return run_training(gc, torch, card_line, "train path", dict(
+        pair_grads=n, cumsum_cols=n, compositor_fwd=n + TRAIN_BATCH,
+        cumsum1d=2 * (n + TRAIN_BATCH)), record)
+
+
+class FoldEnv:
+    """GOLIATH_GSPLAT_FOLD=1 for the duration of a with-block (restored
+    after), and the inputs of the first batch-folded backward (K6's rows,
+    bounds, cnt, forward outputs and upstream gradients) copied to pinned
+    host memory without a synchronise."""
+
+    def __init__(self, gc, torch, captured):
+        self.gc, self.torch, self.captured = gc, torch, captured
+        self.orig_pg = gc.pair_grads
+
+    def __enter__(self):
+        import os
+
+        self.before = os.environ.get("GOLIATH_GSPLAT_FOLD")
+        os.environ["GOLIATH_GSPLAT_FOLD"] = "1"
+        torch, captured, orig = self.torch, self.captured, self.orig_pg
+
+        def pg(*args):
+            if "k6" not in captured and args[13] > 1:
+                captured["k6"] = tuple(
+                    a.detach().to("cpu", non_blocking=True)
+                    if isinstance(a, torch.Tensor) else a for a in args)
+            return orig(*args)
+
+        self.gc.pair_grads = pg
+        return self
+
+    def __exit__(self, *exc):
+        import os
+
+        self.gc.pair_grads = self.orig_pg
+        if self.before is None:
+            os.environ.pop("GOLIATH_GSPLAT_FOLD", None)
+        else:
+            os.environ["GOLIATH_GSPLAT_FOLD"] = self.before
+
+
+def fold_train_path(gc, torch, card_line, record, captured):
+    """The batch-folded training path: run_train.main as train_path (same
+    seed and overrides) with GOLIATH_GSPLAT_FOLD=1 for this phase only. K6's
+    forward once per step and once for the summary's train=False forward
+    at iteration 0, its backward and the reduce (K3) once per step, K4
+    twice per render; no per-sample kernel. The losses differ from the
+    per-sample path's on purpose (17 depth bits instead of 19, one global
+    pair budget; the random-weight frame overflows its tiles): the
+    difference is printed, not held."""
+    launches = run_training(
+        gc, torch, card_line, "fold train path", dict(
+            compositor_fwd_fold=TRAIN_STEPS + 1, pair_grads_fold=TRAIN_STEPS,
+            cumsum_cols=TRAIN_STEPS, cumsum1d=2 * (TRAIN_STEPS + 1)),
+        record, patch=FoldEnv(gc, torch, captured))
+    if "train path" in record:
+        diff = [f - p for f, p in zip(record["fold train path"],
+                                      record["train path"])]
+        log(f"fold - per-sample total loss per step: "
+            f"{[f'{d:.6f}' for d in diff]} (not held: the fold quantizes "
+            f"depth to 17 bits, the per-sample path to 19, and its pair "
+            f"budget is global)")
+    if "k6" not in captured:
+        raise AssertionError("the fold path's backward was not captured")
     return launches
 
 
@@ -1008,6 +1111,7 @@ def check_k5(gc, torch, args):
     arguments its rasterize call handed to K5): face index equal on every
     pixel and depth equal bit for bit."""
     from goliath_torch.ops import rasterizer_cuda as rc
+    from goliath_torch.utils.timing import cuda_ms
 
     args = tuple(a.to(DEVICE) if isinstance(a, torch.Tensor) else a
                  for a in args)
@@ -1058,6 +1162,481 @@ def check_k5(gc, torch, args):
         f"library: none (no PyTorch call computes a z-buffer)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+def check_k6(gc, torch, args):
+    """K6 forward and backward against their plain versions on the first
+    fold training step's own inputs (the rows, global tile bounds, cnt,
+    forward outputs and upstream gradients its backward was handed), at the
+    tolerances of K1 and K2; times, the plain versions' times and bounds
+    counted as K1's and K2's."""
+    from goliath_torch.utils.timing import cuda_ms
+
+    args = tuple(a.to(DEVICE) if isinstance(a, torch.Tensor) else a
+                 for a in args)
+    (rows, tile_start, tile_end, cnt, d_out, d_T, T, img, ts, ntx, nty, chunk,
+     n_pairs, n_imgs, window) = args
+    if window != "pallas" or n_imgs != TRAIN_BATCH:
+        raise AssertionError(f"the fold ran {n_imgs} images, window {window}")
+    B, C, H, W = img.shape
+    maxpp = load_max_pairs()
+    nchunks = maxpp // chunk + 1
+    kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=ntx, nty=nty, chunk=chunk,
+              max_pairs_per_tile=maxpp, n_imgs=n_imgs)
+    f_img, f_T, f_cnt = gc.compositor_fwd(rows, tile_start, tile_end, **kw)
+    p_img, p_T, p_cnt = gc.compositor_fwd_plain(rows, tile_start, tile_end,
+                                                **kw)
+    torch.cuda.synchronize()
+    err_img = float((f_img - p_img).abs().max())
+    err_T = float((f_T - p_T).abs().max())
+    same_run = bool(torch.equal(f_cnt, cnt)) and float(
+        (f_T - T).abs().max()) <= K1_ATOL
+    pairs = tile_end.long() - tile_start.long()
+    log(f"K6 forward: {n_imgs} images, rows={tuple(rows.shape)} tiles="
+        f"{tile_start.numel()} pairs={int(pairs.sum())} max_pairs_in_a_tile="
+        f"{int(pairs.max())} tiles_cut_early={int((cnt < nchunks).sum())} "
+        f"max_abs_err all channels={err_img:.3e} T={err_T:.3e} "
+        f"cnt_mismatches={int((f_cnt != p_cnt).sum())}; the training step's "
+        f"own cnt and T reproduced: {same_run} (tolerance atol {K1_ATOL} "
+        f"rtol {K1_RTOL}, cnt exact)")
+    if not (torch.allclose(f_img, p_img, atol=K1_ATOL, rtol=K1_RTOL)
+            and torch.allclose(f_T, p_T, atol=K1_ATOL, rtol=K1_RTOL)
+            and torch.equal(f_cnt, p_cnt) and same_run):
+        raise AssertionError("K6's forward differs from its plain version")
+    evals = processed_evals(tile_start, tile_end, cnt, chunk, nchunks, ts)
+    nbytes = (rows.numel() * 4 + 2 * tile_start.numel() * 4
+              + img.numel() * 4 + T.numel() * 4 + cnt.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, 16 * evals)
+    ms = cuda_ms(lambda: gc.compositor_fwd(rows, tile_start, tile_end, **kw),
+                 reps=10)
+    plain_ms = cuda_ms(lambda: gc.compositor_fwd_plain(
+        rows, tile_start, tile_end, **kw), reps=1, warmup=0)
+    log(f"K6 forward timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({evals} pair-pixel evaluations, {nbytes} "
+        f"bytes; {ms / b_ms:.1f}x the bound)")
+    fwd = dict(max_abs_err=max(err_img, err_T), ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+    call = (rows, tile_start, tile_end, cnt, d_out, d_T, T, img, ts, ntx, nty,
+            chunk, n_pairs, n_imgs)
+    got = gc.pair_grads(*call)
+    torch.cuda.synchronize()
+    counts = {}
+    ref = gc.pair_grads_plain(*call, counts=counts)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError("K6's backward output is not finite")
+    worst = compare_pair_grads(gc, torch, got, ref, C, "K6 backward")
+    kept = int(counts["kept"])
+    ops = 16 * evals + (22 + 4 * C) * kept
+    nbytes = (rows.numel() * 4 + 3 * tile_start.numel() * 4
+              + (2 * img.numel() + 2 * T.numel()) * 4 + got.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, ops)
+    del got, ref
+    ms = cuda_ms(lambda: gc.pair_grads(*call), reps=5)
+    plain_ms = cuda_ms(lambda: gc.pair_grads_plain(*call), reps=1, warmup=0)
+    log(f"K6 backward timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({evals} evaluations of 16 operations, "
+        f"{kept} of them kept ({kept / max(evals, 1):.4f}) with {22 + 4 * C} "
+        f"more, {nbytes} bytes; {ms / b_ms:.1f}x the bound)")
+    bwd = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    return {"compositor_fwd_fold": fwd, "pair_grads_fold": bwd}
+
+
+def load_max_pairs() -> int:
+    from goliath_torch.config import load_config
+
+    cfg = load_config(str(ROOT / "configs" / "rgca.yml"))
+    return int(cfg.model.render.max_pairs_per_tile)
+
+
+def small_frame(gc, torch, opaque, maxpp, chunk, ts, H=72, W=100, N=400,
+                seed=0):
+    """A small splat frame (the scene of tests/test_torch_cuda.py, seeded
+    with numpy) on the card: pair rows, binning and K1's keyword args."""
+    import numpy as np
+
+    from goliath_torch.ops import gsplat
+
+    rng = np.random.RandomState(seed)
+    means = rng.randn(N, 3).astype(np.float32) * 0.3
+    means[:, 2] += 2.5
+    scales = (0.02 + 0.1 * rng.rand(N, 3)).astype(np.float32)
+    quats = rng.randn(N, 4).astype(np.float32)
+    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
+    lo = 0.9 if opaque else 0.05
+    opac = (rng.rand(N, 1) * (0.99 - lo) + lo).astype(np.float32)
+    colors = rng.rand(N, 3).astype(np.float32)
+    K = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]], np.float32)
+    Rt = np.concatenate([np.eye(3), np.zeros((3, 1))], 1).astype(np.float32)
+    arrays = [torch.from_numpy(a).to(DEVICE)
+              for a in (K, Rt, means, quats, scales, opac, colors)]
+    xys, conics, op_s, chan, valid, _r, b = gsplat.prepare_sample(
+        *arrays, H, W, ts, pair_budget=4 * N)
+    rows = gc.pack_pair_rows(xys, conics, op_s, chan, valid.float(),
+                             b.sorted_prim, (maxpp // chunk + 1) * chunk)
+    kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=-(-W // ts),
+              nty=-(-H // ts), chunk=chunk, max_pairs_per_tile=maxpp)
+    return rows, b, kw
+
+
+def xla_window_check(gc, torch, card_line):
+    """K1 and K2 in the XLA compositor's window (use_pallas false: blocks
+    from each tile's start, no early-out) against their plain versions on a
+    small frame whose tiles overflow; then one run_test frame of
+    configs/rgca_synthetic.yml (use_pallas unset) on the card, counts reset
+    just before: it must take the XLA window and only it; then one training
+    step of that config through run_train.main, counts reset again, which
+    must run K1 and K2 in the XLA window only. K1 and K2 in that mode are
+    then held against their plain versions again, and timed, on the frame
+    the eval run handed to rasterize_tiled."""
+    from goliath_torch.config import load_config
+    from goliath_torch.scripts import run_test
+    from goliath_torch.utils.timing import cuda_ms
+
+    rows, b, kw = small_frame(gc, torch, True, 64, 16, 16)
+    pairs = (b.tile_end - b.tile_start).long()
+    img, T, cnt = gc.compositor_fwd(rows, b.tile_start, b.tile_end,
+                                    window="xla", **kw)
+    p_img, p_T, p_cnt = gc.compositor_fwd_plain(rows, b.tile_start,
+                                                b.tile_end, window="xla",
+                                                **kw)
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    d_out = torch.randn(img.shape, generator=gen, device=DEVICE)
+    d_T = torch.randn(T.shape, generator=gen, device=DEVICE)
+    call = (rows, b.tile_start, b.tile_end, cnt, d_out, d_T, T, img, 16,
+            kw["ntx"], kw["nty"], 16, b.sorted_prim.shape[0])
+    got = gc.pair_grads(*call, window="xla")
+    ref = gc.pair_grads_plain(*call, window="xla")
+    torch.cuda.synchronize()
+    err_f = max(float((img - p_img).abs().max()), float((T - p_T).abs().max()))
+    log(f"XLA window, small frame (72x100, tile 16, max_pairs_per_tile 64, "
+        f"chunk 16): {int((pairs > 64).sum())} of {pairs.numel()} tiles "
+        f"overflow (max {int(pairs.max())} pairs), min T {float(T.min()):.3e}"
+        f" (no early-out); K1 max_abs_err {err_f:.3e}, cnt mismatches "
+        f"{int((cnt != p_cnt).sum())} (tolerance atol {K1_ATOL} rtol "
+        f"{K1_RTOL}, cnt exact)")
+    if not (int((pairs > 64).sum()) and torch.equal(cnt, p_cnt)
+            and torch.allclose(img, p_img, atol=K1_ATOL, rtol=K1_RTOL)
+            and torch.allclose(T, p_T, atol=K1_ATOL, rtol=K1_RTOL)):
+        raise AssertionError("K1's XLA window differs from its plain version")
+    err_b = compare_pair_grads(gc, torch, got, ref, 4, "K2 XLA window")
+
+    cfg = load_config(str(ROOT / "configs" / "rgca_synthetic.yml"),
+                      overrides=["test.ckpt=null", "test.vis_path=null",
+                                 "test.n_test_frames=1"])
+    if cfg.model.render.get("use_pallas") is not None:
+        raise AssertionError("configs/rgca_synthetic.yml sets use_pallas")
+    seen = {}
+    orig_rt = gc.rasterize_tiled
+
+    def rt(*args, **rkw):
+        seen.setdefault("args", args)
+        seen.setdefault("kw", rkw)
+        return orig_rt(*args, **rkw)
+
+    gc.rasterize_tiled = rt
+    gc.reset_launch_counts()
+    try:
+        means = run_test.main(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        launches = dict(gc.LAUNCHES)
+    finally:
+        gc.rasterize_tiled = orig_rt
+    log(f"xla eval path (configs/rgca_synthetic.yml, use_pallas unset, 1 "
+        f"frame, batch 1) launches: {launches}; means {json.dumps(means)}")
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(compositor_fwd_xla=1, cumsum1d=2)
+    if launches != want or seen["kw"].get("window") != "xla":
+        raise AssertionError(f"the use_pallas-unset run did not take the "
+                             f"XLA window alone: {launches}")
+    if not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError("xla eval losses are not finite")
+    train_launches = xla_train_step(gc, torch)
+
+    # K1 and K2 in the XLA window on that run's own frame
+    (xys, conics, op_s, chan, valid, sorted_prim, tile_start, tile_end, _p,
+     _o, _e, img_h, img_w, ts, maxpp, chunk, ntx, nty) = seen["args"]
+    nchunks = maxpp // chunk
+    rows = gc.pack_pair_rows(xys, conics, op_s, chan, valid.float(),
+                             sorted_prim, (nchunks + 1) * chunk)
+    fkw = dict(img_h=img_h, img_w=img_w, tile_size=ts, ntx=ntx, nty=nty,
+               chunk=chunk, max_pairs_per_tile=maxpp, window="xla")
+    img, T, cnt = gc.compositor_fwd(rows, tile_start, tile_end, **fkw)
+    p_img, p_T, p_cnt = gc.compositor_fwd_plain(rows, tile_start, tile_end,
+                                                **fkw)
+    torch.cuda.synchronize()
+    pairs = (tile_end - tile_start).long()
+    err_fr = max(float((img - p_img).abs().max()),
+                 float((T - p_T).abs().max()))
+    log(f"XLA window, rgca_synthetic frame ({img_w}x{img_h}, tile {ts}, "
+        f"max_pairs_per_tile {maxpp}, chunk {chunk}): "
+        f"{int((pairs > maxpp).sum())} of {pairs.numel()} tiles overflow "
+        f"(max {int(pairs.max())} pairs), min T {float(T.min()):.3e}; K1 "
+        f"max_abs_err {err_fr:.3e}, cnt mismatches "
+        f"{int((cnt != p_cnt).sum())} (tolerance atol {K1_ATOL} rtol "
+        f"{K1_RTOL}, cnt exact)")
+    if not (torch.equal(cnt, p_cnt)
+            and torch.allclose(img, p_img, atol=K1_ATOL, rtol=K1_RTOL)
+            and torch.allclose(T, p_T, atol=K1_ATOL, rtol=K1_RTOL)
+            and torch.isfinite(img).all() and torch.isfinite(T).all()):
+        raise AssertionError("K1's XLA window differs from its plain version "
+                             "on the rgca_synthetic frame")
+    evals = processed_evals(tile_start, tile_end, cnt, chunk, nchunks, ts,
+                            "xla")
+    nbytes = (rows.numel() * 4 + 2 * tile_start.numel() * 4
+              + img.numel() * 4 + T.numel() * 4 + cnt.numel() * 4)
+    b_ms, b_by = bound_ms(nbytes, 16 * evals)
+    ms = cuda_ms(lambda: gc.compositor_fwd(rows, tile_start, tile_end, **fkw),
+                 reps=50)
+    plain_ms = cuda_ms(lambda: gc.compositor_fwd_plain(
+        rows, tile_start, tile_end, **fkw), reps=5)
+    fwd = dict(max_abs_err=err_fr, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=None)
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    call = (rows, tile_start, tile_end, cnt,
+            torch.randn(img.shape, generator=gen, device=DEVICE),
+            torch.randn(T.shape, generator=gen, device=DEVICE), T, img, ts,
+            ntx, nty, chunk, sorted_prim.shape[0])
+    counts = {}
+    got = gc.pair_grads(*call, window="xla")
+    ref = gc.pair_grads_plain(*call, window="xla", counts=counts)
+    torch.cuda.synchronize()
+    C = chan.shape[1]
+    if not torch.isfinite(got).all():
+        raise AssertionError("K2's XLA window output is not finite")
+    err_br = compare_pair_grads(gc, torch, got, ref, C,
+                                "K2 XLA window, rgca_synthetic frame")
+    kept = int(counts["kept"])
+    bb_ms, bb_by = bound_ms(
+        rows.numel() * 4 + 3 * tile_start.numel() * 4
+        + (2 * img.numel() + 2 * T.numel()) * 4
+        + sorted_prim.shape[0] * 64, 16 * evals + (22 + 4 * C) * kept)
+    bms = cuda_ms(lambda: gc.pair_grads(*call, window="xla"), reps=50)
+    bplain_ms = cuda_ms(lambda: gc.pair_grads_plain(*call, window="xla"),
+                        reps=5)
+    log(f"XLA window on the rgca_synthetic frame ({img_w}x{img_h}, "
+        f"{tile_start.numel()} tiles, {int((tile_end - tile_start).sum())} "
+        f"pairs, {evals} evaluations, {kept} kept): K1 {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, bound {b_ms:.4f} by {b_by}); K2 {bms:.4f} ms (plain"
+        f" {bplain_ms:.4f}, bound {bb_ms:.4f} by {bb_by}) on {card_line}; "
+        f"max_abs_err there K1 {err_fr:.3e}, K2 {err_br:.3e} (small frame: "
+        f"K1 {err_f:.3e}, K2 {err_b:.3e})")
+    bwd = dict(max_abs_err=err_br, ms=bms, plain_ms=bplain_ms,
+               bound_ms=bb_ms, bound_by=bb_by, library_ms=None)
+    return ((launches, train_launches),
+            {"compositor_fwd_xla": fwd, "pair_grads_xla": bwd})
+
+
+def xla_train_step(gc, torch):
+    """One run_train.main step of configs/rgca_synthetic.yml (use_pallas
+    unset, batch 2) on the card, counts reset just before: K1 in the XLA
+    window for the 2 samples of the step and the 2 of the summary's
+    train=False forward at iteration 0, K2 in that window and the reduce
+    (K3) for the step's 2, K4 twice per render; no other kernel."""
+    from goliath_torch.config import load_config
+    from goliath_torch.scripts import run_train
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_xla_") as run_dir:
+        cfg = load_config(str(ROOT / "configs" / "rgca_synthetic.yml"),
+                          overrides=[f"train.run_dir={run_dir}",
+                                     "train.n_max_iters=1",
+                                     "train.resume=false"])
+        gc.reset_launch_counts()
+        iteration, last = run_train.main(cfg, device=DEVICE)
+        torch.cuda.synchronize()
+        launches = dict(gc.LAUNCHES)
+    B = cfg.dataloader.batch_size
+    log(f"xla train path (configs/rgca_synthetic.yml, use_pallas unset, 1 "
+        f"step, batch {B}) launches: {launches}; losses {json.dumps(last)}")
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(compositor_fwd_xla=2 * B, pair_grads_xla=B, cumsum_cols=B,
+                cumsum1d=4 * B)
+    if iteration != 1 or launches != want:
+        raise AssertionError(f"the use_pallas-unset training step did not "
+                             f"take the XLA window alone: {launches} != "
+                             f"{want}")
+    if not all(math.isfinite(v) for v in last.values()):
+        raise AssertionError("xla training losses are not finite")
+    return launches
+
+
+# K7 against a float64 scan as K3 (a fraction of each column's largest
+# running sum), and against torch.cumsum(x, 0) within that call's own
+# distance from the float64 scan plus the same (along dim 0 torch.cumsum
+# adds sequentially and drifts further than a scan tree: 6.6e-5 of the
+# running sum at 2^24 rows, tests/test_torch_cuda.py); the presort reduce
+# on K7 against the
+# channel-first reduce on K3: each sum is a difference of two float32
+# prefixes on both routes, so 4 x K3_TOL_F64 of the column's largest
+# running sum
+K7_REDUCE_TOL = 4 * K3_TOL_F64
+
+
+def check_k7(gc, torch, card_line):
+    """K7 against torch.cumsum(x, 0) at [2,097,152, 10] and at a ragged M;
+    then goliath_torch.scripts.profile_reduce.main (its counts reset just
+    before and read just after), and the presort reduce on K7 against the
+    channel-first reduce on K3 on profile_reduce's inputs."""
+    from goliath_torch.ops import gsplat
+    from goliath_torch.scripts import profile_reduce
+    from goliath_torch.utils.timing import cuda_ms
+
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    worst, timing = 0.0, None
+    for M, F in ((2_097_152, 10), (1_000_003, 10)):
+        x = torch.randn((M, F), generator=gen, device=DEVICE)
+        got = gc.cumsum_rows(x)
+        plain = gc.cumsum_rows_plain(x)
+        ref = torch.cumsum(x.double(), 0)
+        torch.cuda.synchronize()
+        scale = ref.abs().amax(0, keepdim=True).clamp(min=1e-30)
+        e64 = float(((got.double() - ref).abs() / scale).max())
+        e32 = float(((got - plain).double().abs() / scale).max())
+        p64 = float(((plain.double() - ref).abs() / scale).max())
+        worst = max(worst, float((got - plain).abs().max()))
+        ms = cuda_ms(lambda: gc.cumsum_rows(x), reps=50)
+        # ~0.3-0.6 s a call along dim 0 (sequential per column)
+        lib_ms = cuda_ms(lambda: torch.cumsum(x, 0), reps=2, warmup=1)
+        b_ms, b_by = bound_ms(2 * M * F * 4, M * F)
+        log(f"K7 [{M}, {F}]: error as a fraction of each column's largest "
+            f"running sum: against a float64 scan {e64:.3e} (tolerance "
+            f"{K3_TOL_F64}), against torch.cumsum(x, 0) float32 {e32:.3e} "
+            f"(tolerance: torch.cumsum's own distance from the float64 scan,"
+            f" {p64:.3e}, + {K3_TOL_F64}); {ms:.4f} ms, plain = "
+            f"torch.cumsum(x, 0) {lib_ms:.4f} ms, bound {b_ms:.4f} ms by "
+            f"{b_by} ({2 * M * F * 4} bytes) on {card_line}")
+        if not (e64 <= K3_TOL_F64 and e32 <= p64 + K3_TOL_F64):
+            raise AssertionError(f"K7 differs from torch.cumsum at [{M}, {F}]")
+        if timing is None:
+            timing = dict(ms=ms, plain_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms)
+
+    gc.reset_launch_counts()
+    profile_reduce.main()
+    torch.cuda.synchronize()
+    launches = dict(gc.LAUNCHES)
+    log(f"profile_reduce launches: {launches}")
+    sorted_g, perm, offsets, ends = profile_reduce.make_inputs(
+        1 << 20, 2, 10, DEVICE)
+    presort = profile_reduce.via_index_copy(sorted_g, perm)
+    k7 = gsplat.reduce_presort_pair_grads(presort, offsets, ends)
+    k3 = gsplat.reduce_sorted_pair_grads(sorted_g, perm, offsets, ends).T
+    run_max = torch.cumsum(presort.double(), 0).abs().amax(0).float()
+    err = (k7 - k3).abs().amax(0)
+    log(f"presort reduce (K7) vs channel-first reduce (K3), per column: "
+        f"max_abs_err {[f'{float(e):.3e}' for e in err]}, largest running "
+        f"sums {[f'{float(m):.3e}' for m in run_max]} (tolerance "
+        f"{K7_REDUCE_TOL} of the running sum)")
+    if not bool((err <= K7_REDUCE_TOL * run_max).all()):
+        raise AssertionError("the presort reduce on K7 differs from the "
+                             "channel-first reduce on K3")
+    if not launches["cumsum_rows"]:
+        raise AssertionError("profile_reduce did not launch K7")
+    return launches, dict(max_abs_err=worst, **timing)
+
+
+def p1_variants_check(gc, torch, rows, tile_start, tile_end, cnt, kw,
+                      label, time_plain=False):
+    """Every P1 variant against its plain version (``compositor_fwd_plain``
+    with the variant, replaying ``cnt``) on one frame, at K1's tolerances
+    with ``cnt`` exact. Returns {variant: max_abs_err} and, with
+    ``time_plain``, {variant: the plain version's ms} (its one call)."""
+    from goliath_torch.utils.timing import cuda_call_ms
+
+    errs, plain_ms, largest = {}, {}, {}
+    for v in gc.PROBE_VARIANTS:
+        got = gc.probe_fwd(rows, tile_start, tile_end, cnt, variant=v, **kw)
+        ref, plain_ms[v] = cuda_call_ms(lambda v=v: gc.compositor_fwd_plain(
+            rows, tile_start, tile_end, variant=v, replay_cnt=cnt, **kw))
+        torch.cuda.synchronize()
+        errs[v] = max(float((got[0] - ref[0]).abs().max()),
+                      float((got[1] - ref[1]).abs().max()))
+        largest[v] = float(ref[0].abs().max())
+        if not (torch.allclose(got[0], ref[0], atol=K1_ATOL, rtol=K1_RTOL)
+                and torch.allclose(got[1], ref[1], atol=K1_ATOL, rtol=K1_RTOL)
+                and torch.equal(got[2], ref[2])
+                and torch.isfinite(got[0]).all()
+                and torch.isfinite(got[1]).all()):
+            raise AssertionError(f"P1 {v} differs from its plain version on "
+                                 f"{label}")
+    log(f"P1 variants against their plain versions on {label}: max_abs_err "
+        f"{errs}, largest |output| {largest} (tolerance atol {K1_ATOL} rtol "
+        f"{K1_RTOL}, cnt exact)")
+    return (errs, plain_ms) if time_plain else errs
+
+
+def p1_probe(gc, torch, args, frame, card_line):
+    """P1: ``full`` equals K1 bit for bit on the captured RGCA frame; each
+    variant against its plain version there (the error and plain time of
+    the kernels line), on small frames, and on one chunk of
+    probe_kernel's scene; every variant's time and share of full on the
+    captured frame, then goliath_torch.scripts.probe_kernel.main on its own
+    scene (counts reset just before and read just after)."""
+    from goliath_torch.scripts import probe_kernel
+    from goliath_torch.utils.timing import cuda_ms
+
+    (_xys, _conics, _op, chan, _valid, _sp, tile_start, tile_end, _perm,
+     _off, _ends, img_h, img_w, ts, maxpp, chunk, ntx, nty) = args
+    rows, img, T, cnt = (frame[k] for k in ("rows", "img", "T", "cnt"))
+    kw = dict(img_h=img_h, img_w=img_w, tile_size=ts, ntx=ntx, nty=nty,
+              chunk=chunk, max_pairs_per_tile=maxpp)
+    full = gc.probe_fwd(rows, tile_start, tile_end, cnt, variant="full", **kw)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(full, (img, T, cnt)))
+    log(f"P1 full on the captured RGCA frame equals K1 bit for bit: "
+        f"{bitwise}")
+    if not bitwise:
+        raise AssertionError("P1's full variant differs from K1")
+    errs, plain = p1_variants_check(gc, torch, rows, tile_start, tile_end,
+                                    cnt, kw, "the captured RGCA frame",
+                                    time_plain=True)
+    for opaque, mpp, ch, tsz in ((False, 256, 32, 16), (True, 64, 16, 16),
+                                 (True, 128, 32, 32)):
+        s_rows, b, skw = small_frame(gc, torch, opaque, mpp, ch, tsz)
+        _i, _t, s_cnt = gc.compositor_fwd(s_rows, b.tile_start, b.tile_end,
+                                          **skw)
+        p1_variants_check(gc, torch, s_rows, b.tile_start, b.tile_end, s_cnt,
+                          skw, f"a small frame (72x100, tile {tsz}, "
+                          f"max_pairs_per_tile {mpp}, chunk {ch})")
+
+    evals = frame["evals"]
+    C = chan.shape[1]
+    nbytes = (rows.numel() * 4 + 2 * tile_start.numel() * 4
+              + img.numel() * 4 + T.numel() * 4 + cnt.numel() * 4)
+    out = {}
+    for v in gc.PROBE_VARIANTS:
+        ms = cuda_ms(lambda v=v: gc.probe_fwd(rows, tile_start, tile_end, cnt,
+                                              variant=v, **kw), reps=20)
+        ops = (C if v == "loadonly" else 16) * evals
+        b_ms, b_by = bound_ms(nbytes, ops)
+        out[f"probe_{v}"] = dict(max_abs_err=errs[v], ms=ms,
+                                 plain_ms=plain[v], bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None)
+    for v in gc.PROBE_VARIANTS:
+        e = out[f"probe_{v}"]
+        log(f"P1 {v:8s} on the captured RGCA frame: {e['ms']:.4f} ms "
+            f"({e['ms'] / out['probe_full']['ms']:.3f} of full), plain "
+            f"{e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms by "
+            f"{e['bound_by']} on {card_line}")
+    gc.reset_launch_counts()
+    probe_kernel.main()
+    torch.cuda.synchronize()
+    launches = dict(gc.LAUNCHES)
+    log(f"probe_kernel launches: {launches}")
+    if not all(launches[f"probe_{v}"] for v in gc.PROBE_VARIANTS):
+        raise AssertionError("probe_kernel did not launch every variant")
+    # the variants against their plain versions at probe_kernel's shapes,
+    # at its smallest chunk (the most blocks per tile)
+    p_chunk = min(probe_kernel.CHUNKS)
+    scene = probe_kernel.build_scene()
+    p_rows, p_cnt, pkw = probe_kernel.replay_inputs(
+        *scene, probe_kernel.H, probe_kernel.W, probe_kernel.TS, p_chunk,
+        probe_kernel.MAX_PAIRS)
+    p1_variants_check(gc, torch, p_rows, scene[1], scene[2], p_cnt, pkw,
+                      f"probe_kernel's scene (chunk {p_chunk})")
+    return launches, out
 
 
 def main() -> int:
@@ -1121,10 +1700,23 @@ def main() -> int:
                   frame)
         if "backward_check" in phases:
             phase("k3_check", check_k3, gc, torch, frame)
+        if "k1_check" in phases:
+            phase("p1_probe", p1_probe, gc, torch, seen["k1"], frame,
+                  card_line)
         del seen, frame
         torch.cuda.empty_cache()
     phase("main_path", main_path, gc, torch, card_line)
-    phase("train_path", train_path, gc, torch, card_line)
+    totals, fold_inputs = {}, {}
+    phase("train_path", train_path, gc, torch, card_line, totals)
+    torch.cuda.empty_cache()
+    phase("fold_train_path", fold_train_path, gc, torch, card_line, totals,
+          fold_inputs)
+    torch.cuda.empty_cache()
+    if "k6" in fold_inputs:
+        phase("k6_check", check_k6, gc, torch, fold_inputs.pop("k6"))
+    torch.cuda.empty_cache()
+    phase("xla_window_check", xla_window_check, gc, torch, card_line)
+    phase("k7_check", check_k7, gc, torch, card_line)
     torch.cuda.empty_cache()
     mesh_inputs = {}
     phase("mesh_eval_path", mesh_eval_path, gc, torch, card_line,
@@ -1137,14 +1729,39 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
 
+    # the phases that return (launches, measurements) of several kernels
+    split = {}
+    for name in ("xla_window_check", "k7_check", "p1_probe"):
+        if name in phases:
+            split[name], phases[name] = phases[name]
+    xla_eval, xla_train = split.get("xla_window_check", ({}, {}))
+    for name in ("k6_check", "xla_window_check", "p1_probe"):
+        for key, res in phases.get(name, {}).items():
+            phases[f"{name}:{key}"] = res
     paths = {"eval": phases.get("main_path", {}),
              "train": phases.get("train_path", {}),
-             "mesh": phases.get("mesh_eval_path", {})}
+             "fold_train": phases.get("fold_train_path", {}),
+             "xla_eval": xla_eval,
+             "xla_train": xla_train,
+             "mesh": phases.get("mesh_eval_path", {}),
+             "profile_reduce": split.get("k7_check", {}),
+             "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check"]),
+              "compositor_fwd_xla": ("K1 xla", [
+                  "xla_window_check:compositor_fwd_xla"]),
               "pair_grads": ("K2", ["k2_check", "backward_check"]),
+              "pair_grads_xla": ("K2 xla", [
+                  "xla_window_check:pair_grads_xla"]),
               "cumsum_cols": ("K3", ["k3_check", "backward_check"]),
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh"]),
-              "zbuffer": ("K5", ["k5_check"])}
+              "zbuffer": ("K5", ["k5_check"]),
+              "compositor_fwd_fold": ("K6 fwd", [
+                  "k6_check:compositor_fwd_fold", "fold_train_path"]),
+              "pair_grads_fold": ("K6 bwd", [
+                  "k6_check:pair_grads_fold", "fold_train_path"]),
+              "cumsum_rows": ("K7", ["k7_check"]),
+              **{f"probe_{v}": (f"P1 {v}", [f"p1_probe:probe_{v}"])
+                 for v in gc.PROBE_VARIANTS}}
     verdicts = []
     for name, (kid, keys) in checks.items():
         entries[name] = dict(
@@ -1155,8 +1772,10 @@ def main() -> int:
             **{f"launches_{k}_path": p.get(name, 0)
                for k, p in paths.items()},
             **phases.get(keys[0], {}))
-        ok = all(k in phases for k in keys)
+        ok = all(k in phases for k in keys) and entries[name]["launches"] > 0
         verdicts.append(f"{kid} {name}: {'ok' if ok else 'FAILED'}")
+        if entries[name]["launches"] == 0 and "launches" not in failed:
+            failed.append("launches")   # a kernel no path launched
     log(f"kernels: [{', '.join(verdicts)}]")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(json.dumps({"kernels": list(entries.values())}))

@@ -1,5 +1,6 @@
-// PyTorch bindings of the port's CUDA kernels (K1 compositor_fwd.cu,
-// K2 compositor_bwd.cu, K3 and K4 cumsum.cu, K5 zbuffer.cu). Built together
+// PyTorch bindings of the port's CUDA kernels (K1, K6's forward and P1
+// compositor_fwd.cu, K2 and K6's backward compositor_bwd.cu, K3, K4 and K7
+// cumsum.cu, K5 zbuffer.cu). Built together
 // with them by torch.utils.cpp_extension.load in
 // goliath_torch/ops/gsplat_cuda.py. Each binding checks its tensors,
 // allocates the outputs, launches on the current stream of the tensors'
@@ -16,16 +17,21 @@ extern "C" int goliath_cumsum_i32(const int32_t* in, int32_t* out,
 extern "C" int goliath_cumsum_cols_f32(const float* in, float* out,
                                        float* scratch, int n_cols,
                                        long long n, cudaStream_t stream);
+extern "C" int goliath_cumsum_rows_f32(const float* in, float* out,
+                                       float* scratch, int n_cols,
+                                       long long n, cudaStream_t stream);
 extern "C" int goliath_compositor_bwd(
     const float* rows, int feat, int n_chan, const int32_t* tile_start,
-    const int32_t* tile_end, const int32_t* tile_cnt, int n_tiles,
-    const float* dL_dout, const float* dL_dT, const float* T_final,
-    const float* out_img, int ntx, int tile_size, int img_h, int img_w,
-    int chunk, float* pair_grads, cudaStream_t stream);
+    const int32_t* tile_end, const int32_t* tile_cnt, int tiles_per_img,
+    int n_imgs, const float* dL_dout, const float* dL_dT,
+    const float* T_final, const float* out_img, int ntx, int tile_size,
+    int img_h, int img_w, int chunk, int window, float* pair_grads,
+    cudaStream_t stream);
 extern "C" int goliath_compositor_fwd(
     const float* rows, int feat, int n_chan, const int32_t* tile_start,
-    const int32_t* tile_end, int n_tiles, int ntx, int tile_size, int img_h,
-    int img_w, int chunk, int nchunks, float* out_img, float* out_T,
+    const int32_t* tile_end, const int32_t* replay_cnt, int tiles_per_img,
+    int n_imgs, int ntx, int tile_size, int img_h, int img_w, int chunk,
+    int nchunks, int window, int variant, float* out_img, float* out_T,
     int32_t* out_cnt, cudaStream_t stream);
 extern "C" int goliath_zbuffer(const float* rows, const int32_t* sorted_prim,
                                const int32_t* tile_start,
@@ -79,14 +85,33 @@ at::Tensor cumsum_cols_f32(const at::Tensor& x) {
   return out;
 }
 
-// rows [R, 8 + C] f32; tile_start/tile_end [ntx * nty] i32 with
-// 0 <= start <= end <= R. Returns (color [C, H, W], T [H, W], cnt [tiles]).
-std::vector<at::Tensor> compositor_fwd(const at::Tensor& rows,
-                                       const at::Tensor& tile_start,
-                                       const at::Tensor& tile_end,
-                                       int64_t ntx, int64_t tile_size,
-                                       int64_t img_h, int64_t img_w,
-                                       int64_t chunk, int64_t nchunks) {
+// Inclusive prefix sums along dim 0 of a [M, F] float32 tensor.
+at::Tensor cumsum_rows_f32(const at::Tensor& x) {
+  check_input(x, at::kFloat, 2, "x");
+  const c10::cuda::CUDAGuard guard(x.device());
+  const long long n = x.size(0);
+  const int64_t n_cols = x.size(1);
+  at::Tensor out = at::empty_like(x);
+  at::Tensor scratch = at::empty(
+      {std::max(n_cols * goliath_cumsum_scratch_len(n), 1LL)}, x.options());
+  check_launch(goliath_cumsum_rows_f32(
+                   x.data_ptr<float>(), out.data_ptr<float>(),
+                   scratch.data_ptr<float>(), static_cast<int>(n_cols), n,
+                   at::cuda::getCurrentCUDAStream().stream()),
+               "cumsum_rows_f32");
+  return out;
+}
+
+// rows [R, 8 + C] f32; tile_start/tile_end [n_imgs * ntx * nty] i32 with
+// 0 <= start <= end <= R; replay_cnt empty, or [n_imgs * ntx * nty] i32
+// blocks to walk (P1). window 0 (Pallas) or 1 (XLA), variant 0..3 (full,
+// noexp, nochain, loadonly). Returns (color [n_imgs, C, H, W],
+// T [n_imgs, H, W], cnt [n_imgs * tiles]).
+std::vector<at::Tensor> compositor_fwd(
+    const at::Tensor& rows, const at::Tensor& tile_start,
+    const at::Tensor& tile_end, const at::Tensor& replay_cnt, int64_t ntx,
+    int64_t tile_size, int64_t img_h, int64_t img_w, int64_t chunk,
+    int64_t nchunks, int64_t n_imgs, int64_t window, int64_t variant) {
   check_input(rows, at::kFloat, 2, "rows");
   check_input(tile_start, at::kInt, 1, "tile_start");
   check_input(tile_end, at::kInt, 1, "tile_end");
@@ -95,41 +120,52 @@ std::vector<at::Tensor> compositor_fwd(const at::Tensor& rows,
               "rows and tile bounds must share a device");
   const int64_t n_tiles = tile_start.numel();
   TORCH_CHECK(tile_end.numel() == n_tiles, "tile bounds differ in length");
+  TORCH_CHECK(n_imgs >= 1 && n_tiles % n_imgs == 0,
+              "the tile bounds must hold n_imgs images' tiles");
+  const bool replay = replay_cnt.numel() > 0;
+  if (replay) {
+    check_input(replay_cnt, at::kInt, 1, "replay_cnt");
+    TORCH_CHECK(replay_cnt.numel() == n_tiles &&
+                    replay_cnt.device() == rows.device(),
+                "replay_cnt must hold one count per tile on rows' device");
+  }
   const int64_t feat = rows.size(1);
   const int64_t n_chan = feat - 8;
   const c10::cuda::CUDAGuard guard(rows.device());
-  at::Tensor img = at::empty({n_chan, img_h, img_w}, rows.options());
-  at::Tensor T = at::empty({img_h, img_w}, rows.options());
+  at::Tensor img = at::empty({n_imgs, n_chan, img_h, img_w}, rows.options());
+  at::Tensor T = at::empty({n_imgs, img_h, img_w}, rows.options());
   at::Tensor cnt = at::empty({n_tiles}, tile_start.options());
   check_launch(
       goliath_compositor_fwd(
           rows.data_ptr<float>(), feat, n_chan,
           tile_start.data_ptr<int32_t>(), tile_end.data_ptr<int32_t>(),
-          n_tiles, ntx, tile_size, img_h, img_w, chunk, nchunks,
-          img.data_ptr<float>(), T.data_ptr<float>(), cnt.data_ptr<int32_t>(),
-          at::cuda::getCurrentCUDAStream().stream()),
+          replay ? replay_cnt.data_ptr<int32_t>() : nullptr,
+          n_tiles / n_imgs, n_imgs, ntx, tile_size, img_h, img_w, chunk,
+          nchunks, window, variant, img.data_ptr<float>(), T.data_ptr<float>(),
+          cnt.data_ptr<int32_t>(), at::cuda::getCurrentCUDAStream().stream()),
       "compositor_fwd");
   return {img, T, cnt};
 }
 
-// Per-pair gradients [n_pairs, 16] in sorted-pair order. rows, tile_start
-// and tile_end as for compositor_fwd, with end <= n_pairs <= R; cnt, T_final
-// [H, W] and out_img [C, H, W] are the forward's outputs; dL_dout [C, H, W]
-// and dL_dT [H, W] the gradients of the loss with respect to them.
+// Per-pair gradients [n_pairs, 16] in (global) sorted-pair order. rows,
+// tile_start and tile_end as for compositor_fwd, with end <= n_pairs <= R;
+// cnt, T_final [n_imgs, H, W] and out_img [n_imgs, C, H, W] are the
+// forward's outputs; dL_dout [n_imgs, C, H, W] and dL_dT [n_imgs, H, W] the
+// gradients of the loss with respect to them. window as for compositor_fwd.
 at::Tensor compositor_bwd(const at::Tensor& rows, const at::Tensor& tile_start,
                           const at::Tensor& tile_end, const at::Tensor& cnt,
                           const at::Tensor& dL_dout, const at::Tensor& dL_dT,
                           const at::Tensor& T_final, const at::Tensor& out_img,
                           int64_t ntx, int64_t tile_size, int64_t chunk,
-                          int64_t n_pairs) {
+                          int64_t n_pairs, int64_t window) {
   check_input(rows, at::kFloat, 2, "rows");
   check_input(tile_start, at::kInt, 1, "tile_start");
   check_input(tile_end, at::kInt, 1, "tile_end");
   check_input(cnt, at::kInt, 1, "cnt");
-  check_input(dL_dout, at::kFloat, 3, "dL_dout");
-  check_input(dL_dT, at::kFloat, 2, "dL_dT");
-  check_input(T_final, at::kFloat, 2, "T_final");
-  check_input(out_img, at::kFloat, 3, "out_img");
+  check_input(dL_dout, at::kFloat, 4, "dL_dout");
+  check_input(dL_dT, at::kFloat, 3, "dL_dT");
+  check_input(T_final, at::kFloat, 3, "T_final");
+  check_input(out_img, at::kFloat, 4, "out_img");
   for (const at::Tensor* t : {&tile_start, &tile_end, &cnt, &dL_dout, &dL_dT,
                               &T_final, &out_img})
     TORCH_CHECK(t->device() == rows.device(),
@@ -139,12 +175,16 @@ at::Tensor compositor_bwd(const at::Tensor& rows, const at::Tensor& tile_start,
               "tile bounds and cnt differ in length");
   const int64_t feat = rows.size(1);
   const int64_t n_chan = feat - 8;
-  const int64_t img_h = T_final.size(0), img_w = T_final.size(1);
+  const int64_t n_imgs = T_final.size(0);
+  const int64_t img_h = T_final.size(1), img_w = T_final.size(2);
   TORCH_CHECK(dL_dT.sizes() == T_final.sizes() &&
                   dL_dout.sizes() == out_img.sizes() &&
-                  out_img.size(0) == n_chan && out_img.size(1) == img_h &&
-                  out_img.size(2) == img_w,
-              "image planes must be [C, H, W] and [H, W] with C = ", n_chan);
+                  out_img.size(0) == n_imgs && out_img.size(1) == n_chan &&
+                  out_img.size(2) == img_h && out_img.size(3) == img_w,
+              "image planes must be [B, C, H, W] and [B, H, W] with C = ",
+              n_chan);
+  TORCH_CHECK(n_imgs >= 1 && n_tiles % n_imgs == 0,
+              "the tile bounds must hold n_imgs images' tiles");
   TORCH_CHECK(n_pairs >= 0 && n_pairs <= rows.size(0),
               "n_pairs must lie in [0, rows]");
   const c10::cuda::CUDAGuard guard(rows.device());
@@ -153,10 +193,11 @@ at::Tensor compositor_bwd(const at::Tensor& rows, const at::Tensor& tile_start,
       goliath_compositor_bwd(
           rows.data_ptr<float>(), feat, n_chan,
           tile_start.data_ptr<int32_t>(), tile_end.data_ptr<int32_t>(),
-          cnt.data_ptr<int32_t>(), n_tiles, dL_dout.data_ptr<float>(),
-          dL_dT.data_ptr<float>(), T_final.data_ptr<float>(),
-          out_img.data_ptr<float>(), ntx, tile_size, img_h, img_w, chunk,
-          grads.data_ptr<float>(), at::cuda::getCurrentCUDAStream().stream()),
+          cnt.data_ptr<int32_t>(), n_tiles / n_imgs, n_imgs,
+          dL_dout.data_ptr<float>(), dL_dT.data_ptr<float>(),
+          T_final.data_ptr<float>(), out_img.data_ptr<float>(), ntx,
+          tile_size, img_h, img_w, chunk, window, grads.data_ptr<float>(),
+          at::cuda::getCurrentCUDAStream().stream()),
       "compositor_bwd");
   return grads;
 }
@@ -202,7 +243,10 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K3: inclusive float32 prefix sums along dim 1 of [F, M]");
   m.def("compositor_bwd", &compositor_bwd,
         "K2: tile compositor backward, per-pair gradients");
+  m.def("cumsum_rows_f32", &cumsum_rows_f32,
+        "K7: inclusive float32 prefix sums along dim 0 of [M, F]");
   m.def("cumsum_i32", &cumsum_i32, "K4: inclusive int32 prefix sum");
-  m.def("compositor_fwd", &compositor_fwd, "K1: tile compositor forward");
+  m.def("compositor_fwd", &compositor_fwd,
+        "K1 (K6 with n_imgs > 1, P1 with a variant): tile compositor forward");
   m.def("zbuffer", &zbuffer, "K5: mesh z-buffer, nearest face per pixel");
 }

@@ -1,7 +1,9 @@
-// K2: gaussian-splat tile compositor, backward (per-pair gradients).
+// K2: gaussian-splat tile compositor, backward (per-pair gradients); with
+// an image axis, K6's backward.
 //
 // Replaces the JAX package's ops/gsplat_pallas.py `_compositor_bwd_kernel`
-// via `pair_grads_pallas` (pallas_call at gsplat_pallas.py:726).
+// via `pair_grads_pallas` (pallas_call at gsplat_pallas.py:726), and with
+// n_imgs > 1 its batch-folded use by `rasterize_tiled_pl_fold` (K6).
 //
 // Given the forward's pair rows, its rendered color `out`, its final
 // transmittance Tf, its per-tile processed-block count `cnt`, and the
@@ -25,11 +27,20 @@
 //
 // Design: one thread block per tile, one thread per pixel, as K1. Each
 // thread keeps T, the running prefix Pq = sum w q, its dout[C] and
-// R0 = dT*Tf + dout.out in registers and walks the same chunk-aligned row
-// blocks as K1, for j < cnt[t] only, so the transmittance trajectory is the
-// forward's (sigma, alpha and the T update are the shared code of
-// splat_alpha.cuh). The TPU kernel's triangular prefix matmuls, log-space
-// products and block-revisit bookkeeping have no counterpart here.
+// R0 = dT*Tf + dout.out in registers and walks the same row blocks as K1
+// (its Pallas or XLA window, template XLA), for j < cnt[t] only, so the
+// transmittance trajectory is the forward's (sigma, alpha and the T update
+// are the shared code of splat_alpha.cuh). The TPU kernel's triangular
+// prefix matmuls, log-space products and block-revisit bookkeeping have no
+// counterpart here. With the XLA window this replaces the JAX XLA
+// compositor's back-to-front `_rasterize_bwd` (gsplat.py:402-512), which
+// recovers T_i by dividing the final T by a reverse cumulative product
+// clipped at 1e-20: the two agree wherever that product stays above the
+// clip (the replay needs no division).
+//
+// The image axis (K6) is blockIdx.y, as in K1: t = image * tiles_per_img +
+// blockIdx.x indexes the global tile bounds, pixel coordinates come from the
+// image-local tile, and the image planes are [n_imgs, ...].
 //
 // The 6 + C per-pair sums over the tile's pixels are taken in three steps:
 // warp shuffles, per-warp partials in shared memory for ROW_BATCH pairs at
@@ -71,6 +82,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool XLA>
 __global__ void __launch_bounds__(1024)
 compositor_bwd_kernel(const float* __restrict__ rows, int feat, int n_chan,
                       const int32_t* __restrict__ tile_start,
@@ -80,12 +92,14 @@ compositor_bwd_kernel(const float* __restrict__ rows, int feat, int n_chan,
                       const float* __restrict__ dL_dT,
                       const float* __restrict__ T_final,
                       const float* __restrict__ out_img, int ntx,
-                      int tile_size, int img_h, int img_w, int chunk,
-                      float* __restrict__ pair_grads) {
+                      int tiles_per_img, int tile_size, int img_h, int img_w,
+                      int chunk, float* __restrict__ pair_grads) {
   extern __shared__ float smem[];
   float* s_rows = smem;                 // [chunk, feat]
   float* s_part = smem + chunk * feat;  // [ROW_BATCH, n_warps, OUT_COLS]
-  const int t = blockIdx.x;
+  const int img = blockIdx.y;
+  const int tl = blockIdx.x;  // image-local tile
+  const int t = img * tiles_per_img + tl;
   const int p = threadIdx.x;
   const int lane = p & 31;
   const int warp = p >> 5;
@@ -93,8 +107,8 @@ compositor_bwd_kernel(const float* __restrict__ rows, int feat, int n_chan,
   const int start = tile_start[t];
   const int end = tile_end[t];
   const int cnt = tile_cnt[t];
-  const int gx = (t % ntx) * tile_size + p % tile_size;
-  const int gy = (t / ntx) * tile_size + p / tile_size;
+  const int gx = (tl % ntx) * tile_size + p % tile_size;
+  const int gy = (tl / ntx) * tile_size + p / tile_size;
   const float px = (float)gx + 0.5f;
   const float py = (float)gy + 0.5f;
   const int n_sums = N_SUMS + n_chan;
@@ -108,20 +122,22 @@ compositor_bwd_kernel(const float* __restrict__ rows, int feat, int n_chan,
   if (gx < img_w && gy < img_h) {
     const long long hw = (long long)img_h * img_w;
     const long long pix = (long long)gy * img_w + gx;
-    R0 = dL_dT[pix] * T_final[pix];
+    const long long plane = img * hw + pix;  // [n_imgs, H, W]
+    const long long chans = img * n_chan * hw + pix;  // [n_imgs, C, H, W]
+    R0 = dL_dT[plane] * T_final[plane];
 #pragma unroll
     for (int c = 0; c < MAX_C; ++c)
       if (c < n_chan) {
-        dout[c] = dL_dout[c * hw + pix];
-        R0 += dout[c] * out_img[c * hw + pix];
+        dout[c] = dL_dout[chans + c * hw];
+        R0 += dout[c] * out_img[chans + c * hw];
       }
   }
   float T = 1.0f;
   float Pq = 0.0f;
 
-  const int first = start / chunk;
+  const int first = XLA ? start : (start / chunk) * chunk;  // block 0's row
   for (int j = 0; j < cnt; ++j) {
-    const int base = (first + j) * chunk;
+    const int base = first + j * chunk;
     if (base >= end) break;  // block-uniform
     const int lo = base > start ? base : start;
     const int hi = (base + chunk) < end ? (base + chunk) : end;
@@ -222,30 +238,35 @@ static size_t bwd_smem_bytes(int chunk, int feat, int threads) {
 }
 
 // rows: [n_rows, feat] f32 (feat = 8 + n_chan); tile_start/end/cnt:
-// [n_tiles] i32 with 0 <= start <= end <= n_out_rows <= n_rows;
-// dL_dout/out_img: [n_chan, img_h, img_w]; dL_dT/T_final: [img_h, img_w];
-// pair_grads: [n_out_rows, 16], zero-filled by the caller. tile_size^2 must
-// be a multiple of 32 (whole warps). Returns the launch's CUDA error.
+// [n_imgs * tiles_per_img] i32 with 0 <= start <= end <= n_out_rows <=
+// n_rows; dL_dout/out_img: [n_imgs, n_chan, img_h, img_w]; dL_dT/T_final:
+// [n_imgs, img_h, img_w]; pair_grads: [n_out_rows, 16], zero-filled by the
+// caller. tile_size^2 must be a multiple of 32 (whole warps). window: 0 the
+// Pallas kernel's block window, 1 the XLA compositor's (as K1). Returns the
+// launch's CUDA error.
 extern "C" int goliath_compositor_bwd(
     const float* rows, int feat, int n_chan, const int32_t* tile_start,
-    const int32_t* tile_end, const int32_t* tile_cnt, int n_tiles,
-    const float* dL_dout, const float* dL_dT, const float* T_final,
-    const float* out_img, int ntx, int tile_size, int img_h, int img_w,
-    int chunk, float* pair_grads, cudaStream_t stream) {
+    const int32_t* tile_end, const int32_t* tile_cnt, int tiles_per_img,
+    int n_imgs, const float* dL_dout, const float* dL_dT,
+    const float* T_final, const float* out_img, int ntx, int tile_size,
+    int img_h, int img_w, int chunk, int window, float* pair_grads,
+    cudaStream_t stream) {
   const int threads = tile_size * tile_size;
   if (n_chan > MAX_C || N_SUMS + n_chan > OUT_COLS || threads > 1024 ||
-      threads % 32 != 0)
+      threads % 32 != 0 || (window != 0 && window != 1) || n_imgs > 65535)
     return (int)cudaErrorInvalidValue;
-  if (n_tiles == 0) return 0;
+  if (tiles_per_img == 0 || n_imgs == 0) return 0;
+  auto kernel = window == 1 ? compositor_bwd_kernel<true>
+                            : compositor_bwd_kernel<false>;
   const size_t smem = bwd_smem_bytes(chunk, feat, threads);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        compositor_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  compositor_bwd_kernel<<<n_tiles, threads, smem, stream>>>(
+  kernel<<<dim3(tiles_per_img, n_imgs), threads, smem, stream>>>(
       rows, feat, n_chan, tile_start, tile_end, tile_cnt, dL_dout, dL_dT,
-      T_final, out_img, ntx, tile_size, img_h, img_w, chunk, pair_grads);
+      T_final, out_img, ntx, tiles_per_img, tile_size, img_h, img_w, chunk,
+      pair_grads);
   return (int)cudaGetLastError();
 }

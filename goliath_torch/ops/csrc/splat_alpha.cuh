@@ -27,6 +27,9 @@ struct PairAlpha {
 };
 
 // d: one pair row (x, y, conic a/b/c, opacity, ...); (px, py): pixel center.
+// NOEXP is the ablation probe P1's `noexp` variant: op * max(1 - sigma, 0)
+// in place of the exp (never on the render path).
+template <bool NOEXP = false>
 __device__ __forceinline__ PairAlpha pair_alpha(const float* d, float px,
                                                 float py) {
   PairAlpha r;
@@ -36,7 +39,8 @@ __device__ __forceinline__ PairAlpha pair_alpha(const float* d, float px,
                                __fmul_rn(__fmul_rn(d[4], r.dy), r.dy));
   const float sigma = __fadd_rn(__fmul_rn(0.5f, quad),
                                 __fmul_rn(__fmul_rn(d[3], r.dx), r.dy));
-  r.raw = __fmul_rn(d[5], expf(-fminf(fmaxf(sigma, 0.0f), 60.0f)));
+  r.raw = NOEXP ? __fmul_rn(d[5], fmaxf(__fsub_rn(1.0f, sigma), 0.0f))
+                : __fmul_rn(d[5], expf(-fminf(fmaxf(sigma, 0.0f), 60.0f)));
   r.alpha = fminf(ALPHA_CLIP, r.raw);
   r.keep = !(sigma < 0.0f || r.alpha < ALPHA_MIN);
   return r;

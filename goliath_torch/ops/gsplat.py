@@ -11,6 +11,11 @@ Pipeline per sample:
     to back and early-outs once the tile is opaque.
 ``rasterize_reference`` is the exact O(pixels x gaussians) oracle.
 
+With ``GOLIATH_GSPLAT_FOLD=1``, ``use_pallas`` and a batch over 1,
+``render`` takes the batch-folded path of the JAX package (``_render_folded``
+here): the B images stacked vertically in tile space, one binning, one
+compositor launch (K6) and one backward reduce for the batch.
+
 Gradients: the compositor has a hand-written backward, as in the JAX
 package (``gsplat_cuda.RasterizeTiled``: K2 computes per-pair gradients,
 ``reduce_sorted_pair_grads`` here sums them per primitive on the scan K3).
@@ -18,11 +23,15 @@ Projection and everything before it differentiate by plain autograd; the
 binning carries no gradient.
 
 The compositor is always K1 (the kernel on CUDA tensors, its plain version
-on CPU tensors), so ``render``'s ``use_pallas`` and ``pallas_inner`` select
-nothing here; they are accepted so the JAX package's configs load
-unchanged. K1 follows the Pallas kernel's truncation window, which differs
-from the JAX XLA compositor's (``use_pallas=False``) only in tiles that
-overflow ``max_pairs_per_tile``.
+on CPU tensors). ``render``'s ``use_pallas`` selects its block window, as it
+selects the compositor in the JAX package: true takes the Pallas kernel's
+(chunk-aligned blocks, one more than ``max_pairs_per_tile // chunk``, the
+early-out on an opaque tile), false or unset the XLA compositor's (blocks
+from the tile's first pair, ``max_pairs_per_tile // chunk`` of them, no
+early-out). The two differ in tiles that overflow ``max_pairs_per_tile``
+and in tiles the early-out cuts. ``pallas_inner`` selects nothing here (the
+TPU kernels' sub-block size); it is accepted so the JAX package's configs
+load unchanged.
 """
 
 from __future__ import annotations
@@ -210,6 +219,24 @@ def reduce_sorted_pair_grads(sorted_g: torch.Tensor, perm: torch.Tensor,
     return bvals[:, 1:] - bvals[:, :-1]
 
 
+def reduce_presort_pair_grads(presort_g: torch.Tensor,
+                              prim_offsets: torch.Tensor,
+                              prim_ends: torch.Tensor) -> torch.Tensor:
+    """Per-prim sums [N, F] of pair gradients in PRE-SORT order [budget, F]
+    (each prim's pairs contiguous; the JAX package's ops/gsplat.py:381-398):
+    the axis-0 prefix sum (K7 on CUDA tensors), read at the N + 1 slot
+    bounds, differenced. ``reduce_sorted_pair_grads`` takes the
+    channel-first route on K3 instead, as the JAX package does on the TPU,
+    so the render path does not reach this function; the JAX package calls
+    it off the TPU, and scripts/profile_reduce.py times it."""
+    budget = presort_g.shape[0]
+    csum = gsplat_cuda.cumsum_rows(presort_g.float())          # [budget, F]
+    bounds = torch.cat([prim_offsets, prim_ends[-1:]]).long()  # [N + 1]
+    bvals = torch.where((bounds > 0)[:, None],
+                        csum[(bounds - 1).clamp(0, budget - 1)], 0.0)
+    return bvals[1:] - bvals[:-1]
+
+
 # ---------------------------------------------------------------------------
 # full render (batched)
 # ---------------------------------------------------------------------------
@@ -301,6 +328,60 @@ def _quantize_log_depth(ld, valid, dbits):
     ).to(torch.int32)
 
 
+def _render_folded(cam_img_w, cam_img_h, K, Rt, primpos, primqvec,
+                   primscale, opacity, colors, return_depth, tile_size,
+                   global_scale, z_near, max_tiles_per_prim,
+                   max_pairs_per_tile, chunk, pair_budget_mult, ntx, nty):
+    """Batch-folded render (the JAX package's ops/gsplat.py:630-686): the B
+    images stacked VERTICALLY in tile space, all B*N prims binned by ONE
+    ``bin_to_tiles`` over the ntx x (B*nty) grid, and one compositor
+    launch (K6) and one backward reduce for the whole batch.
+
+    As in the JAX package: the depth bits come from the global tile count
+    (17 at full width and B = 4, where the per-sample path has 19), each
+    sample's log depth is quantized over its own valid range, each sample's
+    tile box is clipped to its own image before it moves down by b*nty
+    rows, and the pair budget is GLOBAL (B * round(pair_budget_mult * N)):
+    under overflow the later-stacked samples lose pairs first, where the
+    per-sample path drops each sample's own farthest pairs. Returns
+    (out [B, C, H, W], T_final [B, H, W])."""
+    B, N = primpos.shape[:2]
+    budget_total = int(round(pair_budget_mult * N)) * B
+    proj = [_project_sample(K[b], Rt[b], primpos[b], primqvec[b],
+                            primscale[b], opacity[b], colors[b], cam_img_h,
+                            cam_img_w, tile_size, z_near, global_scale,
+                            return_depth) for b in range(B)]
+    xys, conics, op_s, chan, valid, radii, ld, t_min, t_max = (
+        torch.stack(x) for x in zip(*proj))
+
+    num_tiles_g = ntx * nty * B
+    dbits = 31 - int(num_tiles_g + 1).bit_length()
+    qd = torch.stack([_quantize_log_depth(ld[b], valid[b], dbits)
+                      for b in range(B)])
+
+    # per-sample clip, then offset each sample's tile rows by b*nty
+    yoff = (torch.arange(B, dtype=torch.int32, device=t_min.device)
+            * nty)[:, None]
+    tmin_f = torch.stack(
+        [t_min[..., 0].clamp(0, ntx).reshape(-1),
+         (t_min[..., 1].clamp(0, nty) + yoff).reshape(-1)], -1)
+    tmax_f = torch.stack(
+        [t_max[..., 0].clamp(0, ntx).reshape(-1),
+         (t_max[..., 1].clamp(0, nty) + yoff).reshape(-1)], -1)
+    valid_f = (valid & (radii > 0)).reshape(-1)
+
+    binning = bin_to_tiles(tmin_f, tmax_f, valid_f, ntx, nty * B,
+                           max_tiles_per_prim, budget_total,
+                           depth_keys=qd.reshape(-1))
+    return gsplat_cuda.rasterize_tiled(
+        xys.reshape(B * N, 2), conics.reshape(B * N, 3),
+        op_s.reshape(B * N, 1), chan.reshape(B * N, chan.shape[-1]),
+        valid_f, binning.sorted_prim, binning.tile_start, binning.tile_end,
+        binning.perm, binning.prim_offsets, binning.prim_ends, cam_img_h,
+        cam_img_w, tile_size, max_pairs_per_tile, chunk, ntx, nty,
+        window="pallas", n_imgs=B)
+
+
 def render(
     cam_img_w: int,
     cam_img_h: int,
@@ -331,41 +412,50 @@ def render(
 
     Returns dict(render [B,3,H,W], final_T [B,1,H,W], alpha [B,1,H,W],
     depth [B,1,H,W] if return_depth, radii [B,N] if return_radii).
-    ``use_pallas`` and ``pallas_inner`` are accepted for config
-    compatibility and select nothing (see the module docstring)."""
-    del use_pallas, pallas_inner
+    ``use_pallas`` selects the compositor's block window and, with
+    ``GOLIATH_GSPLAT_FOLD=1``, the batch-folded path; ``pallas_inner`` is
+    accepted for config compatibility and selects nothing (see the module
+    docstring)."""
+    del pallas_inner
     if tile_shard_axis is not None or tile_shard_mesh is not None:
         raise NotImplementedError(
             "tile-sharded rendering is not ported yet "
             "(ROADMAP queue 1, parallel/tile_shard.py)")
-    if (os.environ.get("GOLIATH_GSPLAT_FOLD", "0") == "1"
-            and primpos.shape[0] > 1 and not return_radii):
-        raise NotImplementedError(
-            "the batch-folded compositor (K6) is not ported yet "
-            "(ROADMAP queue 2, K6)")
     ntx = -(-cam_img_w // tile_size)
     nty = -(-cam_img_h // tile_size)
     B, N = primpos.shape[:2]
-    budget = int(round(pair_budget_mult * N))
 
-    outs, Ts, radii_all = [], [], []
-    for b in range(B):  # per sample, as the JAX Pallas path unrolls it
-        xys, conics, op_s, chan, valid, radii, binning = prepare_sample(
-            K[b], Rt[b], primpos[b], primqvec[b], primscale[b], opacity[b],
-            colors[b], cam_img_h, cam_img_w, tile_size, z_near,
-            global_scale, max_tiles_per_prim, budget, return_depth,
-        )
-        out, T_final = gsplat_cuda.rasterize_tiled(
-            xys, conics, op_s, chan, valid, binning.sorted_prim,
-            binning.tile_start, binning.tile_end, binning.perm,
-            binning.prim_offsets, binning.prim_ends, cam_img_h, cam_img_w,
-            tile_size, max_pairs_per_tile, chunk, ntx, nty,
-        )
-        outs.append(out)
-        Ts.append(T_final)
-        radii_all.append(radii)
-    out = torch.stack(outs)
-    T_final = torch.stack(Ts)
+    radii_all = []
+    if (use_pallas and os.environ.get("GOLIATH_GSPLAT_FOLD", "0") == "1"
+            and B > 1 and not return_radii):
+        out, T_final = _render_folded(
+            cam_img_w, cam_img_h, K, Rt, primpos, primqvec, primscale,
+            opacity, colors, return_depth, tile_size, global_scale, z_near,
+            max_tiles_per_prim, max_pairs_per_tile, chunk, pair_budget_mult,
+            ntx, nty)
+    else:
+        budget = int(round(pair_budget_mult * N))
+        window = "pallas" if use_pallas else "xla"
+        outs, Ts = [], []
+        for b in range(B):  # per sample, as the JAX Pallas path unrolls it
+            xys, conics, op_s, chan, valid, radii, binning = prepare_sample(
+                K[b], Rt[b], primpos[b], primqvec[b], primscale[b],
+                opacity[b], colors[b], cam_img_h, cam_img_w, tile_size,
+                z_near, global_scale, max_tiles_per_prim, budget,
+                return_depth,
+            )
+            out, T_final = gsplat_cuda.rasterize_tiled(
+                xys, conics, op_s, chan, valid, binning.sorted_prim,
+                binning.tile_start, binning.tile_end, binning.perm,
+                binning.prim_offsets, binning.prim_ends, cam_img_h,
+                cam_img_w, tile_size, max_pairs_per_tile, chunk, ntx, nty,
+                window=window,
+            )
+            outs.append(out)
+            Ts.append(T_final)
+            radii_all.append(radii)
+        out = torch.stack(outs)
+        T_final = torch.stack(Ts)
     rgb = out[:, :3]
     alpha = (1.0 - T_final)[:, None]
     if bg_color is not None:

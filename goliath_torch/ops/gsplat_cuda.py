@@ -18,14 +18,30 @@ are unchanged.
 * K2 ``pair_grads`` (``csrc/compositor_bwd.cu``) replaces
   ``_compositor_bwd_kernel`` / ``pair_grads_pallas``. Plain version:
   ``pair_grads_plain``, the same front-to-back replay in PyTorch.
+* K1 and K2 take a block window: ``"pallas"`` (the TPU kernels' window, as
+  above) or ``"xla"`` (the JAX XLA compositor's, ``use_pallas`` false:
+  blocks ``[start + j*chunk, +chunk)`` for ``j < max_pairs_per_tile //
+  chunk``, no early-out), counted under ``compositor_fwd_xla`` and
+  ``pair_grads_xla``.
+* K6 is K1 and K2 with an image axis (``n_imgs > 1``): the B images of the
+  batch-folded render stacked vertically in tile space, one launch each,
+  replacing ``rasterize_tiled_pl_fold`` (``_plf_fwd`` / ``_plf_bwd``);
+  counted under ``compositor_fwd_fold`` and ``pair_grads_fold``.
 * K3 ``cumsum_cols`` (``csrc/cumsum.cu``) replaces
   ``_cumsum1d_batched_kernel`` / ``cumsum_cols_pl``. Plain version:
   ``torch.cumsum(x, dim=1)`` in float32.
 * K4 ``cumsum1d`` (``csrc/cumsum.cu``) replaces ``_cumsum1d_kernel`` /
   ``cumsum1d_pl``. Plain version: ``torch.cumsum(dtype=int32)``.
+* K7 ``cumsum_rows`` (``csrc/cumsum.cu``, K3's scan over the columns of a
+  row-major [M, F]) replaces ``_cumsum_rows_kernel`` / ``cumsum_rows_pl``.
+  Plain version: ``torch.cumsum(x.float(), 0)``.
+* P1 ``probe_fwd`` (``csrc/compositor_fwd.cu``, compile-time variants of
+  K1) replaces the kernel variants of scripts/probe_kernel.py. Plain
+  version: ``compositor_fwd_plain`` with the variant.
 * ``RasterizeTiled`` joins K1 and K2 (with the per-prim reduce of
   ops/gsplat.py on K3) into one differentiable function, the counterpart of
-  ``rasterize_tiled_pl``.
+  ``rasterize_tiled_pl`` (and, with ``n_imgs > 1``, of
+  ``rasterize_tiled_pl_fold``).
 
 Each wrapper takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor (ops/backend.py), and adds one to ``LAUNCHES[name]`` each time it
@@ -53,17 +69,34 @@ PLAIN_BATCH_ELEMS = 1 << 24
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
+WINDOWS = ("pallas", "xla")
+PROBE_VARIANTS = ("full", "noexp", "nochain", "loadonly")  # VAR_* in the .cu
+# launch counter -> kernel source (one launch name per mode of a kernel)
 SOURCES = {"compositor_fwd": "compositor_fwd.cu",
+           "compositor_fwd_xla": "compositor_fwd.cu",
+           "compositor_fwd_fold": "compositor_fwd.cu",
            "pair_grads": "compositor_bwd.cu",
+           "pair_grads_xla": "compositor_bwd.cu",
+           "pair_grads_fold": "compositor_bwd.cu",
            "cumsum_cols": "cumsum.cu",
            "cumsum1d": "cumsum.cu",
-           "zbuffer": "zbuffer.cu"}
+           "cumsum_rows": "cumsum.cu",
+           "zbuffer": "zbuffer.cu",
+           **{f"probe_{v}": "compositor_fwd.cu" for v in PROBE_VARIANTS}}
+# what each launch name stands for in the JAX package (file:line in its
+# directory; the probe's in the repo's scripts/)
 REPLACES = {
     "compositor_fwd": "ops/gsplat_pallas.py:245",
+    "compositor_fwd_xla": "ops/gsplat.py:266",
+    "compositor_fwd_fold": "ops/gsplat_pallas.py:845",
     "pair_grads": "ops/gsplat_pallas.py:471",
+    "pair_grads_xla": "ops/gsplat.py:402",
+    "pair_grads_fold": "ops/gsplat_pallas.py:863",
     "cumsum_cols": "ops/gsplat_pallas.py:169",
     "cumsum1d": "ops/gsplat_pallas.py:110",
+    "cumsum_rows": "ops/gsplat_pallas.py:71",
     "zbuffer": "ops/rasterizer_pallas.py:28",
+    **{f"probe_{v}": "scripts/probe_kernel.py:49" for v in PROBE_VARIANTS},
 }
 
 # launches of each kernel since the last reset_launch_counts()
@@ -144,8 +177,41 @@ def cumsum_cols(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K1: tile compositor forward
+# K7: inclusive float32 prefix sums along axis 0 of [M, F]
 # ---------------------------------------------------------------------------
+
+
+def cumsum_rows_plain(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x.float(), 0)
+
+
+def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along dim 0 of a [M, F] float32 tensor, each of
+    the F columns on its own (K7 on CUDA tensors; the counterpart of
+    ``cumsum_rows_pl``). Agrees with ``torch.cumsum`` to rounding, as K3."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f"cumsum_rows takes a [M, F] float32 tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if target_backend(x) == "cpu":
+        return cumsum_rows_plain(x)
+    out = load_kernels().cumsum_rows_f32(x.contiguous())
+    LAUNCHES["cumsum_rows"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K1: tile compositor forward (K6's with an image axis, P1's variants)
+# ---------------------------------------------------------------------------
+
+
+def window_blocks(max_pairs_per_tile: int, chunk: int, window: str) -> int:
+    """Blocks of ``chunk`` rows in a tile's window: the Pallas kernel's
+    starts at the chunk-aligned row below the tile's start and takes one
+    block more than the XLA compositor's, which starts at the tile's
+    start."""
+    if window not in WINDOWS:
+        raise ValueError(f"window must be one of {WINDOWS}, got {window!r}")
+    return max_pairs_per_tile // chunk + (window == "pallas")
 
 
 def pack_pair_rows(xys, conics, opacities, colors, valid, sorted_prim,
@@ -163,33 +229,62 @@ def pack_pair_rows(xys, conics, opacities, colors, valid, sorted_prim,
 
 
 def _tiles_to_image(tiles_cp, ntx, nty, ts, img_h, img_w):
-    """[T, C, P] -> [C, H, W], cropped to the image."""
-    T, C, P = tiles_cp.shape
-    x = tiles_cp.reshape(nty, ntx, C, ts, ts).permute(2, 0, 3, 1, 4)
-    return x.reshape(C, nty * ts, ntx * ts)[:, :img_h, :img_w]
+    """[B * T, C, P] -> [B, C, H, W], cropped to the image."""
+    BT, C, P = tiles_cp.shape
+    x = tiles_cp.reshape(-1, nty, ntx, C, ts, ts).permute(0, 3, 1, 4, 2, 5)
+    return x.reshape(-1, C, nty * ts, ntx * ts)[..., :img_h, :img_w]
+
+
+def _tile_pixels(tiles, n_tiles_img, ntx, tile_size):
+    """Pixel centres [n, P] (x and y) of global tiles: image-local tiles."""
+    pix = torch.arange(tile_size * tile_size, device=tiles.device)
+    local = tiles % n_tiles_img
+    px = ((local % ntx) * tile_size).float()[:, None] \
+        + ((pix % tile_size).float() + 0.5)
+    py = ((local // ntx) * tile_size).float()[:, None] \
+        + ((pix // tile_size).float() + 0.5)
+    return px, py
+
+
+def _window_start(start, chunk, window):
+    """Row of block 0 of each tile's window."""
+    return start if window == "xla" else (start // chunk) * chunk
 
 
 def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
                          tile_size: int, ntx: int, nty: int, chunk: int,
-                         max_pairs_per_tile: int
+                         max_pairs_per_tile: int, n_imgs: int = 1,
+                         window: str = "pallas", variant: str = "full",
+                         replay_cnt: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch K1: ``_rasterize_fwd_impl``'s per-chunk cumprod
-    compositing over the Pallas kernel's window (block j of a tile covers
+    compositing over a tile's block window. ``"pallas"``: block j covers
     rows [(start//chunk + j)*chunk, +chunk) masked to [start, end), for
-    j < max_pairs_per_tile//chunk + 1), with its early-out (a block is
-    skipped once the tile's max T <= 1e-4) and its block count ``cnt``.
+    j < max_pairs_per_tile//chunk + 1, with the Pallas kernel's early-out
+    (a block is skipped once the tile's max T <= 1e-4). ``"xla"``: block j
+    covers [start + j*chunk, +chunk) masked by end, for j <
+    max_pairs_per_tile//chunk, every block composited (the JAX XLA
+    compositor). ``cnt`` is the number of blocks composited.
 
-    Tiles run in batches to bound the [tiles, chunk, pixels] temporaries
-    to ``PLAIN_BATCH_ELEMS`` elements. Returns (color [C, H, W], T [H, W], cnt [tiles])."""
+    ``n_imgs`` images (K6): the bounds are [n_imgs * tiles] of one binning
+    over the images stacked vertically, pixel coordinates image-local.
+    ``variant`` and ``replay_cnt`` are P1's (``probe_fwd``): walk the blocks
+    j < replay_cnt[t] with no early-out test, with the variant's arithmetic
+    (see csrc/compositor_fwd.cu).
+
+    Tiles run in batches to bound the [tiles, chunk, pixels] temporaries to
+    ``PLAIN_BATCH_ELEMS`` elements. Returns (color [n_imgs, C, H, W],
+    T [n_imgs, H, W], cnt [n_imgs * tiles]), without the image axis when
+    n_imgs is 1."""
+    if variant not in PROBE_VARIANTS:
+        raise ValueError(f"variant must be one of {PROBE_VARIANTS}")
     C = rows.shape[1] - 8
     P = tile_size * tile_size
-    n_tiles = ntx * nty
-    nchunks = max_pairs_per_tile // chunk + 1
+    n_tiles_img = ntx * nty
+    n_tiles = n_imgs * n_tiles_img
+    nchunks = window_blocks(max_pairs_per_tile, chunk, window)
     tile_batch = max(1, PLAIN_BATCH_ELEMS // (chunk * P))
     dev = rows.device
-    pix = torch.arange(P, device=dev)
-    px_local = (pix % tile_size).float() + 0.5
-    py_local = (pix // tile_size).float() + 0.5
     lane = torch.arange(chunk, device=dev)
     last_row = rows.shape[0] - 1
     accs, Ts, cnts = [], [], []
@@ -197,27 +292,47 @@ def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
         tiles = torch.arange(t0, min(t0 + tile_batch, n_tiles), device=dev)
         start = tile_start[tiles].long()
         end = tile_end[tiles].long()
-        px = ((tiles % ntx) * tile_size).float()[:, None] + px_local
-        py = ((tiles // ntx) * tile_size).float()[:, None] + py_local
+        first = _window_start(start, chunk, window)
+        px, py = _tile_pixels(tiles, n_tiles_img, ntx, tile_size)
         T = torch.ones(len(tiles), P, device=dev)
         acc = torch.zeros(len(tiles), C, P, device=dev)
         cnt = torch.zeros(len(tiles), dtype=torch.int32, device=dev)
         for j in range(nchunks):
-            base = (start // chunk + j) * chunk
-            have = (base < end) & (base + chunk > start) \
-                & (T.amax(dim=1) > T_EPS)
+            base = first + j * chunk
+            have = base < end
+            if replay_cnt is not None:
+                have = have & (j < replay_cnt[tiles])
+            elif window == "pallas":
+                have = have & (T.amax(dim=1) > T_EPS)
             cnt = torch.where(have, j + 1, cnt)
             idx = base[:, None] + lane                          # [n, CH]
             m = (idx >= start[:, None]) & (idx < end[:, None]) & have[:, None]
             data = rows[idx.clamp(max=last_row)]                # [n, CH, F]
+            if variant == "loadonly":
+                acc = acc + torch.einsum("nk,nkc->nc", m.float(),
+                                         data[..., 8:])[..., None]
+                continue
             dx = data[..., 0, None] - px[:, None]               # [n, CH, P]
             dy = data[..., 1, None] - py[:, None]
             a, b, c = (data[..., k, None] for k in (2, 3, 4))
             sigma = 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
-            raw = data[..., 5, None] * torch.exp(-sigma.clamp(0.0, 60.0))
+            if variant == "noexp":
+                raw = data[..., 5, None] * (1.0 - sigma).clamp(min=0.0)
+            else:
+                raw = data[..., 5, None] * torch.exp(-sigma.clamp(0.0, 60.0))
             alpha = raw.clamp(max=ALPHA_CLIP)
             keep = (sigma >= 0) & (alpha >= ALPHA_MIN) & m[..., None]
             alpha = torch.where(keep, alpha, 0.0)
+            if variant == "nochain":
+                # every pair weighted by the block's starting T; T moves
+                # once, by the block's last row
+                w = alpha * T[:, None]
+                last = (torch.minimum(base + chunk, end) - 1 - base).clamp(
+                    0, chunk - 1)
+                a_last = alpha[torch.arange(len(tiles), device=dev), last]
+                acc = acc + torch.einsum("nkp,nkc->ncp", w, data[..., 8:])
+                T = T * (1.0 - a_last)
+                continue
             one_m = 1.0 - alpha
             cum = torch.cumprod(one_m, dim=1)
             w = alpha * (T[:, None] * cum / one_m)
@@ -228,106 +343,167 @@ def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
         cnts.append(cnt)
     acc, T, cnt = torch.cat(accs), torch.cat(Ts), torch.cat(cnts)
     img = _tiles_to_image(acc, ntx, nty, tile_size, img_h, img_w)
-    T_img = _tiles_to_image(T[:, None], ntx, nty, tile_size, img_h, img_w)[0]
+    T_img = _tiles_to_image(T[:, None], ntx, nty, tile_size, img_h, img_w)[:, 0]
+    if n_imgs == 1:
+        return img[0], T_img[0], cnt
     return img, T_img, cnt
 
 
-def compositor_fwd(rows, tile_start, tile_end, img_h: int, img_w: int,
-                   tile_size: int, ntx: int, nty: int, chunk: int,
-                   max_pairs_per_tile: int
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K1 on CUDA tensors, ``compositor_fwd_plain`` on CPU tensors.
-
-    rows: [R, 8 + C] f32 from ``pack_pair_rows``; tile_start/tile_end:
-    [ntx * nty] int32 with 0 <= start <= end <= R (bin_to_tiles guarantees
-    this: both come from a searchsorted into the pair buffer). Returns
-    (color [C, H, W], T [H, W], cnt [tiles] int32)."""
-    n_tiles = ntx * nty
+def _check_rows_and_tiles(rows, n_tiles, *tile_arrays):
     C = rows.shape[1] - 8
     if rows.dim() != 2 or rows.dtype != torch.float32 or C < 1:
         raise ValueError(f"rows must be [R, 8 + C] float32, got "
                          f"{tuple(rows.shape)} {rows.dtype}")
-    for t in (tile_start, tile_end):
+    for t in tile_arrays:
         if t.shape != (n_tiles,) or t.dtype != torch.int32:
-            raise ValueError(f"tile bounds must be [{n_tiles}] int32, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-    if target_backend(rows) == "cpu":
-        return compositor_fwd_plain(rows, tile_start, tile_end, img_h, img_w,
-                                    tile_size, ntx, nty, chunk,
-                                    max_pairs_per_tile)
+            raise ValueError(f"tile bounds and counts must be [{n_tiles}] "
+                             f"int32, got {tuple(t.shape)} {t.dtype}")
+    return C
+
+
+def _launch_fwd(rows, tile_start, tile_end, replay_cnt, img_h, img_w,
+                tile_size, ntx, chunk, nchunks, n_imgs, window, variant):
+    C = rows.shape[1] - 8
     if C > MAX_CHANNELS or tile_size * tile_size > 1024:
         raise ValueError(f"K1 takes at most {MAX_CHANNELS} channels and "
                          f"32x32 tiles, got C={C}, tile {tile_size}")
     img, T, cnt = load_kernels().compositor_fwd(
         rows.contiguous(), tile_start.contiguous(), tile_end.contiguous(),
-        ntx, tile_size, img_h, img_w, chunk, max_pairs_per_tile // chunk + 1)
-    LAUNCHES["compositor_fwd"] += 1
+        replay_cnt.contiguous() if replay_cnt is not None
+        else tile_start.new_empty(0), ntx, tile_size, img_h, img_w, chunk,
+        nchunks, n_imgs, WINDOWS.index(window),
+        PROBE_VARIANTS.index(variant))
+    if n_imgs == 1:
+        return img[0], T[0], cnt
     return img, T, cnt
 
 
+def compositor_fwd(rows, tile_start, tile_end, img_h: int, img_w: int,
+                   tile_size: int, ntx: int, nty: int, chunk: int,
+                   max_pairs_per_tile: int, n_imgs: int = 1,
+                   window: str = "pallas"
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1 (K6 with ``n_imgs > 1``) on CUDA tensors, ``compositor_fwd_plain``
+    on CPU tensors.
+
+    rows: [R, 8 + C] f32 from ``pack_pair_rows``; tile_start/tile_end:
+    [n_imgs * ntx * nty] int32 with 0 <= start <= end <= R (bin_to_tiles
+    guarantees this: both come from a searchsorted into the pair buffer).
+    Returns (color [C, H, W], T [H, W], cnt [tiles] int32), with a leading
+    image axis on color and T when n_imgs > 1. The batch-folded render takes
+    the Pallas window only (``render`` folds only with ``use_pallas``)."""
+    C = _check_rows_and_tiles(rows, n_imgs * ntx * nty, tile_start, tile_end)
+    nchunks = window_blocks(max_pairs_per_tile, chunk, window)
+    if n_imgs > 1 and window != "pallas":
+        raise ValueError("the batch-folded compositor (K6) takes the Pallas "
+                         "window only")
+    if target_backend(rows) == "cpu":
+        return compositor_fwd_plain(rows, tile_start, tile_end, img_h, img_w,
+                                    tile_size, ntx, nty, chunk,
+                                    max_pairs_per_tile, n_imgs, window)
+    out = _launch_fwd(rows, tile_start, tile_end, None, img_h, img_w,
+                      tile_size, ntx, chunk, nchunks, n_imgs, window, "full")
+    LAUNCHES["compositor_fwd" + ("_fold" if n_imgs > 1 else "")
+             + ("_xla" if window == "xla" else "")] += 1
+    return out
+
+
+def probe_fwd(rows, tile_start, tile_end, cnt, img_h: int, img_w: int,
+              tile_size: int, ntx: int, nty: int, chunk: int,
+              max_pairs_per_tile: int, variant: str
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """P1: a variant of K1 (``PROBE_VARIANTS``, see csrc/compositor_fwd.cu)
+    that walks the blocks j < cnt[t] of each tile's Pallas window, the
+    blocks K1 composited when it returned ``cnt``, with no early-out test.
+    ``"full"`` then equals K1 bit for bit; the others compute other things
+    on purpose, over the same rows. On CPU tensors
+    ``compositor_fwd_plain`` with the variant. Returns as
+    ``compositor_fwd``."""
+    _check_rows_and_tiles(rows, ntx * nty, tile_start, tile_end, cnt)
+    if variant not in PROBE_VARIANTS:
+        raise ValueError(f"variant must be one of {PROBE_VARIANTS}")
+    nchunks = window_blocks(max_pairs_per_tile, chunk, "pallas")
+    if target_backend(rows) == "cpu":
+        return compositor_fwd_plain(rows, tile_start, tile_end, img_h, img_w,
+                                    tile_size, ntx, nty, chunk,
+                                    max_pairs_per_tile, variant=variant,
+                                    replay_cnt=cnt)
+    out = _launch_fwd(rows, tile_start, tile_end, cnt, img_h, img_w,
+                      tile_size, ntx, chunk, nchunks, 1, "pallas", variant)
+    LAUNCHES[f"probe_{variant}"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
-# K2: tile compositor backward (per-pair gradients)
+# K2: tile compositor backward (per-pair gradients; K6's with an image axis)
 # ---------------------------------------------------------------------------
 
 
 def _image_to_tiles(img, ntx, nty, ts):
-    """[K, H, W] -> [T, K, P], zero padded to whole tiles."""
-    K, H, W = img.shape
+    """[B, K, H, W] -> [B * T, K, P], zero padded to whole tiles."""
+    B, K, H, W = img.shape
     x = F.pad(img, (0, ntx * ts - W, 0, nty * ts - H))
-    x = x.reshape(K, nty, ts, ntx, ts).permute(1, 3, 0, 2, 4)
-    return x.reshape(nty * ntx, K, ts * ts)
+    x = x.reshape(B, K, nty, ts, ntx, ts).permute(0, 2, 4, 1, 3, 5)
+    return x.reshape(B * nty * ntx, K, ts * ts)
 
 
 def pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout, dL_dT,
                      T_final, out_img, tile_size: int, ntx: int, nty: int,
-                     chunk: int, n_pairs: int,
+                     chunk: int, n_pairs: int, n_imgs: int = 1,
+                     window: str = "pallas",
                      counts: Optional[dict] = None) -> torch.Tensor:
     """Plain PyTorch K2: per-pair gradients [n_pairs, 16] in sorted-pair
     order (dx, dy, d conic a/b/c, d opacity, d color x C, zero pad).
 
     Replays ``compositor_fwd_plain`` front to back over the blocks
-    ``j < cnt[t]`` of each tile with the suffix-from-total identity
+    ``j < cnt[t]`` of each tile's window (``window`` as for the forward)
+    with the suffix-from-total identity
     ``R_i = (dT*Tf + dout.out) - prefix_i(w q)`` and the same formulas as
     ``_compositor_bwd_kernel`` (gsplat_pallas.py:551-613). That kernel also
     clamps the in-block transmittance factor at 1e-20 (its log-space
-    prefix's ``_LOG_CLIP``); factors that small scale terms far below the
+    prefix's ``_LOG_CLIP``), and the JAX XLA backward divides by a reverse
+    product clipped there; factors that small scale terms far below the
     float32 resolution of the sums they enter, and neither this version nor
     the CUDA kernel applies the clamp. Rows no block reaches stay zero.
+
+    ``n_imgs`` images (K6): the image planes carry a leading image axis and
+    the bounds are global, as for ``compositor_fwd_plain``.
 
     ``counts``, if given, receives under "kept" the number of (pair, pixel)
     evaluations inside the image that pass the alpha test (an int64 tensor):
     the only ones whose gradient terms are not zero by definition."""
     C = rows.shape[1] - 8
     P = tile_size * tile_size
-    n_tiles = ntx * nty
+    n_tiles_img = ntx * nty
+    n_tiles = n_imgs * n_tiles_img
     tile_batch = max(1, PLAIN_BATCH_ELEMS // (chunk * P))
     dev = rows.device
-    pix = torch.arange(P, device=dev)
-    px_local = (pix % tile_size).float() + 0.5
-    py_local = (pix // tile_size).float() + 0.5
     lane = torch.arange(chunk, device=dev)
     last_row = rows.shape[0] - 1
+    if n_imgs == 1:
+        dL_dout, dL_dT, T_final, out_img = (
+            x[None] for x in (dL_dout, dL_dT, T_final, out_img))
     planes = _image_to_tiles(
-        torch.cat([dL_dout, dL_dT[None], T_final[None], out_img]),
+        torch.cat([dL_dout, dL_dT[:, None], T_final[:, None], out_img], 1),
         ntx, nty, tile_size)                                   # [T, 2C+2, P]
     grads = rows.new_zeros(n_pairs, PAIR_GRAD_COLS)
     pad = rows.new_zeros(PAIR_GRAD_COLS - 6 - C)
-    img_h, img_w = T_final.shape
+    img_h, img_w = T_final.shape[-2:]
     for t0 in range(0, n_tiles, tile_batch):
         tiles = torch.arange(t0, min(t0 + tile_batch, n_tiles), device=dev)
         start = tile_start[tiles].long()
         end = tile_end[tiles].long()
+        first = _window_start(start, chunk, window)
         n_blocks = cnt[tiles]
-        px = ((tiles % ntx) * tile_size).float()[:, None] + px_local
-        py = ((tiles // ntx) * tile_size).float()[:, None] + py_local
+        px, py = _tile_pixels(tiles, n_tiles_img, ntx, tile_size)
         dout = planes[tiles, :C]                                # [n, C, P]
         R0 = planes[tiles, C] * planes[tiles, C + 1] \
             + (dout * planes[tiles, C + 2:]).sum(dim=1)         # [n, P]
         T = torch.ones(len(tiles), P, device=dev)
         Pq = torch.zeros(len(tiles), P, device=dev)
         for j in range(int(n_blocks.max()) if len(tiles) else 0):
-            base = (start // chunk + j) * chunk
-            have = (base < end) & (base + chunk > start) & (j < n_blocks)
+            base = first + j * chunk
+            have = (base < end) & (j < n_blocks)
             idx = base[:, None] + lane                          # [n, CH]
             m = (idx >= start[:, None]) & (idx < end[:, None]) & have[:, None]
             data = rows[idx.clamp(max=last_row)]                # [n, CH, F]
@@ -379,43 +555,47 @@ def pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout, dL_dT,
 
 def pair_grads(rows, tile_start, tile_end, cnt, dL_dout, dL_dT, T_final,
                out_img, tile_size: int, ntx: int, nty: int, chunk: int,
-               n_pairs: int) -> torch.Tensor:
-    """K2 on CUDA tensors, ``pair_grads_plain`` on CPU tensors.
+               n_pairs: int, n_imgs: int = 1,
+               window: str = "pallas") -> torch.Tensor:
+    """K2 (K6's backward with ``n_imgs > 1``) on CUDA tensors,
+    ``pair_grads_plain`` on CPU tensors.
 
     rows/tile_start/tile_end as for ``compositor_fwd`` (tile ends within
     ``n_pairs``, the pair budget); cnt [tiles] int32, T_final [H, W] and
-    out_img [C, H, W] are the forward's outputs; dL_dout [C, H, W] and dL_dT
-    [H, W] the gradients with respect to them. Returns [n_pairs, 16] f32."""
-    n_tiles = ntx * nty
-    C = rows.shape[1] - 8
-    if rows.dim() != 2 or rows.dtype != torch.float32 or C < 1:
-        raise ValueError(f"rows must be [R, 8 + C] float32, got "
-                         f"{tuple(rows.shape)} {rows.dtype}")
-    for t in (tile_start, tile_end, cnt):
-        if t.shape != (n_tiles,) or t.dtype != torch.int32:
-            raise ValueError(f"tile bounds and cnt must be [{n_tiles}] "
-                             f"int32, got {tuple(t.shape)} {t.dtype}")
-    H, W = T_final.shape
-    for t, shape in ((dL_dout, (C, H, W)), (out_img, (C, H, W)),
-                     (dL_dT, (H, W))):
+    out_img [C, H, W] are the forward's outputs (with a leading image axis
+    when n_imgs > 1); dL_dout and dL_dT the gradients with respect to them.
+    Returns [n_pairs, 16] f32 in (global) sorted-pair order."""
+    n_tiles = n_imgs * ntx * nty
+    C = _check_rows_and_tiles(rows, n_tiles, tile_start, tile_end, cnt)
+    if window not in WINDOWS:
+        raise ValueError(f"window must be one of {WINDOWS}, got {window!r}")
+    if n_imgs > 1 and window != "pallas":
+        raise ValueError("the batch-folded compositor (K6) takes the Pallas "
+                         "window only")
+    H, W = T_final.shape[-2:]
+    lead = (n_imgs,) if n_imgs > 1 else ()
+    for t, shape in ((dL_dout, lead + (C, H, W)), (out_img, lead + (C, H, W)),
+                     (dL_dT, lead + (H, W)), (T_final, lead + (H, W))):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"image planes must be float32 {shape}, got "
                              f"{tuple(t.shape)} {t.dtype}")
     if target_backend(rows) == "cpu":
         return pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout,
                                 dL_dT, T_final, out_img, tile_size, ntx, nty,
-                                chunk, n_pairs)
+                                chunk, n_pairs, n_imgs, window)
     threads = tile_size * tile_size
     if C > MAX_CHANNELS or threads > 1024 or threads % 32:
         raise ValueError(f"K2 takes at most {MAX_CHANNELS} channels and "
                          f"8x8, 16x16 or 32x32 tiles, got C={C}, tile "
                          f"{tile_size}")
+    planes = [x.contiguous() if n_imgs > 1 else x.contiguous()[None]
+              for x in (dL_dout, dL_dT, T_final, out_img)]
     grads = load_kernels().compositor_bwd(
         rows.contiguous(), tile_start.contiguous(), tile_end.contiguous(),
-        cnt.contiguous(), dL_dout.contiguous(), dL_dT.contiguous(),
-        T_final.contiguous(), out_img.contiguous(), ntx, tile_size, chunk,
-        n_pairs)
-    LAUNCHES["pair_grads"] += 1
+        cnt.contiguous(), *planes, ntx, tile_size, chunk, n_pairs,
+        WINDOWS.index(window))
+    LAUNCHES["pair_grads" + ("_fold" if n_imgs > 1 else "")
+             + ("_xla" if window == "xla" else "")] += 1
     return grads
 
 
@@ -426,28 +606,33 @@ def pair_grads(rows, tile_start, tile_end, cnt, dL_dout, dL_dT, T_final,
 
 class RasterizeTiled(torch.autograd.Function):
     """Tiled compositor with its hand-written backward (counterpart of
-    ``rasterize_tiled_pl``, gsplat_pallas.py:745-810). The forward packs the
-    pair rows and runs K1; it keeps the rows, K1's outputs (the backward
-    replays the forward up to ``cnt`` and needs the rendered color and final
-    T for its suffix sums) and the binning's permutation and per-prim slot
-    ranges. The backward runs K2 and reduces the per-pair gradients to
-    per-prim sums on K3 (``ops.gsplat.reduce_sorted_pair_grads``)."""
+    ``rasterize_tiled_pl``, gsplat_pallas.py:745-810, and with ``n_imgs > 1``
+    of ``rasterize_tiled_pl_fold``, :828-894; with the ``"xla"`` window of
+    the JAX XLA ``rasterize_tiled``, ops/gsplat.py:249-513). The forward
+    packs the pair rows and runs K1 (K6); it keeps the rows, K1's outputs
+    (the backward replays the forward up to ``cnt`` and needs the rendered
+    color and final T for its suffix sums) and the binning's permutation and
+    per-prim slot ranges. The backward runs K2 (K6) and reduces the per-pair
+    gradients to per-prim sums with one reduce on K3
+    (``ops.gsplat.reduce_sorted_pair_grads``): the binning's perm and slot
+    ranges are global over the images, so one reduce serves them all."""
 
     @staticmethod
     def forward(ctx, xys, conics, opacities, colors, valid, sorted_prim,
                 tile_start, tile_end, perm, prim_offsets, prim_ends,
-                img_h, img_w, tile_size, max_pairs_per_tile, chunk, ntx, nty):
-        nchunks = max_pairs_per_tile // chunk + 1
+                img_h, img_w, tile_size, max_pairs_per_tile, chunk, ntx, nty,
+                window, n_imgs):
+        nchunks = window_blocks(max_pairs_per_tile, chunk, window)
         rows = pack_pair_rows(xys, conics, opacities, colors,
                               valid.to(xys.dtype), sorted_prim,
                               nchunks * chunk)
         out, T, cnt = compositor_fwd(rows, tile_start, tile_end, img_h,
                                      img_w, tile_size, ntx, nty, chunk,
-                                     max_pairs_per_tile)
+                                     max_pairs_per_tile, n_imgs, window)
         ctx.save_for_backward(rows, out, T, cnt, tile_start, tile_end, perm,
                               prim_offsets, prim_ends)
         ctx.dims = (tile_size, ntx, nty, chunk, sorted_prim.shape[0],
-                    colors.shape[1], opacities.shape)
+                    colors.shape[1], opacities.shape, n_imgs, window)
         return out, T
 
     @staticmethod
@@ -456,24 +641,30 @@ class RasterizeTiled(torch.autograd.Function):
 
         (rows, out, T, cnt, tile_start, tile_end, perm, prim_offsets,
          prim_ends) = ctx.saved_tensors
-        tile_size, ntx, nty, chunk, budget, C, op_shape = ctx.dims
+        (tile_size, ntx, nty, chunk, budget, C, op_shape, n_imgs,
+         window) = ctx.dims
         sorted_g = pair_grads(rows, tile_start, tile_end, cnt, d_out, d_T, T,
-                              out, tile_size, ntx, nty, chunk, budget)
+                              out, tile_size, ntx, nty, chunk, budget, n_imgs,
+                              window)
         acc = reduce_sorted_pair_grads(sorted_g[:, :6 + C], perm,
                                        prim_offsets, prim_ends)   # [F, N]
         return (acc[0:2].T, acc[2:5].T, acc[5].reshape(op_shape), acc[6:].T,
-                ) + (None,) * 14
+                ) + (None,) * 16
 
 
 def rasterize_tiled(xys, conics, opacities, colors, valid, sorted_prim,
                     tile_start, tile_end, perm, prim_offsets, prim_ends,
                     img_h: int, img_w: int, tile_size: int,
-                    max_pairs_per_tile: int, chunk: int, ntx: int, nty: int):
+                    max_pairs_per_tile: int, chunk: int, ntx: int, nty: int,
+                    window: str = "pallas", n_imgs: int = 1):
     """Tiled splat compositing: ([C, H, W], T [H, W]), differentiable with
     respect to xys [N, 2], conics [N, 3], opacities and colors [N, C]. The
-    other tensors are the binning's (``ops.binning.TileBinning``)."""
+    other tensors are the binning's (``ops.binning.TileBinning``). With
+    ``n_imgs > 1`` (the batch-folded render, K6) the prims and the binning
+    are global over the images stacked vertically in tile space, and color
+    and T gain a leading image axis."""
     return RasterizeTiled.apply(xys, conics, opacities, colors, valid,
                                 sorted_prim, tile_start, tile_end, perm,
                                 prim_offsets, prim_ends, img_h, img_w,
                                 tile_size, max_pairs_per_tile, chunk, ntx,
-                                nty)
+                                nty, window, n_imgs)

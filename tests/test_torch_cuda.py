@@ -14,8 +14,11 @@ against the float32 torch.cumsum (float32 sums in other orders over up to
 2^24 items). K2: rtol 1e-3 with atol 1e-4 of each column's
 largest entry (the same float32 sums over a tile's pixels in other orders;
 the suffix-from-total identity cancels terms as large as the column's
-largest). Gradients of render on the card against the CPU: rtol 1e-3 with
-atol 1e-3 of each gradient's largest entry. The mesh RenderLayer on the card
+largest). K6 (K1 and K2 with an image axis) and the XLA block window of K1
+and K2: as K1 and K2. K7: as K3. P1: ``full`` equal to K1 bit for bit, the
+other variants as K1 against their plain versions. Gradients of render on
+the card against the CPU: rtol 1e-3 with atol 1e-3 of each gradient's
+largest entry. The mesh RenderLayer on the card
 against the CPU: the same coverage, the same face on >= 99.9% of the
 pixels, the image at atol/rtol 1e-4 where the face agrees.
 """
@@ -283,3 +286,206 @@ def test_render_layer_on_the_card_matches_the_cpu(cuda):
     m = same[:, None]
     torch.testing.assert_close(got["render"] * m, ref["render"] * m,
                                atol=1e-4, rtol=1e-4)
+
+
+def _fold_frame(cuda, B, maxpp, chunk, ts, opaque):
+    """B images' prims binned once over the images stacked in tile space
+    (ops.gsplat._render_folded's binning), with their pair rows."""
+    H, W = 72, 100
+    scenes = [_scene(np.random.RandomState(20 + b), 300, H, W, opaque)
+              for b in range(B)]
+    K, Rt, *prims = [torch.from_numpy(np.stack(a)).to(cuda)
+                     for a in zip(*scenes)]
+    ntx, nty = -(-W // ts), -(-H // ts)
+    captured = {}
+    orig = gc.rasterize_tiled
+
+    def spy(*a, **kw):
+        captured["args"], captured["kw"] = a, kw
+        return orig(*a, **kw)
+
+    gc.rasterize_tiled = spy
+    try:
+        with torch.no_grad():
+            tg._render_folded(W, H, K, Rt, *prims, True, ts, 1.0, 0.1, 64,
+                              maxpp, chunk, 4, ntx, nty)
+    finally:
+        gc.rasterize_tiled = orig
+    (xys, conics, op_s, chan, valid, sorted_prim, start, end, *_rest) = \
+        captured["args"]
+    assert captured["kw"]["n_imgs"] == B
+    rows = gc.pack_pair_rows(xys, conics, op_s, chan, valid.float(),
+                             sorted_prim, (maxpp // chunk + 1) * chunk)
+    kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=ntx, nty=nty, chunk=chunk,
+              max_pairs_per_tile=maxpp, n_imgs=B)
+    return rows, start, end, sorted_prim.shape[0], kw
+
+
+@pytest.mark.parametrize("B,maxpp,chunk,ts,opaque", [
+    (2, 256, 32, 16, False),
+    (3, 64, 16, 16, True),     # overflowing tiles and the T early-out
+    (3, 128, 32, 32, True),    # 1024-thread blocks, ragged image edge
+])
+def test_fold_kernels_match_plain(cuda, B, maxpp, chunk, ts, opaque):
+    """K6 forward and backward (K1 and K2 over the B stacked images, one
+    launch each) against their plain versions."""
+    rows, start, end, n_pairs, kw = _fold_frame(cuda, B, maxpp, chunk, ts,
+                                                opaque)
+    before = dict(gc.LAUNCHES)
+    img, T, cnt = gc.compositor_fwd(rows, start, end, **kw)
+    assert gc.LAUNCHES["compositor_fwd_fold"] == \
+        before["compositor_fwd_fold"] + 1
+    assert gc.LAUNCHES["compositor_fwd"] == before["compositor_fwd"]
+    p_img, p_T, p_cnt = gc.compositor_fwd_plain(rows, start, end, **kw)
+    torch.cuda.synchronize()
+    assert img.shape == (B, 4, 72, 100) and T.shape == (B, 72, 100)
+    torch.testing.assert_close(img, p_img, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(T, p_T, atol=1e-4, rtol=1e-4)
+    assert torch.equal(cnt, p_cnt)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    d_out = torch.randn(img.shape, generator=g, device=cuda)
+    d_T = torch.randn(T.shape, generator=g, device=cuda)
+    args = (rows, start, end, cnt, d_out, d_T, T, img, ts, kw["ntx"],
+            kw["nty"], chunk, n_pairs, B)
+    got = gc.pair_grads(*args)
+    assert gc.LAUNCHES["pair_grads_fold"] == before["pair_grads_fold"] + 1
+    ref = gc.pair_grads_plain(*args)
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 1e-3
+    for k in range(16):
+        scale = float(ref[:, k].abs().max())
+        torch.testing.assert_close(got[:, k], ref[:, k], rtol=1e-3,
+                                   atol=1e-4 * scale, msg=lambda m: f"{k}: {m}")
+    assert torch.equal(got.abs().sum(1) == 0, ref.abs().sum(1) == 0)
+    if opaque:
+        assert int((end - start).max()) > maxpp
+
+
+@pytest.mark.parametrize("maxpp,chunk,ts", [(64, 16, 16), (128, 32, 32)])
+def test_xla_window_kernels_match_plain(cuda, maxpp, chunk, ts):
+    """K1 and K2 in the XLA compositor's window (no early-out), with
+    overflowing tiles, against their plain versions."""
+    H, W = 72, 100
+    arrays = [torch.from_numpy(a).to(cuda) for a in _scene(
+        np.random.RandomState(ts + maxpp), 400, H, W, True)]
+    xys, conics, op_s, chan, valid, _r, b = tg.prepare_sample(
+        *arrays, H, W, ts, pair_budget=1600)
+    assert int((b.tile_end - b.tile_start).max()) > maxpp
+    ntx, nty = -(-W // ts), -(-H // ts)
+    rows = gc.pack_pair_rows(xys, conics, op_s, chan, valid.float(),
+                             b.sorted_prim, (maxpp // chunk + 1) * chunk)
+    kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=ntx, nty=nty, chunk=chunk,
+              max_pairs_per_tile=maxpp, window="xla")
+    before = dict(gc.LAUNCHES)
+    img, T, cnt = gc.compositor_fwd(rows, b.tile_start, b.tile_end, **kw)
+    p_img, p_T, p_cnt = gc.compositor_fwd_plain(rows, b.tile_start,
+                                                b.tile_end, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(img, p_img, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(T, p_T, atol=1e-4, rtol=1e-4)
+    assert torch.equal(cnt, p_cnt)
+    assert float(T.min()) < 1e-4      # past the Pallas kernels' early-out
+    g = torch.Generator(device=cuda).manual_seed(0)
+    d_out = torch.randn(img.shape, generator=g, device=cuda)
+    d_T = torch.randn(T.shape, generator=g, device=cuda)
+    args = (rows, b.tile_start, b.tile_end, cnt, d_out, d_T, T, img, ts, ntx,
+            nty, chunk, 1600)
+    got = gc.pair_grads(*args, window="xla")
+    ref = gc.pair_grads_plain(*args, window="xla")
+    torch.cuda.synchronize()
+    for k in range(16):
+        scale = float(ref[:, k].abs().max())
+        torch.testing.assert_close(got[:, k], ref[:, k], rtol=1e-3,
+                                   atol=1e-4 * scale, msg=lambda m: f"{k}: {m}")
+    assert {k: gc.LAUNCHES[k] - before[k] for k in before
+            if gc.LAUNCHES[k] != before[k]} == {"compositor_fwd_xla": 1,
+                                                "pair_grads_xla": 1}
+
+
+@pytest.mark.parametrize("m,f", [(1, 10), (4097, 10), (1000003, 3),
+                                 ((1 << 24) + 5, 2)])
+def test_cumsum_rows_kernel_matches_plain(cuda, m, f):
+    """K7 on ragged M, one to three scan levels, against a float64 scan
+    (2e-6 of each column's largest running sum) and against the float32
+    torch.cumsum(x, 0), its plain version, within that version's own
+    distance from the float64 scan plus 2e-6: along dim 0 torch.cumsum
+    adds sequentially and drifts further (6.6e-5 of the running sum at
+    2^24 rows on the card) than K7's scan tree."""
+    g = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.randn(m, f, generator=g, device=cuda)
+    before = gc.LAUNCHES["cumsum_rows"]
+    got = gc.cumsum_rows(x)
+    assert gc.LAUNCHES["cumsum_rows"] == before + 1
+    ref = torch.cumsum(x.double(), 0)
+    scale = ref.abs().amax(0, keepdim=True).clamp(min=1e-30)
+    assert float(((got.double() - ref).abs() / scale).max()) <= 2e-6
+    plain = gc.cumsum_rows_plain(x)
+    own = float(((plain.double() - ref).abs() / scale).max())
+    assert float(((got - plain).double().abs() / scale).max()) <= own + 2e-6
+
+
+@pytest.mark.parametrize("opaque,maxpp,chunk,ts", [
+    (False, 256, 32, 16), (True, 64, 16, 16), (True, 128, 32, 32)])
+def test_probe_variants_match_plain(cuda, opaque, maxpp, chunk, ts):
+    """P1: full equal to K1 bit for bit; each variant against its plain
+    version at K1's tolerance, over K1's blocks."""
+    H, W = 72, 100
+    arrays = [torch.from_numpy(a).to(cuda) for a in _scene(
+        np.random.RandomState(ts + maxpp), 400, H, W, opaque)]
+    xys, conics, op_s, chan, valid, _r, b = tg.prepare_sample(
+        *arrays, H, W, ts, pair_budget=1600)
+    ntx, nty = -(-W // ts), -(-H // ts)
+    rows = gc.pack_pair_rows(xys, conics, op_s, chan, valid.float(),
+                             b.sorted_prim, (maxpp // chunk + 1) * chunk)
+    kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=ntx, nty=nty, chunk=chunk,
+              max_pairs_per_tile=maxpp)
+    img, T, cnt = gc.compositor_fwd(rows, b.tile_start, b.tile_end, **kw)
+    for v in gc.PROBE_VARIANTS:
+        before = gc.LAUNCHES[f"probe_{v}"]
+        got = gc.probe_fwd(rows, b.tile_start, b.tile_end, cnt, variant=v,
+                           **kw)
+        assert gc.LAUNCHES[f"probe_{v}"] == before + 1
+        ref = gc.compositor_fwd_plain(rows, b.tile_start, b.tile_end,
+                                      variant=v, replay_cnt=cnt, **kw)
+        torch.cuda.synchronize()
+        if v == "full":
+            assert all(torch.equal(x, y) for x, y in zip(got, (img, T, cnt)))
+        for k in range(2):
+            torch.testing.assert_close(got[k], ref[k], atol=1e-4, rtol=1e-4,
+                                       msg=lambda m: f"{v} output {k}: {m}")
+        assert torch.equal(got[2], ref[2]), v
+
+
+def test_fold_render_gradients_on_the_card_match_the_cpu(cuda, monkeypatch):
+    """The whole batch-folded render and its VJP (K6, K3 and K4 on the
+    card) against the CPU (plain versions)."""
+    monkeypatch.setenv("GOLIATH_GSPLAT_FOLD", "1")
+    scene = [torch.from_numpy(np.stack(a)) for a in zip(*(
+        _scene(np.random.RandomState(8 + b), 300, 64, 80, False)
+        for b in range(3)))]
+    kw = dict(tile_size=16, max_pairs_per_tile=256, chunk=32,
+              use_pallas=True)
+    w = torch.from_numpy(np.random.RandomState(9).rand(3, 3, 64, 80)
+                         .astype(np.float32))
+    grads, outs = [], []
+    for dev in (torch.device("cpu"), cuda):
+        K, Rt, *prims = [t.to(dev) for t in scene]
+        prims = [t.clone().requires_grad_(True) for t in prims]
+        before = dict(gc.LAUNCHES)
+        o = tg.render(80, 64, K, Rt, *prims, **kw)
+        ((o["render"] * w.to(dev)).sum() + o["alpha"].sum()
+         + 0.1 * o["depth"].sum()).backward()
+        if dev.type == "cuda":
+            assert gc.LAUNCHES["compositor_fwd_fold"] == \
+                before["compositor_fwd_fold"] + 1
+            assert gc.LAUNCHES["pair_grads_fold"] == \
+                before["pair_grads_fold"] + 1
+        outs.append({k: v.detach().cpu() for k, v in o.items()})
+        grads.append([t.grad.cpu() for t in prims])
+    for k in outs[0]:
+        torch.testing.assert_close(outs[1][k], outs[0][k], atol=1e-4,
+                                   rtol=1e-4)
+    for ref, got in zip(*grads):
+        assert bool(torch.isfinite(ref).all()) and float(ref.abs().max()) > 0
+        torch.testing.assert_close(got, ref, rtol=1e-3,
+                                   atol=1e-3 * float(ref.abs().max()))

@@ -131,7 +131,8 @@ def test_render_matches_jax_pallas_path(monkeypatch, return_depth):
               pair_budget_mult=4)
     ref = jax.jit(lambda *a: jg.render(W, H, *a, use_pallas=True, **kw))(
         *map(jnp.asarray, scene))
-    got = tg.render(W, H, *map(torch.from_numpy, scene), **kw)
+    got = tg.render(W, H, *map(torch.from_numpy, scene), use_pallas=True,
+                    **kw)
     assert set(got) == set(ref)
     for k in ref:
         assert tuple(got[k].shape) == ref[k].shape, k
@@ -140,13 +141,28 @@ def test_render_matches_jax_pallas_path(monkeypatch, return_depth):
 
 
 def test_render_raises_on_unported_branches(monkeypatch):
+    """The tile-sharded branch still raises; the batch-folded branch (K6)
+    raised until it was ported and now runs where the JAX package takes
+    it: use_pallas, GOLIATH_GSPLAT_FOLD=1, B > 1, no radii
+    (tests/test_torch_gsplat_fold.py holds it against the JAX fold)."""
     scene = [torch.from_numpy(a) for a in _scene(
         np.random.RandomState(5), 2, 8, 16, 16)]
     with pytest.raises(NotImplementedError, match="tile_shard"):
         tg.render(16, 16, *scene, tile_shard_axis="x")
     monkeypatch.setenv("GOLIATH_GSPLAT_FOLD", "1")
-    with pytest.raises(NotImplementedError, match="K6"):
-        tg.render(16, 16, *scene)
+    fold, calls = tg._render_folded, []
+
+    def spy(*a):
+        calls.append(a)
+        return fold(*a)
+
+    monkeypatch.setattr(tg, "_render_folded", spy)
+    out = tg.render(16, 16, *scene, use_pallas=True)
+    assert len(calls) == 1 and out["render"].shape == (2, 3, 16, 16)
+    tg.render(16, 16, *scene)                       # XLA window: no fold
+    tg.render(16, 16, *scene, use_pallas=True, return_radii=True)
+    tg.render(16, 16, *[t[:1] for t in scene], use_pallas=True)   # B = 1
+    assert len(calls) == 1
 
 
 def test_compositor_backward_raises_until_k2():

@@ -172,7 +172,7 @@ def test_render_vjp_matches_jax_pallas_path(monkeypatch, case):
         j_loss, argnums=(0, 1, 2, 3, 4)))(*map(jnp.asarray, prims))
     tp = [torch.from_numpy(a).requires_grad_(True) for a in prims]
     o = tg.render(W, H, torch.from_numpy(K), torch.from_numpy(Rt), *tp,
-                  **spec["kw"])
+                  use_pallas=True, **spec["kw"])
     val = ((o["render"] * _t(w_rgb)).sum() + (o["alpha"] * _t(w_a)).sum()
            + (o["depth"] * _t(w_d)).sum())
     val.backward()
@@ -186,12 +186,18 @@ def test_render_vjp_matches_jax_pallas_path(monkeypatch, case):
                                    atol=1e-3 * np.abs(r).max(), err_msg=name)
 
 
-def test_rasterize_tiled_vjp_overflow_tile():
+@pytest.mark.parametrize("window", ["pallas", "xla"])
+def test_rasterize_tiled_vjp_overflow_tile(window):
     """A tile with more pairs than the kernels' block window (the scene of
     the JAX package's test_pallas_overflow_tile_grads: 60 prims over tile 0,
-    window 48 rows, 12 over tile 1): gradients with respect to xys, conics,
-    opacities and colors against the JAX custom VJP, and exactly zero for
-    the prims past the window."""
+    window 48 rows from the aligned start in the Pallas kernels, 32 from the
+    tile's start in the XLA compositor, 12 prims over tile 1): gradients
+    with respect to xys, conics, opacities and colors against the JAX
+    custom VJP of that window (``rasterize_tiled_pl`` with the Pallas
+    kernels interpreted, or the XLA ``rasterize_tiled`` with its
+    back-to-front backward), and exactly zero for the prims past the
+    window. The low opacities keep T far above the 1e-20 clip of the XLA
+    backward's reverse product, where the two backward forms agree."""
     from goliath_tpu.ops.binning import bin_to_tiles
 
     rng = np.random.RandomState(6)
@@ -209,16 +215,24 @@ def test_rasterize_tiled_vjp_overflow_tile():
     t_max = (np.floor((xys + 3.0) / ts) + 1).astype(np.int32)
     b = bin_to_tiles(jnp.asarray(t_min), jnp.asarray(t_max),
                      jnp.asarray(valid), ntx, nty, 16, 4 * N)
-    window = (maxppt // chunk + 1) * chunk
     start0, end0 = int(b.tile_start[0]), int(b.tile_end[0])
-    assert end0 - start0 > window
+    if window == "pallas":
+        first = (start0 // chunk) * chunk
+        win_end = first + (maxppt // chunk + 1) * chunk
+    else:
+        win_end = start0 + (maxppt // chunk) * chunk
+    assert end0 > win_end
     barrays = (b.sorted_prim, b.tile_start, b.tile_end, jnp.asarray(valid),
                b.perm, b.prim_offsets, b.prim_ends, b.tile_of_pair)
 
     def j_loss(xys, conics, op, col):
-        out, T = gsplat_pallas.rasterize_tiled_pl(
-            xys, conics, op, col, barrays, H, W, ts, maxppt, chunk, inner,
-            ntx, nty)
+        if window == "pallas":
+            out, T = gsplat_pallas.rasterize_tiled_pl(
+                xys, conics, op, col, barrays, H, W, ts, maxppt, chunk,
+                inner, ntx, nty)
+        else:
+            out, T = jg.rasterize_tiled(xys, conics, op, col, barrays, H, W,
+                                        ts, maxppt, chunk, ntx, nty)
         return (out * out).sum() + (T * 1.7).sum()
 
     gsplat_pallas.INTERPRET = True
@@ -234,11 +248,11 @@ def test_rasterize_tiled_vjp_overflow_tile():
     out, T = gsplat_cuda.rasterize_tiled(
         *tp, _t(valid), _t(b.sorted_prim), _t(b.tile_start), _t(b.tile_end),
         _t(b.perm), _t(b.prim_offsets), _t(b.prim_ends), H, W, ts, maxppt,
-        chunk, ntx, nty)
+        chunk, ntx, nty, window=window)
     val = (out * out).sum() + (T * 1.7).sum()
     val.backward()
     np.testing.assert_allclose(val.item(), float(ref_val), rtol=1e-4)
-    over = np.asarray(b.sorted_prim)[(start0 // chunk) * chunk + window:end0]
+    over = np.asarray(b.sorted_prim)[win_end:end0]
     assert len(over) > 0
     for name, t, r in zip(("xys", "conics", "opacities", "colors"), tp, ref):
         r = np.asarray(r)

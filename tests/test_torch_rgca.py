@@ -1,11 +1,11 @@
 """Parity of the port's RGCA eval path with the JAX package on the CPU, at
 the configs/rgca_synthetic.yml size (uv 32, 64x64 images, n_embs 16).
 
-Both sides render with the compositor the port implements: the JAX side
-takes ``use_pallas=True`` with the Pallas kernels interpreted. The JAX XLA
-compositor (the config's default) truncates tiles that overflow
-``max_pairs_per_tile`` over another window, and this config does overflow
-(128 pairs per 16x16 tile), so it is not the matching reference.
+``model.render.use_pallas`` selects the compositor's block window on both
+sides: true the Pallas kernels' (interpreted on the JAX side), unset the
+JAX XLA compositor's (the config's default). This config overflows
+``max_pairs_per_tile`` (128 pairs per 16x16 tile), where the two windows
+differ, so ``run_test`` is compared under both.
 
 Tolerances: atol 1e-4 and rtol 1e-4 on the forward outputs (float32 on
 both sides; the conv pyramids and the compositor sum in other orders),
@@ -29,6 +29,7 @@ from goliath_torch.config import load_config as t_load_config
 from goliath_torch.config import load_from_config as t_load_from_config
 from goliath_torch.convert import load_params, params_from_jax, save_params
 from goliath_torch.data.synthetic import SyntheticDataset
+from goliath_torch.ops import gsplat_cuda
 from goliath_torch.scripts import run_test as t_run_test
 from goliath_torch.test import to_device
 from goliath_tpu import test as j_test_lib
@@ -108,15 +109,18 @@ def test_autoencoder_forward_matches_jax(monkeypatch):
     assert float(got["alpha"].max()) > 0.5  # the head was rendered
 
 
-def test_run_test_matches_jax(tmp_path, monkeypatch, capsys):
+@pytest.mark.parametrize("window", ["pallas", "xla"])
+def test_run_test_matches_jax(tmp_path, monkeypatch, capsys, window):
     """run_test.main of both packages under the same overrides. JAX's
     test.ckpt=null run initializes with PRNGKey(0); the port loads that
     init from a .pt file (it draws its own init otherwise, which no JAX
     run can reproduce), so both evaluate the same model on the same
-    frames."""
+    frames. "pallas" sets use_pallas (the Pallas kernels, interpreted);
+    "xla" leaves it unset, the config's default (the XLA compositor)."""
     monkeypatch.setattr(gsplat_pallas, "INTERPRET", True)
     monkeypatch.chdir(tmp_path)
-    overrides = ["test.ckpt=null", "test.vis_path=null", _PALLAS]
+    overrides = ["test.ckpt=null", "test.vis_path=null"] + (
+        [_PALLAS] if window == "pallas" else [])
     seen = {}
     j_test = j_test_lib.test
 
@@ -130,12 +134,23 @@ def test_run_test_matches_jax(tmp_path, monkeypatch, capsys):
 
     ckpt = tmp_path / "jax_init.pt"
     torch.save(params_from_jax(jax.device_get(seen["params"])), ckpt)
+    launches = []
+    monkeypatch.setattr(gsplat_cuda, "rasterize_tiled",
+                        _recording(gsplat_cuda.rasterize_tiled, launches))
     got = t_run_test.main(
         t_load_config(_CFG, overrides=overrides[1:] + [
             f"test.ckpt={{ckpt_path: {ckpt}}}"]), device="cpu")
+    assert set(launches) == {window}
     assert set(got) == set(ref)
     for k in ref:
         np.testing.assert_allclose(got[k], ref[k], rtol=RTOL, err_msg=k)
+
+
+def _recording(fn, windows):
+    def wrapped(*a, **kw):
+        windows.append(kw.get("window", "pallas"))
+        return fn(*a, **kw)
+    return wrapped
 
 
 def test_run_test_own_init_and_checkpoints(tmp_path, monkeypatch):
