@@ -9,13 +9,17 @@ the final result line:
   2. build of the hand-written CUDA kernels (torch.utils.cpp_extension.load:
      one nvcc per source and the bindings, run in parallel by ninja) and its
      time;
-  3. K4 (int32 inclusive scan) against torch.cumsum at M = 1,048,576 and
-     3,145,728, exactly equal, totals above 2^24 included;
+  3. K4 (int32 inclusive scan, single pass) against torch.cumsum at
+     M = 1,048,576 and 3,145,728, exactly equal, totals above 2^24
+     included; on the captured frame's two scans, K4 and torch.cumsum timed
+     by 100-call event loops and by the profiler's device time per call;
   4. K1 (tile compositor forward) against its plain PyTorch version on the
      pair rows of a full-width frame (configs/rgca.yml: uv 1024, i.e.
      1,048,576 Gaussians, 2048x1334 image, random weights from seed 0);
   5. K2 (tile compositor backward) against its plain version on the same
-     frame with seeded upstream gradients, all 16 columns; the whole
+     frame with seeded upstream gradients, all 16 columns, two launches
+     bit-equal, and its (pair, warp) visits and warp shuffles in the first
+     design and the current one beside its time; the whole
      backward (K2, then the per-prim reduce on K3) against autograd through
      the plain forward on one row of tiles, and the K3 reduce against
      index_add_ of the same pair gradients;
@@ -86,8 +90,9 @@ SMALL_RTOL = 1e-3
 # K2 against its plain version, per column, over the rows that carry a
 # gradient: rtol of the entry plus a fraction of the column's typical entry
 # (the median |reference|; the columns are heavy-tailed, so a fraction of
-# the largest entry would exceed most entries). The same float32 sums over a
-# tile's pixels are taken in other orders, and terms of both signs cancel.
+# the largest entry would exceed most entries). The same sums over a tile's
+# pixels (float64 in both) are taken in other orders, and terms of both
+# signs cancel.
 K2_RTOL, K2_ATOL_OF_TYPICAL = 1e-3, 5e-2
 # gradients of the compositor against autograd through the plain forward,
 # per gradient, over the prims that carry one: as above, plus the rounding
@@ -346,6 +351,52 @@ def compare_pair_grads(gc, torch, got, ref, C, label):
     return worst
 
 
+def k2_bound(rows, tile_start, d_out, T, n_out_rows, evals, kept, C):
+    """K2's (and K6's backward's) bound: each of its two passes takes the
+    alpha test (16 operations) of every evaluation the forward's cnt
+    reaches; an evaluation that passes it takes 27 + 6C more over both
+    (counted in csrc/compositor_bwd.cu), the terms of the others being zero
+    by definition. The rows, tile bounds, cnt, dout, dT and Tf are read
+    once and the pair gradients written once."""
+    nbytes = (rows.numel() + 3 * tile_start.numel() + d_out.numel()
+              + 2 * T.numel() + n_out_rows * 16) * 4
+    return (*bound_ms(nbytes, 32 * evals + (27 + 6 * C) * kept), nbytes)
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def report_warp_visits(gc, torch, counts, ms, label):
+    """Log the compositor backward's (pair, warp) visits and warp shuffles
+    in each design (``pair_grads_plain(..., counts=)``) beside its time:
+    the time the shuffles alone take at one warp shuffle a clock per SM at
+    the card's highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    hz = sm_clock_hz()
+    for d in gc.K2_WARP_MAPS:
+        visits = int(counts["warp_visits"][d])
+        shuffles = int(counts["shuffles"][d])
+        log(f"{label} warp map {d}: {visits} (pair, warp) visits with a kept "
+            f"pixel, {shuffles} warp shuffles -> {shuffles / (sms * hz) * 1e3:.4f}"
+            f" ms of shuffle pipe ({sms} SMs at {hz / 1e9:.3f} GHz, one warp "
+            f"shuffle a clock per SM); kernel time {ms:.4f} ms")
+
+
+def check_same_bits(torch, a, b, label):
+    """Two launches of a deterministic kernel on the same inputs."""
+    same = bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+    log(f"{label}: two launches on the same inputs give identical bits: "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"{label} is not deterministic")
+
+
 def check_k2(gc, torch, args, frame):
     """Phase 5a: K2 against its plain version on the full-width frame, with
     seeded upstream gradients. Leaves K2's pair gradients in ``frame``."""
@@ -359,7 +410,7 @@ def check_k2(gc, torch, args, frame):
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     d_out = torch.randn(img.shape, generator=gen, device=DEVICE)
     d_T = torch.randn(T.shape, generator=gen, device=DEVICE)
-    call = (rows, tile_start, tile_end, cnt, d_out, d_T, T, img, ts, ntx, nty,
+    call = (rows, tile_start, tile_end, cnt, d_out, d_T, T, ts, ntx, nty,
             chunk, budget)
     got = gc.pair_grads(*call)
     torch.cuda.synchronize()
@@ -369,22 +420,19 @@ def check_k2(gc, torch, args, frame):
     if not torch.isfinite(got).all():
         raise AssertionError("K2 output is not finite")
     worst = compare_pair_grads(gc, torch, got, ref, C, "K2")
+    check_same_bits(torch, got, gc.pair_grads(*call), "K2")
 
-    # 16 operations for the alpha test of every evaluation the forward's
-    # cnt reaches, 22 + 4C more for each that passes it (counted in
-    # csrc/compositor_bwd.cu): the terms of the others are zero by definition
     evals = frame["evals"]
     kept = int(counts["kept"])
-    ops = 16 * evals + (22 + 4 * C) * kept
-    nbytes = (rows.numel() * 4 + 3 * tile_start.numel() * 4
-              + (2 * img.numel() + 2 * T.numel()) * 4 + got.numel() * 4)
-    b_ms, b_by = bound_ms(nbytes, ops)
+    b_ms, b_by, nbytes = k2_bound(rows, tile_start, d_out, T, budget, evals,
+                                  kept, C)
     ms = cuda_ms(lambda: gc.pair_grads(*call), reps=10)
     plain_ms = cuda_ms(lambda: gc.pair_grads_plain(*call), reps=1, warmup=0)
     log(f"K2 timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by} ({evals} pair-pixel evaluations of 16 "
+        f"{b_ms:.4f} ms by {b_by} ({evals} pair-pixel evaluations of 2 x 16 "
         f"operations, {kept} of them kept ({kept / max(evals, 1):.4f}) with "
-        f"{22 + 4 * C} more, {nbytes} bytes; {ms / b_ms:.1f}x the bound)")
+        f"{27 + 6 * C} more, {nbytes} bytes; {ms / b_ms:.1f}x the bound)")
+    report_warp_visits(gc, torch, counts, ms, "K2")
     frame["pair_grads"] = got
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
@@ -527,9 +575,39 @@ def check_k3(gc, torch, frame):
                 bound_by=b_by, library_ms=library_ms)
 
 
+def profiled_device_ms(torch, fn, calls: int):
+    """Device time per call of fn() from torch.profiler: the kernels and
+    memsets its calls put on the card, summed, over ``calls`` calls after
+    one warm-up call. Returns (ms per call, device operations per call,
+    {name: count per call}), or (None, None, {}) where the profiler saw no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    if not rows:
+        return None, None, {}
+    ms = sum(r[2] for r in rows) / 1e3 / calls
+    ops = sum(r[1] for r in rows) / calls
+    return ms, ops, {r[0][:60]: r[1] / calls for r in rows}
+
+
 def time_k4(gc, torch, inputs):
     """K4 per render: both scans of the binning, at the main path's
-    inputs ([N] tile counts and [budget] slot marks)."""
+    inputs ([N] tile counts and [budget] slot marks). Two timings of K4 and
+    of torch.cumsum on the same inputs: 100-call CUDA-event loops (they
+    time the host's enqueue as much as the card) and the
+    device time per call from torch.profiler (every kernel and memset of a
+    call), with the device operations each call makes."""
     from goliath_torch.utils.timing import cuda_ms
 
     errs = []
@@ -543,11 +621,32 @@ def time_k4(gc, torch, inputs):
                              reps=100) for x in inputs)
     n = sum(x.numel() for x in inputs)
     b_ms, b_by = bound_ms(8 * n, n)
-    log(f"K4 timing per render (M={[x.numel() for x in inputs]}): {ms:.4f} ms"
-        f", plain {plain_ms:.4f} ms, torch.cumsum {library_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by}")
+    log(f"K4 timing per render (M={[x.numel() for x in inputs]}), 100-call "
+        f"event loops: {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.cumsum "
+        f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by}")
+    prof = {}
+    for label, fn in (("K4", gc.cumsum1d),
+                      ("torch.cumsum",
+                       lambda x: torch.cumsum(x, 0, dtype=torch.int32))):
+        per_scan = [profiled_device_ms(torch, lambda x=x: fn(x), 50)
+                    for x in inputs]
+        if any(r[0] is None for r in per_scan):
+            log(f"{label} profiled device time: not measured (the profiler "
+                f"saw no device activity)")
+            prof[label] = None
+            continue
+        prof[label] = sum(r[0] for r in per_scan)
+        log(f"{label} profiled device time per render: {prof[label]:.4f} ms "
+            f"(per scan {[f'{r[0]:.4f}' for r in per_scan]} ms); device "
+            f"operations per scan {[r[1] for r in per_scan]}: "
+            f"{[r[2] for r in per_scan]}")
+    if prof["K4"] is not None and prof["torch.cumsum"] is not None:
+        log(f"K4 / torch.cumsum device time per render: "
+            f"{prof['K4'] / prof['torch.cumsum']:.3f}")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                profiled_ms=prof["K4"],
+                library_profiled_ms=prof["torch.cumsum"])
 
 
 FULL_DATA = {"synthetic": True, "img_h": 2048, "img_w": 1334,
@@ -796,7 +895,7 @@ class FoldEnv:
         torch, captured, orig = self.torch, self.captured, self.orig_pg
 
         def pg(*args):
-            if "k6" not in captured and args[13] > 1:
+            if "k6" not in captured and args[12] > 1:
                 captured["k6"] = tuple(
                     a.detach().to("cpu", non_blocking=True)
                     if isinstance(a, torch.Tensor) else a for a in args)
@@ -1174,11 +1273,11 @@ def check_k6(gc, torch, args):
 
     args = tuple(a.to(DEVICE) if isinstance(a, torch.Tensor) else a
                  for a in args)
-    (rows, tile_start, tile_end, cnt, d_out, d_T, T, img, ts, ntx, nty, chunk,
+    (rows, tile_start, tile_end, cnt, d_out, d_T, T, ts, ntx, nty, chunk,
      n_pairs, n_imgs, window) = args
     if window != "pallas" or n_imgs != TRAIN_BATCH:
         raise AssertionError(f"the fold ran {n_imgs} images, window {window}")
-    B, C, H, W = img.shape
+    B, C, H, W = d_out.shape
     maxpp = load_max_pairs()
     nchunks = maxpp // chunk + 1
     kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=ntx, nty=nty, chunk=chunk,
@@ -1205,7 +1304,7 @@ def check_k6(gc, torch, args):
         raise AssertionError("K6's forward differs from its plain version")
     evals = processed_evals(tile_start, tile_end, cnt, chunk, nchunks, ts)
     nbytes = (rows.numel() * 4 + 2 * tile_start.numel() * 4
-              + img.numel() * 4 + T.numel() * 4 + cnt.numel() * 4)
+              + f_img.numel() * 4 + T.numel() * 4 + cnt.numel() * 4)
     b_ms, b_by = bound_ms(nbytes, 16 * evals)
     ms = cuda_ms(lambda: gc.compositor_fwd(rows, tile_start, tile_end, **kw),
                  reps=10)
@@ -1217,7 +1316,7 @@ def check_k6(gc, torch, args):
     fwd = dict(max_abs_err=max(err_img, err_T), ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    call = (rows, tile_start, tile_end, cnt, d_out, d_T, T, img, ts, ntx, nty,
+    call = (rows, tile_start, tile_end, cnt, d_out, d_T, T, ts, ntx, nty,
             chunk, n_pairs, n_imgs)
     got = gc.pair_grads(*call)
     torch.cuda.synchronize()
@@ -1227,18 +1326,18 @@ def check_k6(gc, torch, args):
     if not torch.isfinite(got).all():
         raise AssertionError("K6's backward output is not finite")
     worst = compare_pair_grads(gc, torch, got, ref, C, "K6 backward")
+    check_same_bits(torch, got, gc.pair_grads(*call), "K6 backward")
     kept = int(counts["kept"])
-    ops = 16 * evals + (22 + 4 * C) * kept
-    nbytes = (rows.numel() * 4 + 3 * tile_start.numel() * 4
-              + (2 * img.numel() + 2 * T.numel()) * 4 + got.numel() * 4)
-    b_ms, b_by = bound_ms(nbytes, ops)
+    b_ms, b_by, nbytes = k2_bound(rows, tile_start, d_out, T, n_pairs, evals,
+                                  kept, C)
     del got, ref
     ms = cuda_ms(lambda: gc.pair_grads(*call), reps=5)
     plain_ms = cuda_ms(lambda: gc.pair_grads_plain(*call), reps=1, warmup=0)
     log(f"K6 backward timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms by {b_by} ({evals} evaluations of 16 operations, "
-        f"{kept} of them kept ({kept / max(evals, 1):.4f}) with {22 + 4 * C} "
-        f"more, {nbytes} bytes; {ms / b_ms:.1f}x the bound)")
+        f"{b_ms:.4f} ms by {b_by} ({evals} evaluations of 2 x 16 operations,"
+        f" {kept} of them kept ({kept / max(evals, 1):.4f}) with {27 + 6 * C}"
+        f" more, {nbytes} bytes; {ms / b_ms:.1f}x the bound)")
+    report_warp_visits(gc, torch, counts, ms, "K6 backward")
     bwd = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                bound_by=b_by, library_ms=None)
     return {"compositor_fwd_fold": fwd, "pair_grads_fold": bwd}
@@ -1305,7 +1404,7 @@ def xla_window_check(gc, torch, card_line):
     gen = torch.Generator(device=DEVICE).manual_seed(5)
     d_out = torch.randn(img.shape, generator=gen, device=DEVICE)
     d_T = torch.randn(T.shape, generator=gen, device=DEVICE)
-    call = (rows, b.tile_start, b.tile_end, cnt, d_out, d_T, T, img, 16,
+    call = (rows, b.tile_start, b.tile_end, cnt, d_out, d_T, T, 16,
             kw["ntx"], kw["nty"], 16, b.sorted_prim.shape[0])
     got = gc.pair_grads(*call, window="xla")
     ref = gc.pair_grads_plain(*call, window="xla")
@@ -1397,8 +1496,8 @@ def xla_window_check(gc, torch, card_line):
     gen = torch.Generator(device=DEVICE).manual_seed(6)
     call = (rows, tile_start, tile_end, cnt,
             torch.randn(img.shape, generator=gen, device=DEVICE),
-            torch.randn(T.shape, generator=gen, device=DEVICE), T, img, ts,
-            ntx, nty, chunk, sorted_prim.shape[0])
+            torch.randn(T.shape, generator=gen, device=DEVICE), T, ts, ntx,
+            nty, chunk, sorted_prim.shape[0])
     counts = {}
     got = gc.pair_grads(*call, window="xla")
     ref = gc.pair_grads_plain(*call, window="xla", counts=counts)
@@ -1408,11 +1507,11 @@ def xla_window_check(gc, torch, card_line):
         raise AssertionError("K2's XLA window output is not finite")
     err_br = compare_pair_grads(gc, torch, got, ref, C,
                                 "K2 XLA window, rgca_synthetic frame")
+    check_same_bits(torch, got, gc.pair_grads(*call, window="xla"),
+                    "K2 XLA window")
     kept = int(counts["kept"])
-    bb_ms, bb_by = bound_ms(
-        rows.numel() * 4 + 3 * tile_start.numel() * 4
-        + (2 * img.numel() + 2 * T.numel()) * 4
-        + sorted_prim.shape[0] * 64, 16 * evals + (22 + 4 * C) * kept)
+    bb_ms, bb_by, _ = k2_bound(rows, tile_start, call[4], T,
+                               sorted_prim.shape[0], evals, kept, C)
     bms = cuda_ms(lambda: gc.pair_grads(*call, window="xla"), reps=50)
     bplain_ms = cuda_ms(lambda: gc.pair_grads_plain(*call, window="xla"),
                         reps=5)

@@ -11,8 +11,9 @@
 #include <torch/extension.h>
 
 extern "C" long long goliath_cumsum_scratch_len(long long n);
+extern "C" long long goliath_cumsum_i32_scratch_len(long long n);
 extern "C" int goliath_cumsum_i32(const int32_t* in, int32_t* out,
-                                  int32_t* scratch, long long n,
+                                  unsigned long long* scratch, long long n,
                                   cudaStream_t stream);
 extern "C" int goliath_cumsum_cols_f32(const float* in, float* out,
                                        float* scratch, int n_cols,
@@ -24,9 +25,8 @@ extern "C" int goliath_compositor_bwd(
     const float* rows, int feat, int n_chan, const int32_t* tile_start,
     const int32_t* tile_end, const int32_t* tile_cnt, int tiles_per_img,
     int n_imgs, const float* dL_dout, const float* dL_dT,
-    const float* T_final, const float* out_img, int ntx, int tile_size,
-    int img_h, int img_w, int chunk, int window, float* pair_grads,
-    cudaStream_t stream);
+    const float* T_final, int ntx, int tile_size, int img_h, int img_w,
+    int chunk, int window, float* pair_grads, cudaStream_t stream);
 extern "C" int goliath_compositor_fwd(
     const float* rows, int feat, int n_chan, const int32_t* tile_start,
     const int32_t* tile_end, const int32_t* replay_cnt, int tiles_per_img,
@@ -52,18 +52,22 @@ static void check_input(const at::Tensor& t, at::ScalarType dtype, int dim,
               what, " must be a contiguous ", dim, "-D ", dtype, " tensor");
 }
 
-// Inclusive prefix sum of a 1-D int32 tensor.
+// Inclusive prefix sum of a 1-D int32 tensor: one memset of the flag
+// words, then one kernel. The scratch comes from PyTorch's caching
+// allocator on the current stream, so each call has its own.
 at::Tensor cumsum_i32(const at::Tensor& x) {
   check_input(x, at::kInt, 1, "x");
   const c10::cuda::CUDAGuard guard(x.device());
   const long long n = x.numel();
   at::Tensor out = at::empty_like(x);
-  at::Tensor scratch = at::empty(
-      {std::max(goliath_cumsum_scratch_len(n), 1LL)}, x.options());
-  check_launch(goliath_cumsum_i32(x.data_ptr<int32_t>(),
-                                  out.data_ptr<int32_t>(),
-                                  scratch.data_ptr<int32_t>(), n,
-                                  at::cuda::getCurrentCUDAStream().stream()),
+  if (n == 0) return out;
+  at::Tensor scratch = at::empty({goliath_cumsum_i32_scratch_len(n)},
+                                 x.options().dtype(at::kLong));
+  check_launch(goliath_cumsum_i32(
+                   x.data_ptr<int32_t>(), out.data_ptr<int32_t>(),
+                   reinterpret_cast<unsigned long long*>(
+                       scratch.data_ptr<int64_t>()),
+                   n, at::cuda::getCurrentCUDAStream().stream()),
                "cumsum_i32");
   return out;
 }
@@ -149,14 +153,13 @@ std::vector<at::Tensor> compositor_fwd(
 
 // Per-pair gradients [n_pairs, 16] in (global) sorted-pair order. rows,
 // tile_start and tile_end as for compositor_fwd, with end <= n_pairs <= R;
-// cnt, T_final [n_imgs, H, W] and out_img [n_imgs, C, H, W] are the
-// forward's outputs; dL_dout [n_imgs, C, H, W] and dL_dT [n_imgs, H, W] the
-// gradients of the loss with respect to them. window as for compositor_fwd.
+// cnt and T_final [n_imgs, H, W] are the forward's outputs; dL_dout
+// [n_imgs, C, H, W] and dL_dT [n_imgs, H, W] the gradients of the loss with
+// respect to its color and T. window as for compositor_fwd.
 at::Tensor compositor_bwd(const at::Tensor& rows, const at::Tensor& tile_start,
                           const at::Tensor& tile_end, const at::Tensor& cnt,
                           const at::Tensor& dL_dout, const at::Tensor& dL_dT,
-                          const at::Tensor& T_final, const at::Tensor& out_img,
-                          int64_t ntx, int64_t tile_size, int64_t chunk,
+                          const at::Tensor& T_final, int64_t ntx, int64_t tile_size, int64_t chunk,
                           int64_t n_pairs, int64_t window) {
   check_input(rows, at::kFloat, 2, "rows");
   check_input(tile_start, at::kInt, 1, "tile_start");
@@ -165,9 +168,8 @@ at::Tensor compositor_bwd(const at::Tensor& rows, const at::Tensor& tile_start,
   check_input(dL_dout, at::kFloat, 4, "dL_dout");
   check_input(dL_dT, at::kFloat, 3, "dL_dT");
   check_input(T_final, at::kFloat, 3, "T_final");
-  check_input(out_img, at::kFloat, 4, "out_img");
   for (const at::Tensor* t : {&tile_start, &tile_end, &cnt, &dL_dout, &dL_dT,
-                              &T_final, &out_img})
+                              &T_final})
     TORCH_CHECK(t->device() == rows.device(),
                 "all tensors must share a device");
   const int64_t n_tiles = tile_start.numel();
@@ -178,9 +180,8 @@ at::Tensor compositor_bwd(const at::Tensor& rows, const at::Tensor& tile_start,
   const int64_t n_imgs = T_final.size(0);
   const int64_t img_h = T_final.size(1), img_w = T_final.size(2);
   TORCH_CHECK(dL_dT.sizes() == T_final.sizes() &&
-                  dL_dout.sizes() == out_img.sizes() &&
-                  out_img.size(0) == n_imgs && out_img.size(1) == n_chan &&
-                  out_img.size(2) == img_h && out_img.size(3) == img_w,
+                  dL_dout.size(0) == n_imgs && dL_dout.size(1) == n_chan &&
+                  dL_dout.size(2) == img_h && dL_dout.size(3) == img_w,
               "image planes must be [B, C, H, W] and [B, H, W] with C = ",
               n_chan);
   TORCH_CHECK(n_imgs >= 1 && n_tiles % n_imgs == 0,
@@ -195,8 +196,8 @@ at::Tensor compositor_bwd(const at::Tensor& rows, const at::Tensor& tile_start,
           tile_start.data_ptr<int32_t>(), tile_end.data_ptr<int32_t>(),
           cnt.data_ptr<int32_t>(), n_tiles / n_imgs, n_imgs,
           dL_dout.data_ptr<float>(), dL_dT.data_ptr<float>(),
-          T_final.data_ptr<float>(), out_img.data_ptr<float>(), ntx,
-          tile_size, img_h, img_w, chunk, window, grads.data_ptr<float>(),
+          T_final.data_ptr<float>(), ntx, tile_size, img_h, img_w, chunk,
+          window, grads.data_ptr<float>(),
           at::cuda::getCurrentCUDAStream().stream()),
       "compositor_bwd");
   return grads;

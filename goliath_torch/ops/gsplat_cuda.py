@@ -30,8 +30,9 @@ are unchanged.
 * K3 ``cumsum_cols`` (``csrc/cumsum.cu``) replaces
   ``_cumsum1d_batched_kernel`` / ``cumsum_cols_pl``. Plain version:
   ``torch.cumsum(x, dim=1)`` in float32.
-* K4 ``cumsum1d`` (``csrc/cumsum.cu``) replaces ``_cumsum1d_kernel`` /
-  ``cumsum1d_pl``. Plain version: ``torch.cumsum(dtype=int32)``.
+* K4 ``cumsum1d`` (``csrc/cumsum.cu``, a single-pass scan with decoupled
+  look-back) replaces ``_cumsum1d_kernel`` / ``cumsum1d_pl``. Plain
+  version: ``torch.cumsum(dtype=int32)``.
 * K7 ``cumsum_rows`` (``csrc/cumsum.cu``, K3's scan over the columns of a
   row-major [M, F]) replaces ``_cumsum_rows_kernel`` / ``cumsum_rows_pl``.
   Plain version: ``torch.cumsum(x.float(), 0)``.
@@ -65,10 +66,17 @@ MAX_CHANNELS = 8  # MAX_C in csrc/splat_alpha.cuh
 PAIR_GRAD_COLS = 16  # dx, dy, d(conic) x3, d(opacity), d(color) x C, 0 pad
 # elements of the plain compositors' [tiles, chunk, pixels] temporaries
 PLAIN_BATCH_ELEMS = 1 << 24
+# K2's pixel-to-warp maps (``k2_warp_map``): "row32", the first design's
+# (one pixel a thread, a warp = 32 consecutive pixels of the tile in row
+# order); "regions", the current one (4 pixels a thread, a warp = a 16x8
+# region; 2 pixels and 8x8 where the tile size is not a multiple of 16)
+K2_WARP_MAPS = ("row32", "regions")
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
+# -Xptxas=-v: ptxas's registers, shared memory and spills per kernel, in
+# the build's log (shown only by a verbose build)
+NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-Xptxas=-v"]
 WINDOWS = ("pallas", "xla")
 PROBE_VARIANTS = ("full", "noexp", "nochain", "loadonly")  # VAR_* in the .cu
 # launch counter -> kernel source (one launch name per mode of a kernel)
@@ -109,9 +117,12 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def load_kernels():
+def load_kernels(verbose: bool = False):
     """Build (or reuse the build of) the kernels' extension module and
-    import it. Raises with the compiler's output when the build fails."""
+    import it. Raises with the compiler's output when the build fails.
+    ``verbose`` prints the build's output, ptxas's report among it, when
+    this call builds (the first of a process, with changed sources or no
+    build in ``BUILD_DIR``)."""
     global _EXT
     if _EXT is None:
         from torch.utils.cpp_extension import load
@@ -121,8 +132,9 @@ def load_kernels():
                     sources=[str(_CSRC / "bindings.cpp")]
                     + [str(_CSRC / src)
                        for src in sorted(set(SOURCES.values()))],
-                    extra_cflags=["-O3"], extra_cuda_cflags=NVCC_FLAGS,
-                    build_directory=str(BUILD_DIR))
+                    extra_cflags=["-O3"],
+                    extra_cuda_cflags=NVCC_FLAGS,
+                    build_directory=str(BUILD_DIR), verbose=verbose)
     return _EXT
 
 
@@ -136,17 +148,20 @@ def cumsum1d_plain(x: torch.Tensor) -> torch.Tensor:
 
 
 def cumsum1d(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive 1-D prefix sum of an int32 vector (K4 on CUDA tensors).
+    """Inclusive 1-D prefix sum of an int32 vector (K4 on CUDA tensors: one
+    memset and one single-pass kernel, csrc/cumsum.cu).
 
     The carry is integer, so unlike the TPU kernel (f32 carry, exact below
-    2^24) it equals ``torch.cumsum`` bit for bit at any total."""
+    2^24) it equals ``torch.cumsum`` bit for bit at any total, wrapping
+    where it wraps."""
     if x.dim() != 1 or x.dtype != torch.int32:
         raise ValueError(f"cumsum1d takes a 1-D int32 tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if target_backend(x) == "cpu":
         return cumsum1d_plain(x)
     out = load_kernels().cumsum_i32(x.contiguous())
-    LAUNCHES["cumsum1d"] += 1
+    if x.numel():  # the binding launches nothing for an empty input
+        LAUNCHES["cumsum1d"] += 1
     return out
 
 
@@ -447,8 +462,30 @@ def _image_to_tiles(img, ntx, nty, ts):
     return x.reshape(B * nty * ntx, K, ts * ts)
 
 
+def k2_warp_map(tile_size: int, design: str) -> torch.Tensor:
+    """Warp of each pixel of a tile (row-major, [tile_size^2] int64) in K2's
+    design ``design`` (``K2_WARP_MAPS``; csrc/compositor_bwd.cu)."""
+    pix = torch.arange(tile_size * tile_size)
+    if design == "row32":
+        return pix // 32
+    if design != "regions":
+        raise ValueError(f"design must be one of {K2_WARP_MAPS}")
+    rw = 16 if tile_size % 16 == 0 else 8
+    x, y = pix % tile_size, pix // tile_size
+    return (y // 8) * (tile_size // rw) + x // rw
+
+
+def k2_shuffles_per_visit(design: str, n_chan: int) -> int:
+    """Warp shuffles K2 issues for one (pair, warp) visit in which some
+    pixel keeps the pair: the first design took one 5-shuffle float32 warp
+    sum per sum (6 + C); the reduce-scatter takes 8 + 4 + 2 + 1 + 1
+    exchanges of a float64 (two shuffles each) for its 16 slots whatever
+    C."""
+    return 5 * (6 + n_chan) if design == "row32" else 32
+
+
 def pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout, dL_dT,
-                     T_final, out_img, tile_size: int, ntx: int, nty: int,
+                     T_final, tile_size: int, ntx: int, nty: int,
                      chunk: int, n_pairs: int, n_imgs: int = 1,
                      window: str = "pallas",
                      counts: Optional[dict] = None) -> torch.Tensor:
@@ -458,8 +495,16 @@ def pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout, dL_dT,
     Replays ``compositor_fwd_plain`` front to back over the blocks
     ``j < cnt[t]`` of each tile's window (``window`` as for the forward)
     with the suffix-from-total identity
-    ``R_i = (dT*Tf + dout.out) - prefix_i(w q)`` and the same formulas as
-    ``_compositor_bwd_kernel`` (gsplat_pallas.py:551-613). That kernel also
+    ``R_i = (dT*Tf + S) - prefix_i(w q)``, ``S = sum_j w_j q_j``, and the
+    same formulas as ``_compositor_bwd_kernel`` (gsplat_pallas.py:551-613).
+    As in the CUDA kernel, a first pass over the blocks takes S from the
+    same ``w q`` that the second subtracts, and T, q, w, S, R and dalpha's
+    numerator ``q T_i (1 - alpha) - R_i`` are float64, and so are the sums
+    over the tile's pixels (the alpha test, dalpha and dsigma are float32):
+    for a pair deep in a pixel's list R_i is a small difference of two sums
+    of S's size, dalpha one of ``q T_i`` and ``R_i / (1 - alpha)``, and the
+    pixel sums cancel too (the Pallas kernel takes S as ``dout . out``,
+    whose float32 rounding is as large). That kernel also
     clamps the in-block transmittance factor at 1e-20 (its log-space
     prefix's ``_LOG_CLIP``), and the JAX XLA backward divides by a reverse
     product clipped there; factors that small scale terms far below the
@@ -471,7 +516,14 @@ def pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout, dL_dT,
 
     ``counts``, if given, receives under "kept" the number of (pair, pixel)
     evaluations inside the image that pass the alpha test (an int64 tensor):
-    the only ones whose gradient terms are not zero by definition."""
+    the only ones whose gradient terms are not zero by definition. Under
+    "warp_visits" and "shuffles" it receives, per pixel-to-warp map of
+    ``K2_WARP_MAPS``, the (pair, warp) visits in which at least one pixel
+    keeps the pair (the pairs of the blocks j < cnt[t]) and the warp
+    shuffles that design issues for them: "row32" counts a pixel outside
+    the image that passes the alpha test, as that design did, "regions"
+    only pixels inside it, as the current kernel does. Both count the
+    second pass only."""
     C = rows.shape[1] - 8
     P = tile_size * tile_size
     n_tiles_img = ntx * nty
@@ -481,14 +533,17 @@ def pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout, dL_dT,
     lane = torch.arange(chunk, device=dev)
     last_row = rows.shape[0] - 1
     if n_imgs == 1:
-        dL_dout, dL_dT, T_final, out_img = (
-            x[None] for x in (dL_dout, dL_dT, T_final, out_img))
+        dL_dout, dL_dT, T_final = (x[None] for x in (dL_dout, dL_dT, T_final))
     planes = _image_to_tiles(
-        torch.cat([dL_dout, dL_dT[:, None], T_final[:, None], out_img], 1),
-        ntx, nty, tile_size)                                   # [T, 2C+2, P]
+        torch.cat([dL_dout, dL_dT[:, None], T_final[:, None]], 1),
+        ntx, nty, tile_size)                                   # [T, C+2, P]
     grads = rows.new_zeros(n_pairs, PAIR_GRAD_COLS)
     pad = rows.new_zeros(PAIR_GRAD_COLS - 6 - C)
     img_h, img_w = T_final.shape[-2:]
+    if counts is not None:
+        warp_maps = {d: k2_warp_map(tile_size, d).to(dev)
+                     for d in K2_WARP_MAPS}
+        counts.setdefault("warp_visits", {d: 0 for d in K2_WARP_MAPS})
     for t0 in range(0, n_tiles, tile_batch):
         tiles = torch.arange(t0, min(t0 + tile_batch, n_tiles), device=dev)
         start = tile_start[tiles].long()
@@ -496,41 +551,61 @@ def pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout, dL_dT,
         first = _window_start(start, chunk, window)
         n_blocks = cnt[tiles]
         px, py = _tile_pixels(tiles, n_tiles_img, ntx, tile_size)
-        dout = planes[tiles, :C]                                # [n, C, P]
-        R0 = planes[tiles, C] * planes[tiles, C + 1] \
-            + (dout * planes[tiles, C + 2:]).sum(dim=1)         # [n, P]
-        T = torch.ones(len(tiles), P, device=dev)
-        Pq = torch.zeros(len(tiles), P, device=dev)
-        for j in range(int(n_blocks.max()) if len(tiles) else 0):
-            base = first + j * chunk
-            have = (base < end) & (j < n_blocks)
-            idx = base[:, None] + lane                          # [n, CH]
-            m = (idx >= start[:, None]) & (idx < end[:, None]) & have[:, None]
-            data = rows[idx.clamp(max=last_row)]                # [n, CH, F]
-            dx = data[..., 0, None] - px[:, None]               # [n, CH, P]
-            dy = data[..., 1, None] - py[:, None]
-            a, b, c, op = (data[..., k] for k in (2, 3, 4, 5))  # [n, CH]
-            sigma = 0.5 * (a[..., None] * dx * dx + c[..., None] * dy * dy) \
-                + b[..., None] * dx * dy
-            raw = op[..., None] * torch.exp(-sigma.clamp(0.0, 60.0))
-            alpha = raw.clamp(max=ALPHA_CLIP)
-            keep = (sigma >= 0) & (alpha >= ALPHA_MIN) & m[..., None]
-            alpha = torch.where(keep, alpha, 0.0)
+        dout = planes[tiles, :C].double()                       # [n, C, P]
+
+        def replay():
+            """The forward's blocks j < cnt, front to back: T, w and q in
+            float64."""
+            T = torch.ones(len(tiles), P, device=dev, dtype=torch.float64)
+            for j in range(int(n_blocks.max()) if len(tiles) else 0):
+                base = first + j * chunk
+                have = (base < end) & (j < n_blocks)
+                idx = base[:, None] + lane                      # [n, CH]
+                m = (idx >= start[:, None]) & (idx < end[:, None]) \
+                    & have[:, None]
+                data = rows[idx.clamp(max=last_row)]            # [n, CH, F]
+                dx = data[..., 0, None] - px[:, None]           # [n, CH, P]
+                dy = data[..., 1, None] - py[:, None]
+                a, b, c = (data[..., k] for k in (2, 3, 4))     # [n, CH]
+                sigma = 0.5 * (a[..., None] * dx * dx
+                               + c[..., None] * dy * dy) \
+                    + b[..., None] * dx * dy
+                raw = data[..., 5, None] * torch.exp(-sigma.clamp(0.0, 60.0))
+                alpha = raw.clamp(max=ALPHA_CLIP)
+                keep = (sigma >= 0) & (alpha >= ALPHA_MIN) & m[..., None]
+                alpha = torch.where(keep, alpha, 0.0)
+                cum = torch.cumprod(1.0 - alpha.double(), dim=1)
+                T_i = T[:, None] * torch.cat(                   # T before i
+                    [torch.ones_like(cum[:, :1]), cum[:, :-1]], dim=1)
+                w = alpha * T_i
+                q = torch.einsum("nkc,ncp->nkp", data[..., 8:].double(), dout)
+                yield idx, m, data, dx, dy, raw, keep, alpha, T_i, w, q
+                T = T * cum[:, -1]
+
+        S = torch.zeros(len(tiles), P, device=dev, dtype=torch.float64)
+        for *_, w, q in replay():
+            S += (w * q).sum(dim=1)
+        R = planes[tiles, C].double() * planes[tiles, C + 1] + S  # [n, P]
+        for idx, m, data, dx, dy, raw, keep, alpha, T_i, w, q in replay():
             if counts is not None:
                 inside = (px < img_w) & (py < img_h)            # [n, P]
-                counts["kept"] = counts.get("kept", 0) \
-                    + (keep & inside[:, None]).sum()
-            one_m = 1.0 - alpha
-            cum = torch.cumprod(one_m, dim=1)
-            T_i = T[:, None] * cum / one_m                      # T before i
-            w = alpha * T_i
-            q = torch.einsum("nkc,ncp->nkp", data[..., 8:], dout)
+                kept_in = keep & inside[:, None]
+                counts["kept"] = counts.get("kept", 0) + kept_in.sum()
+                for d, k in (("row32", keep), ("regions", kept_in)):
+                    wm = warp_maps[d]
+                    per_warp = k.new_zeros(k.shape[:2] + (int(wm.max()) + 1,),
+                                           dtype=torch.int32)
+                    per_warp.index_add_(2, wm, k.int())
+                    counts["warp_visits"][d] = counts["warp_visits"][d] \
+                        + (per_warp > 0).sum()
             wq = w * q
-            R_i = R0[:, None] - (Pq[:, None] + torch.cumsum(wq, dim=1))
+            R_i = R[:, None] - torch.cumsum(wq, dim=1)
+            den = (1.0 - alpha).clamp(min=1e-3)
             dalpha = torch.where(
-                keep, q * T_i - R_i / one_m.clamp(min=1e-3), 0.0)
+                keep, (q * T_i * den - R_i).float() / den, 0.0)
             draw = torch.where(raw < ALPHA_CLIP, dalpha, 0.0)
-            dsigma = torch.where(keep, -raw * draw, 0.0)        # [n, CH, P]
+            dsigma = torch.where(keep, -raw * draw, 0.0).double()
+            dx, dy = dx.double(), dy.double()                   # [n, CH, P]
             t0_ = dx * dsigma
             t1_ = dy * dsigma
             ga = 0.5 * (dx * t0_).sum(-1)
@@ -538,33 +613,39 @@ def pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout, dL_dT,
             gc = 0.5 * (dy * t1_).sum(-1)
             u = t0_.sum(-1)
             v = t1_.sum(-1)
+            a, b, c, op = (data[..., k].double()
+                           for k in (2, 3, 4, 5))               # [n, CH]
             dop = torch.where(op > 0,
                               -dsigma.sum(-1) / op.clamp(min=1e-20), 0.0)
             dcol = torch.einsum("nkp,ncp->nkc", w, dout)        # [n, CH, C]
             block = torch.cat(
                 [torch.stack([a * u + b * v, b * u + c * v, ga, gb, gc, dop],
-                             dim=-1), dcol,
+                             dim=-1).float(), dcol.float(),
                  pad.expand(dcol.shape[:2] + pad.shape)], dim=-1)
             # every sorted pair lies in one tile's [start, end): the masked
             # rows are distinct, so this is a plain store
             grads[idx[m]] = block[m]
-            Pq = Pq + wq.sum(dim=1)
-            T = T * cum[:, -1]
+            R = R - wq.sum(dim=1)
+    if counts is not None:
+        counts["shuffles"] = {d: counts["warp_visits"][d]
+                              * k2_shuffles_per_visit(d, C)
+                              for d in K2_WARP_MAPS}
     return grads
 
 
 def pair_grads(rows, tile_start, tile_end, cnt, dL_dout, dL_dT, T_final,
-               out_img, tile_size: int, ntx: int, nty: int, chunk: int,
+               tile_size: int, ntx: int, nty: int, chunk: int,
                n_pairs: int, n_imgs: int = 1,
                window: str = "pallas") -> torch.Tensor:
     """K2 (K6's backward with ``n_imgs > 1``) on CUDA tensors,
     ``pair_grads_plain`` on CPU tensors.
 
     rows/tile_start/tile_end as for ``compositor_fwd`` (tile ends within
-    ``n_pairs``, the pair budget); cnt [tiles] int32, T_final [H, W] and
-    out_img [C, H, W] are the forward's outputs (with a leading image axis
-    when n_imgs > 1); dL_dout and dL_dT the gradients with respect to them.
-    Returns [n_pairs, 16] f32 in (global) sorted-pair order."""
+    ``n_pairs``, the pair budget); cnt [tiles] int32 and T_final [H, W] are
+    the forward's outputs; dL_dout [C, H, W] and dL_dT [H, W] the gradients
+    with respect to its color and T (image planes with a leading image axis
+    when n_imgs > 1). Returns [n_pairs, 16] f32 in (global) sorted-pair
+    order."""
     n_tiles = n_imgs * ntx * nty
     C = _check_rows_and_tiles(rows, n_tiles, tile_start, tile_end, cnt)
     if window not in WINDOWS:
@@ -574,22 +655,21 @@ def pair_grads(rows, tile_start, tile_end, cnt, dL_dout, dL_dT, T_final,
                          "window only")
     H, W = T_final.shape[-2:]
     lead = (n_imgs,) if n_imgs > 1 else ()
-    for t, shape in ((dL_dout, lead + (C, H, W)), (out_img, lead + (C, H, W)),
-                     (dL_dT, lead + (H, W)), (T_final, lead + (H, W))):
+    for t, shape in ((dL_dout, lead + (C, H, W)), (dL_dT, lead + (H, W)),
+                     (T_final, lead + (H, W))):
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"image planes must be float32 {shape}, got "
                              f"{tuple(t.shape)} {t.dtype}")
     if target_backend(rows) == "cpu":
         return pair_grads_plain(rows, tile_start, tile_end, cnt, dL_dout,
-                                dL_dT, T_final, out_img, tile_size, ntx, nty,
-                                chunk, n_pairs, n_imgs, window)
-    threads = tile_size * tile_size
-    if C > MAX_CHANNELS or threads > 1024 or threads % 32:
+                                dL_dT, T_final, tile_size, ntx, nty, chunk,
+                                n_pairs, n_imgs, window)
+    if C > MAX_CHANNELS or tile_size % 8 or not 0 < tile_size <= 32:
         raise ValueError(f"K2 takes at most {MAX_CHANNELS} channels and "
-                         f"8x8, 16x16 or 32x32 tiles, got C={C}, tile "
+                         f"tile sizes 8, 16, 24 or 32, got C={C}, tile "
                          f"{tile_size}")
     planes = [x.contiguous() if n_imgs > 1 else x.contiguous()[None]
-              for x in (dL_dout, dL_dT, T_final, out_img)]
+              for x in (dL_dout, dL_dT, T_final)]
     grads = load_kernels().compositor_bwd(
         rows.contiguous(), tile_start.contiguous(), tile_end.contiguous(),
         cnt.contiguous(), *planes, ntx, tile_size, chunk, n_pairs,
@@ -609,10 +689,9 @@ class RasterizeTiled(torch.autograd.Function):
     ``rasterize_tiled_pl``, gsplat_pallas.py:745-810, and with ``n_imgs > 1``
     of ``rasterize_tiled_pl_fold``, :828-894; with the ``"xla"`` window of
     the JAX XLA ``rasterize_tiled``, ops/gsplat.py:249-513). The forward
-    packs the pair rows and runs K1 (K6); it keeps the rows, K1's outputs
-    (the backward replays the forward up to ``cnt`` and needs the rendered
-    color and final T for its suffix sums) and the binning's permutation and
-    per-prim slot ranges. The backward runs K2 (K6) and reduces the per-pair
+    packs the pair rows and runs K1 (K6); it keeps the rows, K1's final T
+    and ``cnt`` (the backward replays the forward up to ``cnt``) and the
+    binning's permutation and per-prim slot ranges. The backward runs K2 (K6) and reduces the per-pair
     gradients to per-prim sums with one reduce on K3
     (``ops.gsplat.reduce_sorted_pair_grads``): the binning's perm and slot
     ranges are global over the images, so one reduce serves them all."""
@@ -629,7 +708,7 @@ class RasterizeTiled(torch.autograd.Function):
         out, T, cnt = compositor_fwd(rows, tile_start, tile_end, img_h,
                                      img_w, tile_size, ntx, nty, chunk,
                                      max_pairs_per_tile, n_imgs, window)
-        ctx.save_for_backward(rows, out, T, cnt, tile_start, tile_end, perm,
+        ctx.save_for_backward(rows, T, cnt, tile_start, tile_end, perm,
                               prim_offsets, prim_ends)
         ctx.dims = (tile_size, ntx, nty, chunk, sorted_prim.shape[0],
                     colors.shape[1], opacities.shape, n_imgs, window)
@@ -639,12 +718,12 @@ class RasterizeTiled(torch.autograd.Function):
     def backward(ctx, d_out, d_T):
         from goliath_torch.ops.gsplat import reduce_sorted_pair_grads
 
-        (rows, out, T, cnt, tile_start, tile_end, perm, prim_offsets,
+        (rows, T, cnt, tile_start, tile_end, perm, prim_offsets,
          prim_ends) = ctx.saved_tensors
         (tile_size, ntx, nty, chunk, budget, C, op_shape, n_imgs,
          window) = ctx.dims
         sorted_g = pair_grads(rows, tile_start, tile_end, cnt, d_out, d_T, T,
-                              out, tile_size, ntx, nty, chunk, budget, n_imgs,
+                              tile_size, ntx, nty, chunk, budget, n_imgs,
                               window)
         acc = reduce_sorted_pair_grads(sorted_g[:, :6 + C], perm,
                                        prim_offsets, prim_ends)   # [F, N]

@@ -5,7 +5,8 @@ imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: K4 exact (integer scan); K5 exact, face index and depth (the
+Tolerances: K4 exact (integer scan, wrapping in 32 bits as torch.cumsum);
+K5 exact, face index and depth (the
 same float32 operations, each rounded on its own, in the same order); K1 atol 1e-4 / rtol 1e-4 on color and
 transmittance (sequential compositing against the plain version's
 per-chunk cumprod, float32) and the processed-block count exact. K3:
@@ -57,6 +58,49 @@ def test_cumsum1d_kernel_is_exact(cuda, n):
     got = gc.cumsum1d(x)
     assert gc.LAUNCHES["cumsum1d"] == before["cumsum1d"] + 1
     assert torch.equal(got, gc.cumsum1d_plain(x))
+
+
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, (1 << 26) + 3])
+def test_cumsum1d_single_pass_is_exact(cuda, n):
+    """K4's single pass: no item, one item, one tile of 4096 items and one
+    either side, and 16,385 tiles, far more than the card holds at once;
+    one launch per call (none for no item). Bit-equal to torch.cumsum."""
+    g = torch.Generator(device=cuda).manual_seed(n + 1)
+    x = torch.randint(-5, 1000, (n,), generator=g, device=cuda,
+                      dtype=torch.int32)
+    before = gc.LAUNCHES["cumsum1d"]
+    got = gc.cumsum1d(x)
+    assert gc.LAUNCHES["cumsum1d"] == before + (n > 0)
+    assert torch.equal(got, torch.cumsum(x, 0, dtype=torch.int32))
+
+
+def test_cumsum1d_on_reused_scratch(cuda):
+    """50 calls in a row, on two sizes in turn, so that the caching
+    allocator hands each call flag words a call before it used: every
+    result bit-equal to torch.cumsum. A slice at an odd offset takes the
+    scalar loads."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    xs = [torch.randint(0, 64, (m,), generator=g, device=cuda,
+                        dtype=torch.int32) for m in (1_048_576, 3_145_728)]
+    refs = [torch.cumsum(x, 0, dtype=torch.int32) for x in xs]
+    outs = [gc.cumsum1d(xs[i % 2]) for i in range(50)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert torch.equal(out, refs[i % 2]), i
+    odd = xs[0][3:200_003]
+    assert torch.equal(gc.cumsum1d(odd), torch.cumsum(odd, 0,
+                                                      dtype=torch.int32))
+
+
+def test_cumsum1d_wraps_as_torch_cumsum(cuda):
+    """Totals past 2^31 (and past 2^32) wrap in 32 bits as
+    torch.cumsum(dtype=int32) does."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randint(1 << 28, 1 << 30, (300_000,), generator=g,
+                      device=cuda, dtype=torch.int32)
+    ref = torch.cumsum(x, 0, dtype=torch.int32)
+    assert int(x.long().sum()) > 1 << 32 and bool((ref < 0).any())
+    assert torch.equal(gc.cumsum1d(x), ref)
 
 
 @pytest.mark.parametrize("f,m", [(1, 1), (3, 4097), (10, 1 << 20),
@@ -140,8 +184,8 @@ def test_pair_grads_kernel_matches_plain(cuda, opaque, maxpp, chunk, ts):
     g = torch.Generator(device=cuda).manual_seed(0)
     d_out = torch.randn(img.shape, generator=g, device=cuda)
     d_T = torch.randn(T.shape, generator=g, device=cuda)
-    args = (rows, b.tile_start, b.tile_end, cnt, d_out, d_T, T, img, ts, ntx,
-            nty, chunk, 1600)
+    args = (rows, b.tile_start, b.tile_end, cnt, d_out, d_T, T, ts, ntx, nty,
+            chunk, 1600)
     before = dict(gc.LAUNCHES)
     got = gc.pair_grads(*args)
     assert gc.LAUNCHES["pair_grads"] == before["pair_grads"] + 1
@@ -288,9 +332,10 @@ def test_render_layer_on_the_card_matches_the_cpu(cuda):
                                atol=1e-4, rtol=1e-4)
 
 
-def _fold_frame(cuda, B, maxpp, chunk, ts, opaque):
+def _fold_frame(cuda, B, maxpp, chunk, ts, opaque, n_chan=None):
     """B images' prims binned once over the images stacked in tile space
-    (ops.gsplat._render_folded's binning), with their pair rows."""
+    (ops.gsplat._render_folded's binning), with their pair rows (the first
+    ``n_chan`` channels of the colors, all where it is None)."""
     H, W = 72, 100
     scenes = [_scene(np.random.RandomState(20 + b), 300, H, W, opaque)
               for b in range(B)]
@@ -314,7 +359,8 @@ def _fold_frame(cuda, B, maxpp, chunk, ts, opaque):
     (xys, conics, op_s, chan, valid, sorted_prim, start, end, *_rest) = \
         captured["args"]
     assert captured["kw"]["n_imgs"] == B
-    rows = gc.pack_pair_rows(xys, conics, op_s, chan, valid.float(),
+    rows = gc.pack_pair_rows(xys, conics, op_s, chan[:, :n_chan],
+                             valid.float(),
                              sorted_prim, (maxpp // chunk + 1) * chunk)
     kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=ntx, nty=nty, chunk=chunk,
               max_pairs_per_tile=maxpp, n_imgs=B)
@@ -345,8 +391,8 @@ def test_fold_kernels_match_plain(cuda, B, maxpp, chunk, ts, opaque):
     g = torch.Generator(device=cuda).manual_seed(1)
     d_out = torch.randn(img.shape, generator=g, device=cuda)
     d_T = torch.randn(T.shape, generator=g, device=cuda)
-    args = (rows, start, end, cnt, d_out, d_T, T, img, ts, kw["ntx"],
-            kw["nty"], chunk, n_pairs, B)
+    args = (rows, start, end, cnt, d_out, d_T, T, ts, kw["ntx"], kw["nty"],
+            chunk, n_pairs, B)
     got = gc.pair_grads(*args)
     assert gc.LAUNCHES["pair_grads_fold"] == before["pair_grads_fold"] + 1
     ref = gc.pair_grads_plain(*args)
@@ -388,8 +434,8 @@ def test_xla_window_kernels_match_plain(cuda, maxpp, chunk, ts):
     g = torch.Generator(device=cuda).manual_seed(0)
     d_out = torch.randn(img.shape, generator=g, device=cuda)
     d_T = torch.randn(T.shape, generator=g, device=cuda)
-    args = (rows, b.tile_start, b.tile_end, cnt, d_out, d_T, T, img, ts, ntx,
-            nty, chunk, 1600)
+    args = (rows, b.tile_start, b.tile_end, cnt, d_out, d_T, T, ts, ntx, nty,
+            chunk, 1600)
     got = gc.pair_grads(*args, window="xla")
     ref = gc.pair_grads_plain(*args, window="xla")
     torch.cuda.synchronize()
@@ -489,3 +535,61 @@ def test_fold_render_gradients_on_the_card_match_the_cpu(cuda, monkeypatch):
         assert bool(torch.isfinite(ref).all()) and float(ref.abs().max()) > 0
         torch.testing.assert_close(got, ref, rtol=1e-3,
                                    atol=1e-3 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("ts", [8, 16, 24, 32])
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("window,n_imgs", [("pallas", 1), ("xla", 1),
+                                           ("pallas", 3)])
+def test_compositor_backward_cases(cuda, ts, C, window, n_imgs):
+    """The compositor backward (K2, its XLA window, K6's backward) at tile
+    sizes 8 (one warp, 2 pixels a thread), 24 (9 warps of 8x8 regions, 2
+    pixels a thread), 16 and 32 (4 pixels a thread),
+    C = 1 and 4, overflowing tiles, an image width (100) that is no multiple
+    of the tile, and tiles with cnt = 0 (one of them forced on a tile with
+    pairs, whose rows must stay zero), against pair_grads_plain; two
+    launches give identical bits."""
+    H, W, maxpp, chunk = 72, 100, 64, 16
+    if n_imgs == 1:
+        arrays = [torch.from_numpy(a).to(cuda) for a in _scene(
+            np.random.RandomState(11), 400, H, W, True)]
+        xys, conics, op_s, chan, valid, _r, b = tg.prepare_sample(
+            *arrays, H, W, ts, pair_budget=4000)
+        rows = gc.pack_pair_rows(xys, conics, op_s, chan[:, :C],
+                                 valid.float(), b.sorted_prim,
+                                 (maxpp // chunk + 1) * chunk)
+        start, end, n_pairs = b.tile_start, b.tile_end, 4000
+        kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=-(-W // ts),
+                  nty=-(-H // ts), chunk=chunk, max_pairs_per_tile=maxpp,
+                  window=window)
+    else:
+        rows, start, end, n_pairs, kw = _fold_frame(cuda, n_imgs, maxpp,
+                                                    chunk, ts, True, C)
+    img, T, cnt = gc.compositor_fwd(rows, start, end, **kw)
+    pairs = end - start
+    assert int(pairs.max()) > maxpp and W % ts
+    cnt = cnt.clone()
+    forced = int(torch.nonzero(pairs > 0)[0])
+    cnt[forced] = 0
+    g = torch.Generator(device=cuda).manual_seed(ts + C + n_imgs)
+    d_out = torch.randn(img.shape, generator=g, device=cuda)
+    d_T = torch.randn(T.shape, generator=g, device=cuda)
+    args = (rows, start, end, cnt, d_out, d_T, T, ts, kw["ntx"], kw["nty"],
+            chunk, n_pairs, n_imgs, window)
+    key = "pair_grads" + ("_fold" if n_imgs > 1 else "") \
+        + ("_xla" if window == "xla" else "")
+    before = gc.LAUNCHES[key]
+    got = gc.pair_grads(*args)
+    assert gc.LAUNCHES[key] == before + 1
+    ref = gc.pair_grads_plain(*args)
+    again = gc.pair_grads(*args)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (n_pairs, 16)
+    assert float(ref.abs().max()) > 1e-3
+    for k in range(16):
+        scale = float(ref[:, k].abs().max())
+        torch.testing.assert_close(got[:, k], ref[:, k], rtol=1e-3,
+                                   atol=1e-4 * scale, msg=lambda m: f"{k}: {m}")
+    assert torch.equal(got.abs().sum(1) == 0, ref.abs().sum(1) == 0)
+    assert not got[int(start[forced]):int(end[forced])].any()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))

@@ -80,7 +80,7 @@ def test_pair_grads_plain_matches_pallas_kernel(opaque, maxpp, chunk):
         out_img=out)
     got = gsplat_cuda.pair_grads(
         _t(rows), _t(b.tile_start), _t(b.tile_end), _t(cnt), _t(d_out),
-        _t(d_T), _t(T), _t(out), ts, ntx, nty, chunk, b.sorted_prim.shape[0])
+        _t(d_T), _t(T), ts, ntx, nty, chunk, b.sorted_prim.shape[0])
     assert got.shape == (600, 16)
     # The Pallas kernel leaves the blocks it never visits unwritten (NaN in
     # interpret mode): slots past the last tile's end, and blocks wholly
@@ -260,3 +260,136 @@ def test_rasterize_tiled_vjp_overflow_tile(window):
         np.testing.assert_allclose(t.grad.numpy(), r, rtol=1e-3,
                                    atol=1e-3 * np.abs(r).max(), err_msg=name)
         assert not t.grad[over].any(), name
+
+
+def _brute_force_warp_visits(rows, start, end, cnt, H, W, ts, chunk, C):
+    """(kept, {map: (pair, warp) visits}) by a loop over tiles, the blocks
+    j < cnt[t] of each tile's Pallas window and their rows, with each
+    design's pixels of a warp laid out as the kernels lay out their threads:
+    the first design one pixel a thread in row order; the current one
+    ``ppt`` pixels a thread, warp w over a region of ``rw`` x 8 pixels,
+    lane l at column l % rw and rows l // rw + k * (32 // rw)."""
+    ntx = -(-W // ts)
+    rw = 16 if ts % 16 == 0 else 8
+    ppt = rw // 4
+    n_warps = ts * ts // (32 * ppt)
+    cur = np.zeros((n_warps, 32 * ppt, 2), np.int64)     # (x, y) in the tile
+    for p in range(32 * n_warps):
+        warp, lane = divmod(p, 32)
+        for k in range(ppt):
+            cur[warp, lane * ppt + k] = (
+                (warp % (ts // rw)) * rw + lane % rw,
+                (warp // (ts // rw)) * 8 + lane // rw + k * (32 // rw))
+    yy, xx = np.divmod(np.arange(ts * ts), ts)
+    first_design = np.stack([xx, yy], -1).reshape(-1, 32, 2)
+    kept, visits = 0, {"row32": 0, "regions": 0}
+    for t in range(len(start)):
+        x0, y0 = (t % ntx) * ts, (t // ntx) * ts
+        px = torch.arange(ts).float() + x0 + 0.5
+        py = torch.arange(ts).float() + y0 + 0.5
+        inside = ((px[None, :] < W) & (py[:, None] < H)).numpy()   # [y, x]
+        base0 = (int(start[t]) // chunk) * chunk
+        for j in range(int(cnt[t])):
+            lo = max(base0 + j * chunk, int(start[t]))
+            hi = min(base0 + (j + 1) * chunk, int(end[t]))
+            for r in range(lo, hi):
+                d = rows[r]
+                dx = d[0] - px[None, :]
+                dy = d[1] - py[:, None]
+                sigma = 0.5 * (d[2] * dx * dx + d[4] * dy * dy) \
+                    + d[3] * dx * dy
+                raw = d[5] * torch.exp(-sigma.clamp(0.0, 60.0))
+                alpha = raw.clamp(max=gsplat_cuda.ALPHA_CLIP)
+                keep = ((sigma >= 0) & (alpha >= gsplat_cuda.ALPHA_MIN)
+                        ).numpy()                                 # [y, x]
+                kept += int((keep & inside).sum())
+                for w in first_design:
+                    visits["row32"] += bool(keep[w[:, 1], w[:, 0]].any())
+                for w in cur:
+                    visits["regions"] += bool(
+                        (keep & inside)[w[:, 1], w[:, 0]].any())
+    return kept, visits
+
+
+@pytest.mark.parametrize("ts", [8, 16])
+def test_pair_grads_plain_counts_warp_visits(ts):
+    """The warp-visit and shuffle counts of ``pair_grads_plain`` against a
+    brute-force loop, on a frame with an overflowing tile (the Pallas
+    window cuts it) and partial edge tiles (76 = 4 * 16 + 12 = 9 * 8 + 4
+    columns)."""
+    rng = np.random.RandomState(7)
+    H, W, maxpp, chunk = 40, 76, 64, 16
+    K, Rt, *prims = _scene(rng, 1, 150, H, W, True)
+    xys, conics, op_s, chan, valid, _r, b = tg.prepare_sample(
+        *(torch.from_numpy(a[0]) for a in (K, Rt, *prims)), H, W, ts,
+        pair_budget=1200)
+    ntx, nty = -(-W // ts), -(-H // ts)
+    rows = gsplat_cuda.pack_pair_rows(xys, conics, op_s, chan, valid.float(),
+                                      b.sorted_prim,
+                                      (maxpp // chunk + 1) * chunk)
+    img, T, cnt = gsplat_cuda.compositor_fwd_plain(
+        rows, b.tile_start, b.tile_end, H, W, ts, ntx, nty, chunk, maxpp)
+    assert int((b.tile_end - b.tile_start).max()) > maxpp
+    assert W % ts
+    C = chan.shape[1]
+    g = np.random.RandomState(8)
+    counts = {}
+    gsplat_cuda.pair_grads_plain(
+        rows, b.tile_start, b.tile_end, cnt,
+        torch.from_numpy(g.randn(C, H, W).astype(np.float32)),
+        torch.from_numpy(g.randn(H, W).astype(np.float32)), T, ts, ntx, nty,
+        chunk, 1200, counts=counts)
+    kept, visits = _brute_force_warp_visits(
+        rows, b.tile_start, b.tile_end, cnt, H, W, ts, chunk, C)
+    assert int(counts["kept"]) == kept > 0
+    for d in gsplat_cuda.K2_WARP_MAPS:
+        assert int(counts["warp_visits"][d]) == visits[d] > 0, d
+        assert int(counts["shuffles"][d]) == visits[d] * (
+            5 * (6 + C) if d == "row32" else 32), d
+    # the current design's warps hold 2-4x the pixels: fewer visits
+    assert visits["regions"] < visits["row32"]
+
+
+def test_fold_grads_check_capture_and_shares(monkeypatch):
+    """fold_grads_check keeps the batch-folded pair_grads calls only, with
+    GOLIATH_GSPLAT_FOLD=1 inside its block and the variable and the function
+    restored after; its shares (chip_smoke's tolerance) are 0 for equal
+    gradients and over 1, in that column alone, for one entry moved past
+    the tolerance."""
+    import importlib.util
+    import os
+
+    from goliath_torch.scripts import fold_grads_check as fgc
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", fgc.ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    monkeypatch.delenv("GOLIATH_GSPLAT_FOLD", raising=False)
+    seen, store = [], []
+
+    def pair_grads(*args):
+        seen.append(args)
+        return args[-2]
+
+    monkeypatch.setattr(gsplat_cuda, "pair_grads", pair_grads)
+    with fgc.CaptureFold(gsplat_cuda, store):
+        assert os.environ["GOLIATH_GSPLAT_FOLD"] == "1"
+        assert gsplat_cuda.pair_grads(torch.ones(2), 3, 4, "pallas") == 4
+        assert gsplat_cuda.pair_grads(torch.ones(2), 3, 1, "xla") == 1
+    assert "GOLIATH_GSPLAT_FOLD" not in os.environ
+    assert gsplat_cuda.pair_grads is pair_grads
+    assert len(seen) == 2 and len(store) == 1 and store[0][-2:] == (4, "pallas")
+
+    g = torch.Generator().manual_seed(0)
+    ref = torch.randn(200, 16, generator=g)
+    ref[:, 10:] = 0
+    ref[150:] = 0                          # rows without a gradient
+    assert all(s == 0 and n == 0
+               for s, n in fgc.column_shares(cs, ref.clone(), ref, 10))
+    got = ref.clone()
+    got[7, 3] += 1.0
+    shares = fgc.column_shares(cs, got, ref, 10)
+    assert shares[3][0] > 1 and shares[3][1] == 1
+    assert all(s == 0 and n == 0
+               for k, (s, n) in enumerate(shares) if k != 3)

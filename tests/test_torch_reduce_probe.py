@@ -142,6 +142,21 @@ def test_probe_kernel_scene_and_variants_run():
     assert len(calls) == 4 and all(torch.isfinite(c[0]).all() for c in calls)
 
 
+def test_time_pair_grads_runs(monkeypatch):
+    """time_pair_grads' loop over windows and chunks at a small size on the
+    CPU (K1's and K2's plain versions), with host-clock stand-ins for the
+    CUDA-event timers."""
+    from goliath_torch.scripts import time_pair_grads
+    from goliath_torch.utils import timing
+
+    monkeypatch.setattr(timing, "cuda_call_ms", lambda fn: (fn(), 1.0))
+    monkeypatch.setattr(timing, "cuda_ms", lambda fn, reps: (fn(), 1.0)[1])
+    times = time_pair_grads.main(n=2000, reps=1, img_h=64, img_w=48,
+                                 device="cpu")
+    assert sorted(times) == sorted(
+        (w, c) for w in gsplat_cuda.WINDOWS for c in time_pair_grads.CHUNKS)
+
+
 _XLA_CASES = {
     # tiles over max_pairs_per_tile, translucent
     "overflow": dict(opaque=False, N=150, kw=dict(
