@@ -15,7 +15,9 @@ the final result line:
      by 100-call event loops and by the profiler's device time per call;
   4. K1 (tile compositor forward) against its plain PyTorch version on the
      pair rows of a full-width frame (configs/rgca.yml: uv 1024, i.e.
-     1,048,576 Gaussians, 2048x1334 image, random weights from seed 0);
+     1,048,576 Gaussians, 2048x1334 image, random weights from seed 0),
+     with its work (evaluations, (row, warp) visits, visits its
+     saturated-warp skip removes) beside its time;
   5. K2 (tile compositor backward) against its plain version on the same
      frame with seeded upstream gradients, all 16 columns, two launches
      bit-equal, and its (pair, warp) visits and warp shuffles in the first
@@ -42,7 +44,8 @@ the final result line:
      GOLIATH_GSPLAT_FOLD=1 (one binning, K6 forward and backward and one
      reduce for the 4 samples), the same checks, its own launch counts, and
      its losses beside the per-sample path's; then K6 forward and backward
-     against their plain versions on the first fold step's own inputs;
+     against their plain versions on each fold step's own inputs (timed on
+     the first);
  11. the XLA block window (use_pallas false): K1 and K2 in that mode
      against their plain versions on a small frame whose tiles overflow,
      and one run_test frame of configs/rgca_synthetic.yml (use_pallas
@@ -94,6 +97,13 @@ SMALL_RTOL = 1e-3
 # pixels (float64 in both) are taken in other orders, and terms of both
 # signs cancel.
 K2_RTOL, K2_ATOL_OF_TYPICAL = 1e-3, 5e-2
+# K6's backward on the fold steps after the first: a row that is exactly
+# zero in one version may differ from zero only by float32 denormals in the
+# other. Pairs behind pixels whose T is ~1e-45 take dalpha from a float64
+# numerator of that size, which the kernel's and the plain version's sums
+# (in other orders) round to 0 or to the smallest denormals; such rows count
+# as zero rows in both (every other entry is held to K2's tolerance).
+K6_ZERO_BELOW = 2.0 ** -126   # float32's smallest normal number
 # gradients of the compositor against autograd through the plain forward,
 # per gradient, over the prims that carry one: as above, plus the rounding
 # of the per-prim reduce, whose sums are differences of two float32 prefixes:
@@ -267,6 +277,23 @@ def processed_evals(tile_start, tile_end, cnt, chunk, nchunks, ts,
     return evals * ts * ts
 
 
+def report_k1_work(counts, evals, label):
+    """Log K1's work from ``compositor_fwd_plain(..., counts=)``: the
+    evaluations its window reaches (which must equal ``processed_evals``,
+    the bound's count), its (row, warp) visits and the visits its
+    saturated-warp skip removes."""
+    visits, skipped = counts["warp_visits"], counts["skipped_visits"]
+    log(f"{label} work: {counts['evals']} pair-pixel evaluations in the "
+        f"window, {visits} (row, warp) visits, {skipped} of them skipped "
+        f"(every pixel of the warp at T == 0 at the block's start: "
+        f"{skipped / max(visits, 1):.4f} of the visits; counted on the "
+        f"plain version's T)")
+    if counts["evals"] != evals:
+        raise AssertionError(f"{label}: the plain version counts "
+                             f"{counts['evals']} evaluations, the bound "
+                             f"{evals}")
+
+
 def check_k1(gc, torch, args, frame):
     """Phase 4: K1 against its plain version on a full-width frame. Leaves
     the pair rows, K1's outputs and the evaluation count in ``frame``."""
@@ -281,12 +308,14 @@ def check_k1(gc, torch, args, frame):
     kw = dict(img_h=img_h, img_w=img_w, tile_size=ts, ntx=ntx, nty=nty,
               chunk=chunk, max_pairs_per_tile=maxpp)
     img, T, cnt = gc.compositor_fwd(rows, tile_start, tile_end, **kw)
+    counts = {}
     p_img, p_T, p_cnt = gc.compositor_fwd_plain(rows, tile_start, tile_end,
-                                                **kw)
+                                                counts=counts, **kw)
     torch.cuda.synchronize()
     err_img = float((img - p_img).abs().max())
     err_rgb = float((img[:3] - p_img[:3]).abs().max())
     err_T = float((T - p_T).abs().max())
+    T_bits = int((T.view(torch.int32) != p_T.view(torch.int32)).sum())
     cnt_diff = int((cnt != p_cnt).sum())
     close = bool(torch.allclose(img, p_img, atol=K1_ATOL, rtol=K1_RTOL)
                  and torch.allclose(T, p_T, atol=K1_ATOL, rtol=K1_RTOL))
@@ -295,14 +324,16 @@ def check_k1(gc, torch, args, frame):
         f" max_pairs_in_a_tile={int(pairs.max())} tiles_cut_early="
         f"{int((cnt < nchunks).sum())} max_abs_err rgb={err_rgb:.3e} "
         f"all channels (depth ~{float(p_img[3].max()):.0f})={err_img:.3e} "
-        f"T={err_T:.3e} cnt_mismatches={cnt_diff} "
-        f"(tolerance atol {K1_ATOL} rtol {K1_RTOL}, cnt exact)")
+        f"T={err_T:.3e} (pixels whose T bits differ: {T_bits}) "
+        f"cnt_mismatches={cnt_diff} (tolerance atol {K1_ATOL} rtol "
+        f"{K1_RTOL}, cnt exact)")
     if not close or cnt_diff:
         raise AssertionError("K1 differs from its plain version")
     if not (torch.isfinite(img).all() and torch.isfinite(T).all()):
         raise AssertionError("K1 output is not finite")
 
     evals = processed_evals(tile_start, tile_end, cnt, chunk, nchunks, ts)
+    report_k1_work(counts, evals, "K1")
     ops = 16 * evals  # the alpha test of each (pair, pixel) evaluated
     nbytes = (rows.numel() * 4 + 2 * tile_start.numel() * 4
               + img.numel() * 4 + T.numel() * 4 + cnt.numel() * 4)
@@ -319,10 +350,12 @@ def check_k1(gc, torch, args, frame):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
 
-def compare_pair_grads(gc, torch, got, ref, C, label):
+def compare_pair_grads(gc, torch, got, ref, C, label, zero_below=0.0):
     """Hold K2's (or K6's) per-pair gradients against its plain version's,
     per column, over the rows that carry a gradient; every other row must
-    be exactly zero in both. Returns the largest absolute error."""
+    be exactly zero in both. With ``zero_below``, a row whose entries are
+    all below it in one version and exactly zero in the other counts as a
+    zero row in both (reported). Returns the largest absolute error."""
     groups = {"position": (0, 2), "conic": (2, 5), "opacity": (5, 6),
               "color": (6, 6 + C), "pad": (6 + C, gc.PAIR_GRAD_COLS)}
     carries = ref.abs().sum(1) > 0
@@ -341,13 +374,21 @@ def compare_pair_grads(gc, torch, got, ref, C, label):
             bad.append(name)
     written = int(carries.sum())
     same_zero = bool(torch.equal(got.abs().sum(1) == 0, ~carries))
+    if not same_zero and zero_below:
+        differ = (got.abs().sum(1) == 0) != ~carries
+        largest = float(torch.maximum(got[differ].abs().amax(),
+                                      ref[differ].abs().amax()))
+        same_zero = largest < zero_below
+        log(f"{label}: {int(differ.sum())} rows are exactly zero in one "
+            f"version only; their largest |entry| {largest:.3e} (zero rows "
+            f"below {zero_below:.3e}: {'held' if same_zero else 'FAILED'})")
     log(f"{label} out={tuple(got.shape)} rows with a gradient={written} of "
         f"{got.shape[0]}, zero rows agree={same_zero} (tolerance per column: "
         f"rtol {K2_RTOL} + {K2_ATOL_OF_TYPICAL} of the column's median |ref|"
         f" over those rows; all other rows exactly zero)")
     if bad or not same_zero:
         raise AssertionError(f"{label} differs from its plain version in "
-                             f"{bad}")
+                             f"{bad or 'its zero rows'}")
     return worst
 
 
@@ -828,10 +869,14 @@ def run_training(gc, torch, card_line, label, expected, record,
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    # FoldEnv's copies of the step's K6 inputs are of this kind
+    pinned = sum(r[0] for r in rows
+                 if r[2].startswith("Memcpy DtoH (Device -> Pinned)"))
     wall_ms = probe.seconds[probe.profile_step] * 1e3
     log(f"{label} profiled step {probe.profile_step}: wall {wall_ms:.3f} ms, "
-        f"device busy {busy:.3f} ms in {sum(r[1] for r in rows)} kernels, "
-        f"idle share {max(0.0, 1.0 - busy / wall_ms):.3f} on {card_line}")
+        f"device busy {busy:.3f} ms in {sum(r[1] for r in rows)} kernels "
+        f"({pinned:.3f} ms of it copies to pinned host memory), idle share "
+        f"{max(0.0, 1.0 - busy / wall_ms):.3f} on {card_line}")
     for ms, count, key in rows[:14]:
         log(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
     # the backward nodes by the device time of the kernels under them
@@ -879,9 +924,14 @@ def train_path(gc, torch, card_line, record):
 
 class FoldEnv:
     """GOLIATH_GSPLAT_FOLD=1 for the duration of a with-block (restored
-    after), and the inputs of the first batch-folded backward (K6's rows,
-    bounds, cnt, forward outputs and upstream gradients) copied to pinned
-    host memory without a synchronise."""
+    after), and the inputs of every batch-folded backward (K6's rows,
+    bounds, cnt, forward outputs and upstream gradients), in step order
+    under ``captured["k6"]``, copied to pinned host memory without a
+    synchronise. The first backward allocates the host buffers of all
+    TRAIN_STEPS steps (the steps' inputs have one shape), so that the
+    later, timed steps only start their copies: allocating ~0.9 GB of
+    pinned memory in a step added 0.2-0.3 s to its wall time (the folded
+    step on an NVIDIA H100 80GB HBM3 machine)."""
 
     def __init__(self, gc, torch, captured):
         self.gc, self.torch, self.captured = gc, torch, captured
@@ -895,10 +945,17 @@ class FoldEnv:
         torch, captured, orig = self.torch, self.captured, self.orig_pg
 
         def pg(*args):
-            if "k6" not in captured and args[12] > 1:
-                captured["k6"] = tuple(
-                    a.detach().to("cpu", non_blocking=True)
-                    if isinstance(a, torch.Tensor) else a for a in args)
+            if args[12] > 1:
+                steps = captured.setdefault("k6", [])
+                if not steps:
+                    self.buffers = [
+                        [torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+                         if isinstance(a, torch.Tensor) else None
+                         for a in args] for _ in range(TRAIN_STEPS)]
+                steps.append(tuple(
+                    a if buf is None else buf.copy_(a.detach(),
+                                                    non_blocking=True)
+                    for a, buf in zip(args, self.buffers[len(steps)])))
             return orig(*args)
 
         self.gc.pair_grads = pg
@@ -935,8 +992,8 @@ def fold_train_path(gc, torch, card_line, record, captured):
             f"{[f'{d:.6f}' for d in diff]} (not held: the fold quantizes "
             f"depth to 17 bits, the per-sample path to 19, and its pair "
             f"budget is global)")
-    if "k6" not in captured:
-        raise AssertionError("the fold path's backward was not captured")
+    if len(captured.get("k6", ())) != TRAIN_STEPS:
+        raise AssertionError("the fold path's backwards were not captured")
     return launches
 
 
@@ -1263,16 +1320,31 @@ def check_k5(gc, torch, args):
                 bound_by=b_by, library_ms=None)
 
 
-def check_k6(gc, torch, args):
-    """K6 forward and backward against their plain versions on the first
-    fold training step's own inputs (the rows, global tile bounds, cnt,
-    forward outputs and upstream gradients its backward was handed), at the
-    tolerances of K1 and K2; times, the plain versions' times and bounds
-    counted as K1's and K2's."""
+def check_k6(gc, torch, steps):
+    """K6 forward and backward against their plain versions on the own
+    inputs of every fold training step (the rows, global tile bounds, cnt,
+    forward outputs and upstream gradients each backward was handed), at
+    the tolerances of K1 and K2 (after the first step with K6_ZERO_BELOW),
+    the backward launched twice with equal bits; times, the plain versions'
+    times and bounds on the first step, counted as K1's and K2's."""
+    res = {}
+    for i, host_args in enumerate(steps):
+        args = tuple(a.to(DEVICE) if isinstance(a, torch.Tensor) else a
+                     for a in host_args)
+        step = check_k6_step(gc, torch, args, f"K6 step {i}", timed=i == 0,
+                             zero_below=K6_ZERO_BELOW if i else 0.0)
+        del args
+        torch.cuda.empty_cache()
+        res = res or step
+    log(f"K6 forward and backward held on {len(steps)} fold steps")
+    return res
+
+
+def check_k6_step(gc, torch, args, label, timed, zero_below):
+    """check_k6 on one fold step: {kernel: its entry of the kernels line}
+    when ``timed``, else {}. ``zero_below`` as for compare_pair_grads."""
     from goliath_torch.utils.timing import cuda_ms
 
-    args = tuple(a.to(DEVICE) if isinstance(a, torch.Tensor) else a
-                 for a in args)
     (rows, tile_start, tile_end, cnt, d_out, d_T, T, ts, ntx, nty, chunk,
      n_pairs, n_imgs, window) = args
     if window != "pallas" or n_imgs != TRAIN_BATCH:
@@ -1283,26 +1355,51 @@ def check_k6(gc, torch, args):
     kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=ntx, nty=nty, chunk=chunk,
               max_pairs_per_tile=maxpp, n_imgs=n_imgs)
     f_img, f_T, f_cnt = gc.compositor_fwd(rows, tile_start, tile_end, **kw)
+    counts = {}
     p_img, p_T, p_cnt = gc.compositor_fwd_plain(rows, tile_start, tile_end,
-                                                **kw)
+                                                counts=counts, **kw)
     torch.cuda.synchronize()
     err_img = float((f_img - p_img).abs().max())
     err_T = float((f_T - p_T).abs().max())
+    T_bits = int((f_T.view(torch.int32) != p_T.view(torch.int32)).sum())
     same_run = bool(torch.equal(f_cnt, cnt)) and float(
         (f_T - T).abs().max()) <= K1_ATOL
     pairs = tile_end.long() - tile_start.long()
-    log(f"K6 forward: {n_imgs} images, rows={tuple(rows.shape)} tiles="
+    log(f"{label} forward: {n_imgs} images, rows={tuple(rows.shape)} tiles="
         f"{tile_start.numel()} pairs={int(pairs.sum())} max_pairs_in_a_tile="
         f"{int(pairs.max())} tiles_cut_early={int((cnt < nchunks).sum())} "
-        f"max_abs_err all channels={err_img:.3e} T={err_T:.3e} "
+        f"max_abs_err all channels={err_img:.3e} T={err_T:.3e} (pixels "
+        f"whose T bits differ: {T_bits}) "
         f"cnt_mismatches={int((f_cnt != p_cnt).sum())}; the training step's "
         f"own cnt and T reproduced: {same_run} (tolerance atol {K1_ATOL} "
         f"rtol {K1_RTOL}, cnt exact)")
-    if not (torch.allclose(f_img, p_img, atol=K1_ATOL, rtol=K1_RTOL)
-            and torch.allclose(f_T, p_T, atol=K1_ATOL, rtol=K1_RTOL)
-            and torch.equal(f_cnt, p_cnt) and same_run):
-        raise AssertionError("K6's forward differs from its plain version")
+    held = {"image": torch.allclose(f_img, p_img, atol=K1_ATOL, rtol=K1_RTOL),
+            "T": torch.allclose(f_T, p_T, atol=K1_ATOL, rtol=K1_RTOL),
+            "cnt": torch.equal(f_cnt, p_cnt), "own run": same_run}
+    if not all(held.values()):
+        raise AssertionError(f"{label}: K6's forward differs from its plain "
+                             f"version or its own run in "
+                             f"{[k for k, v in held.items() if not v]}")
+    del p_img, p_T
     evals = processed_evals(tile_start, tile_end, cnt, chunk, nchunks, ts)
+    report_k1_work(counts, evals, f"{label} forward")
+
+    call = (rows, tile_start, tile_end, cnt, d_out, d_T, T, ts, ntx, nty,
+            chunk, n_pairs, n_imgs)
+    got = gc.pair_grads(*call)
+    torch.cuda.synchronize()
+    counts = {}
+    ref = gc.pair_grads_plain(*call, counts=counts)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: K6's backward output is not finite")
+    worst = compare_pair_grads(gc, torch, got, ref, C, f"{label} backward",
+                               zero_below)
+    check_same_bits(torch, got, gc.pair_grads(*call), f"{label} backward")
+    del got, ref
+    if not timed:
+        return {}
+
     nbytes = (rows.numel() * 4 + 2 * tile_start.numel() * 4
               + f_img.numel() * 4 + T.numel() * 4 + cnt.numel() * 4)
     b_ms, b_by = bound_ms(nbytes, 16 * evals)
@@ -1316,21 +1413,9 @@ def check_k6(gc, torch, args):
     fwd = dict(max_abs_err=max(err_img, err_T), ms=ms, plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
-    call = (rows, tile_start, tile_end, cnt, d_out, d_T, T, ts, ntx, nty,
-            chunk, n_pairs, n_imgs)
-    got = gc.pair_grads(*call)
-    torch.cuda.synchronize()
-    counts = {}
-    ref = gc.pair_grads_plain(*call, counts=counts)
-    torch.cuda.synchronize()
-    if not torch.isfinite(got).all():
-        raise AssertionError("K6's backward output is not finite")
-    worst = compare_pair_grads(gc, torch, got, ref, C, "K6 backward")
-    check_same_bits(torch, got, gc.pair_grads(*call), "K6 backward")
     kept = int(counts["kept"])
     b_ms, b_by, nbytes = k2_bound(rows, tile_start, d_out, T, n_pairs, evals,
                                   kept, C)
-    del got, ref
     ms = cuda_ms(lambda: gc.pair_grads(*call), reps=5)
     plain_ms = cuda_ms(lambda: gc.pair_grads_plain(*call), reps=1, warmup=0)
     log(f"K6 backward timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "

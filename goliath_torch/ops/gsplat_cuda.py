@@ -266,11 +266,48 @@ def _window_start(start, chunk, window):
     return start if window == "xla" else (start // chunk) * chunk
 
 
+def k1_pixel_map(tile_size: int) -> torch.Tensor:
+    """Pixel of each (warp, lane, slot) of K1's threads in a tile, as a
+    row-major index into the tile or -1 for none ([warps, 32, PPT] int64;
+    csrc/compositor_fwd.cu): where the tile size is a multiple of 16, a warp
+    owns a 16x8 region and lane l takes column l % 16 and rows l // 16 + 2k
+    (PPT = 4); where it is a multiple of 8, an 8x8 region, rows l // 8 + 4k
+    (PPT = 2); otherwise one pixel a thread in row order, the threads past
+    the tile owning none (PPT = 1). For multiples of 8 the warp of each
+    pixel is K2's ("regions" in ``k2_warp_map``)."""
+    ts = tile_size
+    P = ts * ts
+    rw = 16 if ts % 16 == 0 else 8 if ts % 8 == 0 else 1
+    if rw == 1:
+        pix = torch.arange(-(-P // 32) * 32).reshape(-1, 32, 1)
+        return torch.where(pix < P, pix, -1)
+    regions_x = ts // rw
+    warp = torch.arange(regions_x * (ts // 8))[:, None, None]
+    lane = torch.arange(32)[None, :, None]
+    x = (warp % regions_x) * rw + lane % rw
+    y = (warp // regions_x) * 8 + lane // rw \
+        + torch.arange(rw // 4) * (32 // rw)
+    return y * ts + x
+
+
+def k1_pixel_warps(tile_size: int) -> torch.Tensor:
+    """Warp of each pixel of a tile in K1's map (row-major, [tile_size^2]
+    int64)."""
+    pixel_map = k1_pixel_map(tile_size)
+    mine = pixel_map >= 0
+    warp = torch.arange(pixel_map.shape[0])[:, None, None]
+    owner = torch.empty(tile_size * tile_size, dtype=torch.long)
+    owner[pixel_map[mine]] = warp.expand_as(pixel_map)[mine]
+    return owner
+
+
 def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
                          tile_size: int, ntx: int, nty: int, chunk: int,
                          max_pairs_per_tile: int, n_imgs: int = 1,
                          window: str = "pallas", variant: str = "full",
-                         replay_cnt: Optional[torch.Tensor] = None
+                         replay_cnt: Optional[torch.Tensor] = None,
+                         counts: Optional[dict] = None,
+                         skip_saturated: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch K1: ``_rasterize_fwd_impl``'s per-chunk cumprod
     compositing over a tile's block window. ``"pallas"``: block j covers
@@ -287,6 +324,18 @@ def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
     j < replay_cnt[t] with no early-out test, with the variant's arithmetic
     (see csrc/compositor_fwd.cu).
 
+    ``counts``, if given, receives K1's work per tile (int64 tensors
+    [n_imgs * tiles] under "per_tile") and in total (ints): "evals", the
+    (pair, pixel) evaluations of the rows the window reaches, every pixel
+    of the tile; "warp_visits", the (row, warp) visits of K1's map
+    (``k1_pixel_map``); "skipped_visits", those of the warps whose pixels
+    all had T == 0 at the start of the row's block, which the kernel skips
+    (none in ``"loadonly"``). T is rounded pair by pair, in the kernel's
+    order, so the saturation, the early-out and cnt are read from the
+    kernel's own T (the sums of colour differ in order). ``skip_saturated``
+    masks those warps' pixels out of the rows they skip, as the kernel
+    does: the outputs do not change (the tests hold that bit for bit).
+
     Tiles run in batches to bound the [tiles, chunk, pixels] temporaries to
     ``PLAIN_BATCH_ELEMS`` elements. Returns (color [n_imgs, C, H, W],
     T [n_imgs, H, W], cnt [n_imgs * tiles]), without the image axis when
@@ -302,7 +351,11 @@ def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
     dev = rows.device
     lane = torch.arange(chunk, device=dev)
     last_row = rows.shape[0] - 1
-    accs, Ts, cnts = [], [], []
+    watch = (counts is not None or skip_saturated) and variant != "loadonly"
+    owner = k1_pixel_warps(tile_size)
+    n_warps = int(owner.max()) + 1
+    owner = owner.to(dev)
+    accs, Ts, cnts, works = [], [], [], []
     for t0 in range(0, n_tiles, tile_batch):
         tiles = torch.arange(t0, min(t0 + tile_batch, n_tiles), device=dev)
         start = tile_start[tiles].long()
@@ -312,6 +365,7 @@ def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
         T = torch.ones(len(tiles), P, device=dev)
         acc = torch.zeros(len(tiles), C, P, device=dev)
         cnt = torch.zeros(len(tiles), dtype=torch.int32, device=dev)
+        work = torch.zeros(3, len(tiles), dtype=torch.int64, device=dev)
         for j in range(nchunks):
             base = first + j * chunk
             have = base < end
@@ -319,9 +373,18 @@ def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
                 have = have & (j < replay_cnt[tiles])
             elif window == "pallas":
                 have = have & (T.amax(dim=1) > T_EPS)
+            if not bool(have.any()):
+                break   # no tile of the batch takes this block or a later one
             cnt = torch.where(have, j + 1, cnt)
             idx = base[:, None] + lane                          # [n, CH]
             m = (idx >= start[:, None]) & (idx < end[:, None]) & have[:, None]
+            n_rows = m.sum(dim=1)
+            work[0] += n_rows * P
+            work[1] += n_rows * n_warps
+            if watch:   # warps whose pixels all have T == 0: [n, W]
+                sat = T.new_zeros(len(tiles), n_warps).index_add_(
+                    1, owner, (T != 0).float()) == 0
+                work[2] += n_rows * sat.sum(dim=1)
             data = rows[idx.clamp(max=last_row)]                # [n, CH, F]
             if variant == "loadonly":
                 acc = acc + torch.einsum("nk,nkc->nc", m.float(),
@@ -337,6 +400,8 @@ def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
                 raw = data[..., 5, None] * torch.exp(-sigma.clamp(0.0, 60.0))
             alpha = raw.clamp(max=ALPHA_CLIP)
             keep = (sigma >= 0) & (alpha >= ALPHA_MIN) & m[..., None]
+            if skip_saturated:
+                keep = keep & ~sat[:, owner][:, None]
             alpha = torch.where(keep, alpha, 0.0)
             if variant == "nochain":
                 # every pair weighted by the block's starting T; T moves
@@ -348,15 +413,30 @@ def compositor_fwd_plain(rows, tile_start, tile_end, img_h: int, img_w: int,
                 acc = acc + torch.einsum("nkp,nkc->ncp", w, data[..., 8:])
                 T = T * (1.0 - a_last)
                 continue
+            # T before each row and after the block as the kernel rounds
+            # it, one float32 product a row from the block's T (a cumprod
+            # rounds otherwise: in float64 on the CPU), so the early-out's T
+            # and cnt are K1's; rows past every tile's end keep T
             one_m = 1.0 - alpha
-            cum = torch.cumprod(one_m, dim=1)
-            w = alpha * (T[:, None] * cum / one_m)
+            k_end = int(torch.where(have, torch.minimum(base + chunk, end)
+                                    - base, 0).max())
+            T_rows = [T]
+            for k in range(k_end):
+                T_rows.append(T_rows[-1] * one_m[:, k])
+            T_rows = torch.stack(T_rows + T_rows[-1:] * (chunk - k_end), 1)
+            w = alpha * T_rows[:, :-1]
             acc = acc + torch.einsum("nkp,nkc->ncp", w, data[..., 8:])
-            T = T * cum[:, -1]
+            T = T_rows[:, -1]
         accs.append(acc)
         Ts.append(T)
         cnts.append(cnt)
+        works.append(work)
     acc, T, cnt = torch.cat(accs), torch.cat(Ts), torch.cat(cnts)
+    if counts is not None:
+        work = torch.cat(works, dim=1)
+        keys = ("evals", "warp_visits", "skipped_visits")
+        counts["per_tile"] = dict(zip(keys, work))
+        counts.update((k, int(v.sum())) for k, v in zip(keys, work))
     img = _tiles_to_image(acc, ntx, nty, tile_size, img_h, img_w)
     T_img = _tiles_to_image(T[:, None], ntx, nty, tile_size, img_h, img_w)[:, 0]
     if n_imgs == 1:

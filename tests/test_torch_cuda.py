@@ -593,3 +593,90 @@ def test_compositor_backward_cases(cuda, ts, C, window, n_imgs):
     assert torch.equal(got.abs().sum(1) == 0, ref.abs().sum(1) == 0)
     assert not got[int(start[forced]):int(end[forced])].any()
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def _forward_frame(cuda, ts, C, n_imgs, maxpp, chunk, seed):
+    """Pair rows [R, 8 + C] made by hand for n_imgs images of 72x100 at tile
+    size ts, and their tile bounds: per tile a random number of random
+    rows (none in some tiles, more than max_pairs_per_tile in others); the
+    first tile of each image empty at row 0, so cnt = 0 there in both
+    windows; and at the head of the second tile 24 opaque half-planes
+    (sigma = b dx dy with a = c = 0, opacity 1) that drive its top 8 pixel
+    rows, whole warps, to T == 0 exactly while the rows below go on."""
+    H, W = 72, 100
+    ntx, nty = -(-W // ts), -(-H // ts)
+    rng = np.random.RandomState(seed)
+    blocks, counts = [], []
+    for _img in range(n_imgs):
+        for t in range(ntx * nty):
+            n = [0, int(rng.randint(1, maxpp)),
+                 int(rng.randint(maxpp, 3 * maxpp))][rng.randint(3)]
+            n = 0 if t == 0 else 24 + 2 * maxpp if t == 1 else n
+            x0, y0 = (t % ntx) * ts, (t // ntx) * ts
+            r = np.zeros((n, 8 + C), np.float32)
+            r[:, 0] = x0 + rng.uniform(-0.5, 1.5, n) * ts
+            r[:, 1] = y0 + rng.uniform(-0.5, 1.5, n) * ts
+            r[:, 2] = rng.uniform(0.02, 0.3, n)
+            r[:, 3] = rng.uniform(-0.01, 0.01, n)
+            r[:, 4] = rng.uniform(0.02, 0.3, n)
+            r[:, 5] = rng.uniform(0.05, 0.6, n)
+            r[:, 8:] = rng.randn(n, C)
+            if t == 1:
+                r[:24, :6] = [x0 - 100.0, y0 + 8.0, 0.0, -1e-7, 0.0, 1.0]
+            blocks.append(r)
+            counts.append(n)
+    pad = np.zeros(((maxpp // chunk + 1) * chunk, 8 + C), np.float32)
+    rows = torch.from_numpy(np.concatenate(blocks + [pad])).to(cuda)
+    ends = torch.tensor(np.cumsum(counts), dtype=torch.int32, device=cuda)
+    starts = ends - torch.tensor(counts, dtype=torch.int32, device=cuda)
+    kw = dict(img_h=H, img_w=W, tile_size=ts, ntx=ntx, nty=nty, chunk=chunk,
+              max_pairs_per_tile=maxpp, n_imgs=n_imgs)
+    return rows, starts, ends, kw
+
+
+@pytest.mark.parametrize("ts", [8, 12, 16, 24, 32])
+@pytest.mark.parametrize("C", [1, 4, 8])
+@pytest.mark.parametrize("window,n_imgs", [("pallas", 1), ("xla", 1),
+                                           ("pallas", 3)])
+def test_compositor_forward_cases(cuda, ts, C, window, n_imgs):
+    """K1 (its XLA window, K6's forward) at tile sizes 8 (one warp of 8x8,
+    2 pixels a thread), 24 (9 warps of 8x8), 16 and 32 (16x8 regions, 4
+    pixels a thread) and 12 (one pixel a thread, 144 pixels on 5 warps),
+    C = 1, 4 and 8, on hand-made rows with cnt = 0 tiles, overflowing
+    tiles, a width (100) that is no multiple of the tile, and whole warps
+    at T == 0 that the kernel skips (the plain version counts the skipped
+    visits; a one-warp tile saturates whole and stops at the Pallas
+    early-out instead): against compositor_fwd_plain (atol/rtol 1e-4, cnt
+    exact); two launches give identical bits; with one image and the
+    Pallas window, P1's full variant equals K1 bit for bit (P1 takes only
+    those)."""
+    maxpp, chunk = 64, 16
+    rows, start, end, kw = _forward_frame(cuda, ts, C, n_imgs, maxpp, chunk,
+                                          ts + C + n_imgs)
+    key = "compositor_fwd" + ("_fold" if n_imgs > 1 else "") \
+        + ("_xla" if window == "xla" else "")
+    before = gc.LAUNCHES[key]
+    img, T, cnt = gc.compositor_fwd(rows, start, end, window=window, **kw)
+    assert gc.LAUNCHES[key] == before + 1
+    again = gc.compositor_fwd(rows, start, end, window=window, **kw)
+    counts = {}
+    p_img, p_T, p_cnt = gc.compositor_fwd_plain(rows, start, end,
+                                                window=window, counts=counts,
+                                                **kw)
+    torch.cuda.synchronize()
+    lead = (n_imgs,) if n_imgs > 1 else ()
+    assert img.shape == lead + (C, 72, 100) and T.shape == lead + (72, 100)
+    torch.testing.assert_close(img, p_img, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(T, p_T, atol=1e-4, rtol=1e-4)
+    assert torch.equal(cnt, p_cnt)
+    for a, b in zip((img, T, cnt), again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int((end - start).max()) > maxpp and kw["img_w"] % ts
+    assert bool((cnt == 0).any())
+    assert bool((T == 0).any())
+    assert (counts["skipped_visits"] > 0) == (ts > 8 or window == "xla")
+    if window == "pallas" and n_imgs == 1:
+        kw.pop("n_imgs")
+        full = gc.probe_fwd(rows, start, end, cnt, variant="full", **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(full, (img, T, cnt)))
