@@ -25,8 +25,10 @@ the final result line:
      backward (K2, then the per-prim reduce on K3) against autograd through
      the plain forward on one row of tiles, and the K3 reduce against
      index_add_ of the same pair gradients;
-  6. K3 (float32 column scan) against torch.cumsum at [10, 3,145,728], on
-     random values and on K2's pair gradients;
+  6. K3 (float32 column scan, single pass) against torch.cumsum at
+     [10, 3,145,728], on random values and on K2's pair gradients, and
+     against a float64 scan at the folded step's [10, 12,582,912] on
+     random values; two calls bit-equal; timed at both shapes;
   7. P1 (the compositor ablation probe, variants of K1): full equal to K1
      bit for bit on the frame, every variant against its plain version on
      small frames, every variant timed on the frame, then
@@ -59,7 +61,8 @@ the final result line:
      after, keeping the inputs the run hands to K5 and K4, then one
      profiled forward of its last frame;
  14. K5 (mesh z-buffer) against its plain version on the K5 inputs of the
-     mesh path's first frame, face index and depth equal bit for bit; K4
+     mesh path's first frame, face index and depth equal bit for bit, with
+     the row-pixel evaluations its per-warp cull makes; K4
      against torch.cumsum on the mesh path's six scans, exactly;
  15. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
      path at a small size, on the card against the CPU (plain versions) as
@@ -107,14 +110,17 @@ K6_ZERO_BELOW = 2.0 ** -126   # float32's smallest normal number
 # gradients of the compositor against autograd through the plain forward,
 # per gradient, over the prims that carry one: as above, plus the rounding
 # of the per-prim reduce, whose sums are differences of two float32 prefixes:
-# a fraction of the column's largest running sum (K3 itself is measured at
-# 2.5e-7 to 3e-7 of it per prefix). That rounding also reaches the prims
-# that carry no gradient, so every prim is held to the tolerance.
+# a fraction of the column's largest running sum (K3 itself, with its
+# float64 carry, is measured at 2.0e-7 to 2.7e-7 of it per prefix at
+# [10, 3,145,728] and 3.4e-7 at [10, 12,582,912]). That rounding also
+# reaches the prims that carry no gradient, so every prim is held to the
+# tolerance.
 BWD_RTOL, BWD_ATOL_OF_TYPICAL, BWD_ATOL_OF_RUNNING = 1e-3, 5e-2, 1e-6
 # K3 against a float64 scan and against the float32 torch.cumsum, as
 # fractions of each row's largest running sum (float32 sums of 3M items in
 # other orders; torch.cumsum itself is that far from the float64 scan)
 K3_TOL_F64, K3_TOL_F32 = 2e-6, 1e-5
+K3_FOLD_M = 12_582_912   # the folded step's pair budget (4 x 3,145,728)
 TRAIN_STEPS, TRAIN_BATCH = 3, 4
 
 
@@ -578,16 +584,23 @@ def check_backward(gc, torch, args, frame):
 
 def check_k3(gc, torch, frame):
     """Phase 6: K3 against torch.cumsum at [10, 3,145,728], on random values
-    and on the frame's pair gradients in pre-sort order."""
+    and on the frame's pair gradients in pre-sort order, and at the folded
+    step's [10, 12,582,912] on random values; two calls on the pair
+    gradients bit-equal (K3's carry is folded in tile order)."""
     from goliath_torch.utils.timing import cuda_ms
 
     gen = torch.Generator(device=DEVICE).manual_seed(4)
     real = frame["presort"].contiguous()
     F, M = real.shape
     cases = {"random": torch.randn((F, M), generator=gen, device=DEVICE),
-             "pair gradients": real}
+             "pair gradients": real,
+             "random, folded shape": torch.randn(
+                 (F, K3_FOLD_M), generator=gen, device=DEVICE)}
     worst = 0.0
     for name, x in cases.items():
+        # at 12.6M items torch.cumsum float32 is itself ~1e-5 of the running
+        # sum from the float64 scan: there K3 is held to the float64 scan
+        f32_ref = x.shape[1] <= M
         got = gc.cumsum_cols(x)
         plain = gc.cumsum_cols_plain(x)
         ref = torch.cumsum(x.double(), dim=1)
@@ -597,14 +610,22 @@ def check_k3(gc, torch, frame):
         e64 = float(((got.double() - ref).abs() / scale).max())
         e32 = float((diff.double() / scale).max())
         p64 = float(((plain.double() - ref).abs() / scale).max())
+        del ref, scale
         worst = max(worst, float(diff.max()))
-        log(f"K3 [{F}, {M}] {name}: error as a fraction of each row's largest"
-            f" running sum: against a float64 scan {e64:.3e} (tolerance "
-            f"{K3_TOL_F64}; torch.cumsum float32 itself: {p64:.3e}), against "
-            f"torch.cumsum float32 {e32:.3e} (tolerance {K3_TOL_F32})")
-        if not (e64 <= K3_TOL_F64 and e32 <= K3_TOL_F32):
+        log(f"K3 {list(x.shape)} {name}: error as a fraction of each row's "
+            f"largest running sum: against a float64 scan {e64:.3e} "
+            f"(tolerance {K3_TOL_F64}; torch.cumsum float32 itself: "
+            f"{p64:.3e}), against torch.cumsum float32 {e32:.3e} (tolerance "
+            f"{K3_TOL_F32 if f32_ref else 'none: see the float64 scan'})")
+        if not (e64 <= K3_TOL_F64 and (e32 <= K3_TOL_F32 or not f32_ref)):
             raise AssertionError(f"K3 differs from torch.cumsum on {name}")
     x = cases["pair gradients"]
+    first, second = gc.cumsum_cols(x), gc.cumsum_cols(x)
+    n_diff = int((first.view(torch.int32) != second.view(torch.int32)).sum())
+    log(f"K3 determinism: two calls on the pair gradients differ in {n_diff}"
+        f" of {first.numel()} entries (bits)")
+    if n_diff:
+        raise AssertionError("K3 gives other bits on another call")
     ms = cuda_ms(lambda: gc.cumsum_cols(x), reps=50)
     # the plain version is the library call, torch.cumsum(x, 1): one timing
     library_ms = cuda_ms(lambda: gc.cumsum_cols_plain(x), reps=50)
@@ -612,8 +633,16 @@ def check_k3(gc, torch, frame):
     log(f"K3 timing [{F}, {M}]: {ms:.4f} ms, plain = torch.cumsum "
         f"{library_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
         f"({2 * F * M * 4} bytes)")
+    xf = cases["random, folded shape"]
+    f_ms = cuda_ms(lambda: gc.cumsum_cols(xf), reps=20)
+    f_lib = cuda_ms(lambda: gc.cumsum_cols_plain(xf), reps=20)
+    fb_ms, fb_by = bound_ms(2 * xf.numel() * 4, xf.numel())
+    log(f"K3 timing {list(xf.shape)} (the folded step's shape): {f_ms:.4f} "
+        f"ms, plain = torch.cumsum {f_lib:.4f} ms, bound {fb_ms:.4f} ms by "
+        f"{fb_by} ({2 * xf.numel() * 4} bytes)")
     return dict(max_abs_err=worst, ms=ms, plain_ms=library_ms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=library_ms)
+                bound_by=b_by, library_ms=library_ms, folded_ms=f_ms,
+                folded_plain_ms=f_lib, folded_bound_ms=fb_ms)
 
 
 def profiled_device_ms(torch, fn, calls: int):
@@ -1265,7 +1294,9 @@ def face_box_evals(rows, start, win_end, ts, ntx, img_h, img_w):
 def check_k5(gc, torch, args):
     """K5 against its plain version on the mesh path's first frame (the
     arguments its rasterize call handed to K5): face index equal on every
-    pixel and depth equal bit for bit."""
+    pixel and depth equal bit for bit; the row-pixel evaluations of its
+    per-warp cull (counted by the plain version's mirror) beside the first
+    design's and those inside the faces' boxes."""
     from goliath_torch.ops import rasterizer_cuda as rc
     from goliath_torch.utils.timing import cuda_ms
 
@@ -1274,7 +1305,8 @@ def check_k5(gc, torch, args):
     (rows, sorted_prim, tile_start, tile_end, img_h, img_w, ts, ntx, nty,
      chunk, mfpt) = args
     idx, z = rc.zbuffer(*args)
-    p_idx, p_z = rc.zbuffer_plain(*args)
+    work = {}
+    p_idx, p_z = rc.zbuffer_plain(*args, counts=work)
     torch.cuda.synchronize()
     idx_bad = int((idx != p_idx).sum())
     z_bad = int((z.view(torch.int32) != p_z.view(torch.int32)).sum())
@@ -1313,9 +1345,17 @@ def check_k5(gc, torch, args):
         f"({in_window} rows in the windows at 64 B, 8 B per pixel written) "
         f"-> {t_bytes:.4f} ms; operations: {evals} row-pixel evaluations "
         f"inside the faces' bounding boxes at {K5_OPS_PER_EVAL} each -> "
-        f"{t_ops:.4f} ms (this design evaluates every pixel of the tile: "
-        f"{design_evals}, {design_evals / max(evals, 1):.1f}x as many); "
-        f"library: none (no PyTorch call computes a z-buffer)")
+        f"{t_ops:.4f} ms; library: none (no PyTorch call computes a "
+        f"z-buffer)")
+    log(f"K5 row-pixel evaluations: {work['evals']} by this design's "
+        f"per-warp cull ({work['warp_visits']} (row, warp) visits kept, "
+        f"{work['culled_visits']} culled; the mirror k5_may_hit), "
+        f"{design_evals} by the first design (every pixel of the tile), "
+        f"{evals} inside the faces' bounding boxes: "
+        f"{work['evals'] / max(evals, 1):.2f}x and "
+        f"{design_evals / max(evals, 1):.2f}x the boxes' count")
+    if work["design_evals"] != design_evals:
+        raise AssertionError("K5's counts disagree on the window")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
 

@@ -12,12 +12,14 @@
 
 extern "C" long long goliath_cumsum_scratch_len(long long n);
 extern "C" long long goliath_cumsum_i32_scratch_len(long long n);
+extern "C" long long goliath_cumsum_f32_scratch_len(int n_cols, long long n);
 extern "C" int goliath_cumsum_i32(const int32_t* in, int32_t* out,
                                   unsigned long long* scratch, long long n,
                                   cudaStream_t stream);
 extern "C" int goliath_cumsum_cols_f32(const float* in, float* out,
-                                       float* scratch, int n_cols,
-                                       long long n, cudaStream_t stream);
+                                       unsigned long long* scratch,
+                                       int n_cols, long long n,
+                                       cudaStream_t stream);
 extern "C" int goliath_cumsum_rows_f32(const float* in, float* out,
                                        float* scratch, int n_cols,
                                        long long n, cudaStream_t stream);
@@ -72,19 +74,25 @@ at::Tensor cumsum_i32(const at::Tensor& x) {
   return out;
 }
 
-// Inclusive prefix sums along dim 1 of a [F, M] float32 tensor.
+// Inclusive prefix sums along dim 1 of a [F, M] float32 tensor: one memset
+// of the flag words, then one kernel. The scratch comes from PyTorch's
+// caching allocator on the current stream, so each call has its own.
 at::Tensor cumsum_cols_f32(const at::Tensor& x) {
   check_input(x, at::kFloat, 2, "x");
   const c10::cuda::CUDAGuard guard(x.device());
-  const int64_t n_cols = x.size(0);
+  TORCH_CHECK(x.size(0) <= INT32_MAX, "too many columns");
+  const int n_cols = static_cast<int>(x.size(0));
   const long long n = x.size(1);
   at::Tensor out = at::empty_like(x);
-  at::Tensor scratch = at::empty(
-      {std::max(n_cols * goliath_cumsum_scratch_len(n), 1LL)}, x.options());
+  if (n_cols == 0 || n == 0) return out;
+  at::Tensor scratch =
+      at::empty({goliath_cumsum_f32_scratch_len(n_cols, n)},
+                x.options().dtype(at::kLong));
   check_launch(goliath_cumsum_cols_f32(
                    x.data_ptr<float>(), out.data_ptr<float>(),
-                   scratch.data_ptr<float>(), static_cast<int>(n_cols), n,
-                   at::cuda::getCurrentCUDAStream().stream()),
+                   reinterpret_cast<unsigned long long*>(
+                       scratch.data_ptr<int64_t>()),
+                   n_cols, n, at::cuda::getCurrentCUDAStream().stream()),
                "cumsum_cols_f32");
   return out;
 }
@@ -221,6 +229,8 @@ std::vector<at::Tensor> zbuffer(const at::Tensor& rows,
     TORCH_CHECK(t->device() == rows.device(),
                 "all tensors must share a device");
   TORCH_CHECK(rows.size(1) == 16, "rows must be [R, 16]");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(rows.data_ptr()) % 16 == 0,
+              "rows must start on a 16-byte boundary");
   TORCH_CHECK(sorted_prim.numel() == rows.size(0),
               "sorted_prim must have one entry per row");
   const int64_t n_tiles = tile_start.numel();

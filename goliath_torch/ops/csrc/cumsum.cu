@@ -39,30 +39,68 @@
 // binning's 1M and 3M items the launch and the look-back chain are of the
 // same order.
 //
-// K3 and K7 are the classic three-step float32 scan, with the column as
-// the grid's second axis and the layout as a template flag (kRowMajor
-// false: a column is a contiguous row of [F, n]; true: a column of [n, F],
-// its items F apart), so K3 keeps its unit-stride code and K7 has its own
-// instantiation:
+// K3 is a single pass too (`scan_cols_lookback`): one memset of its flag
+// words, then one kernel that reads each item once and writes it once.
+// Bound: bytes, 4 read + 4 written per item: 0.0751 ms at [10, 3,145,728]
+// (the per-sample training step's reduce, 252 MB) and 0.300 ms at
+// [10, 12,582,912] (the folded step's, 1.0 GB), at 3.35 TB/s.
+//   - Tiles: 4096 items of one column (256 threads x 4 float4 loads), drawn
+//     by an atomic ticket k -> (tile k / F, column k % F), so a tile's
+//     predecessors in its column hold smaller tickets: a block waits only
+//     on blocks that started before it. A row of [F, n] with n not a
+//     multiple of 4 may start unaligned; such a row takes scalar loads.
+//   - In the tile: float32 scans of each thread's float4s, then warp
+//     shuffles, then the 32 (vector, warp) totals by one warp, in a fixed
+//     order; the tile's aggregate A(t) is their float32 total.
+//   - The carry is float64. E(t), the sum of the column's tiles before t,
+//     is defined as the left fold in tile order,
+//       E(t) = ((0 + A(0)) + A(1)) + ... + A(t - 1)   (float64 adds),
+//     and I(t) = E(t) + A(t). Each tile publishes A(t), then I(t), each as
+//     one 64-bit word (two arrays, agg and incl). Look-back: lane l of one
+//     warp reads the flags of tile t - 1 - l (a virtual I(-1) = 0 before
+//     tile 0) until one of the 32 shows I; the nearest such tile a then
+//     gives E(t) = (I(a) + A(a + 1)) + ... + A(t - 1), added one at a time
+//     in increasing tile order (the aggregates of the tiles between a and
+//     t are awaited: they started earlier and publish A without waiting).
+//     At most 31 aggregates are folded, and no stash is needed.
+//   - Why the bits do not depend on timing: A(t) is a function of the
+//     tile's items alone. By induction I(a) is the left fold up to a, so
+//     folding on from it gives the left fold up to t - 1 whichever a the
+//     look-back found: E(t), I(t) and every output, (float)(E(t) +
+//     (double)local prefix), are the same on every call.
+//   - Flag words: the bitwise complement of the double's bits, so the
+//     memset's 0 means "not yet published" (the complement of the NaN
+//     pattern 0xffffffffffffffff); a NaN is published as the canonical
+//     0x7ff8000000000000, so no published word is 0. The ticket counter is
+//     the first word, zeroed by the same memset.
+//   - Precision: a float64 carry does not grow with the chain of 768 (or
+//     3,072) tiles; each output is the float32 tile-local prefix (error a
+//     few ulp of the tile's partial sums) added to E in float64 and rounded
+//     once.
+// K4 keeps its own kernel (int32, one column): sharing would put K3's
+// float64 fold on the binning's path.
+//
+// K7 is the classic three-step float32 scan, with the column as the grid's
+// second axis and the layout as a template flag (kRowMajor false: a column
+// is a contiguous row of [F, n], used by the recursion on the block totals;
+// true: a column of [n, F], its items F apart):
 //   1. scan_blocks: each block scans 4096 items of one column (1024
 //      threads x 4) with warp shuffles and writes its total to scratch;
 //   2. the block totals [F, blocks] are scanned by the same routine
 //      (recursively);
 //   3. add_offsets adds the scanned total of the blocks before each block.
-// Float addition is not associative: K3 adds in this tree order,
-// torch.cumsum in its own, so the two agree to rounding, a few ulp of the
-// largest running sum of the column. Bound: bytes, 4 read + 4 written per
-// item in step 1, plus 4 + 4 in step 3: the [10, 3M] float scan ~500 MB,
-// ~150 us at 3.35 TB/s. K4's single pass would halve that and is left for
-// a later change. K7 reads its columns F items apart, so neighbouring
-// threads do not read neighbouring words: each column's block pulls the
-// same cache lines as the other F - 1 (from L2); a block that scanned all
-// F columns of its rows at once would read each line once.
+// Float addition is not associative: K3 and K7 add in their own orders,
+// torch.cumsum in its own, so they agree to rounding, a few ulp of the
+// largest running sum of the column. K7 reads its columns F items apart,
+// so neighbouring threads do not read neighbouring words: each column's
+// block pulls the same cache lines as the other F - 1 (from L2); a block
+// that scanned all F columns of its rows at once would read each line once.
 //
 // Plain C interface, bound to PyTorch by csrc/bindings.cpp, which
 // allocates the scratch (`goliath_cumsum_scratch_len`,
-// `goliath_cumsum_i32_scratch_len`): the launchers allocate nothing, launch
-// on the given stream and do not synchronise.
+// `goliath_cumsum_f32_scratch_len`, `goliath_cumsum_i32_scratch_len`): the
+// launchers allocate nothing, launch on the given stream and do not
+// synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -328,15 +366,166 @@ extern "C" int goliath_cumsum_i32(const int32_t* in, int32_t* out,
   return (int)cudaGetLastError();
 }
 
-// K3. in/out: [n_cols, n] f32; `scratch` holds at least
-// n_cols * goliath_cumsum_scratch_len(n) floats.
-extern "C" int goliath_cumsum_cols_f32(const float* in, float* out,
-                                       float* scratch, int n_cols,
-                                       long long n, cudaStream_t stream) {
-  return cumsum_cols<false>(in, out, scratch, n_cols, n, stream);
+// ---------------------------------------------------------------------------
+// K3: single-pass float32 column scan, float64 carry folded in tile order
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float warp_incl_scan_f(float x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
 }
 
-// K7. in/out: [n, n_cols] f32, scanned along axis 0; `scratch` as for K3.
+// a published flag word: the complement of the (canonical-NaN) bits
+__device__ __forceinline__ unsigned long long k3_word(double v) {
+  const long long bits =
+      v != v ? 0x7ff8000000000000ll : __double_as_longlong(v);
+  return ~(unsigned long long)bits;
+}
+
+__device__ __forceinline__ double k3_value(unsigned long long w) {
+  return __longlong_as_double((long long)~w);
+}
+
+// scratch: [0] the ticket counter, then agg [n_cols, tiles] and incl
+// [n_cols, tiles] flag words, all zeroed by the launcher's memset. Vector
+// v = j * SP_THREADS + threadIdx.x of the tile holds items [4v, 4v + 4).
+__global__ void __launch_bounds__(SP_THREADS)
+scan_cols_lookback(const float* __restrict__ in, float* __restrict__ out,
+                   unsigned long long* __restrict__ scratch, int n_cols,
+                   long long n, long long tiles) {
+  __shared__ float s_warp[SP_VECS * SP_WARPS];  // [j][warp] exclusive
+  __shared__ unsigned s_ticket;
+  __shared__ double s_prefix;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  if (tid == 0) s_ticket = atomicAdd((unsigned*)scratch, 1u);
+  __syncthreads();
+  const long long tile = s_ticket / (unsigned)n_cols;
+  const int col = (int)(s_ticket % (unsigned)n_cols);
+  volatile unsigned long long* agg =
+      (volatile unsigned long long*)(scratch + 1) + (long long)col * tiles;
+  volatile unsigned long long* incl = agg + (long long)n_cols * tiles;
+  in += (long long)col * n;
+  out += (long long)col * n;
+  const bool vec_ok = (((uintptr_t)in | (uintptr_t)out) & 15) == 0;
+  const long long base = tile * SP_TILE;
+
+  float v[SP_VECS][4];
+#pragma unroll
+  for (int j = 0; j < SP_VECS; ++j) {
+    const long long i0 = base + 4ll * (j * SP_THREADS + tid);
+    if (vec_ok && i0 + 4 <= n) {
+      const float4 q = *reinterpret_cast<const float4*>(in + i0);
+      v[j][0] = q.x; v[j][1] = q.y; v[j][2] = q.z; v[j][3] = q.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[j][k] = i0 + k < n ? in[i0 + k] : 0.0f;
+    }
+  }
+  // each float4 scanned in registers, its total scanned within the warp
+  // (the thread's exclusive prefix by a shuffle, not a subtraction)
+  float wex[SP_VECS];
+#pragma unroll
+  for (int j = 0; j < SP_VECS; ++j) {
+#pragma unroll
+    for (int k = 1; k < 4; ++k) v[j][k] += v[j][k - 1];
+    const float wx = warp_incl_scan_f(v[j][3], lane);
+    const float up = __shfl_up_sync(0xffffffffu, wx, 1);
+    wex[j] = lane > 0 ? up : 0.0f;
+    if (lane == 31) s_warp[j * SP_WARPS + warp] = wx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // the SP_VECS x SP_WARPS totals in vector order (j, then warp)
+    const float incl_f = warp_incl_scan_f(s_warp[lane], lane);
+    const float up = __shfl_up_sync(0xffffffffu, incl_f, 1);
+    s_warp[lane] = lane > 0 ? up : 0.0f;
+    const double a_t = (double)__shfl_sync(0xffffffffu, incl_f, 31);
+    if (lane == 0) agg[tile] = k3_word(a_t);
+    double e_t = 0.0;
+    if (tile > 0) {
+      // look back until one of the 32 nearest predecessors shows I
+      const long long pred = tile - 1 - lane;
+      unsigned long long fi = pred >= 0 ? incl[pred] : k3_word(0.0);
+      unsigned mask;
+      while ((mask = __ballot_sync(0xffffffffu, fi != 0ull)) == 0u)
+        fi = incl[pred];  // every lane has pred >= 0 here
+      const int stop = __ffs(mask) - 1;  // the nearest tile with I
+      // the aggregates of the tiles between it and this one
+      unsigned long long fa = lane < stop ? agg[pred] : 1ull;
+      while (!__all_sync(0xffffffffu, fa != 0ull)) {
+        if (fa == 0ull) fa = agg[pred];
+      }
+      const double a_l = lane < stop ? k3_value(fa) : 0.0;
+      // fold in increasing tile order: lane stop - 1 first, lane 0 last
+      e_t = __shfl_sync(0xffffffffu, k3_value(fi), stop);
+#pragma unroll
+      for (int l = 30; l >= 0; --l) {
+        const double x = __shfl_sync(0xffffffffu, a_l, l);
+        if (l < stop) e_t += x;
+      }
+    }
+    if (lane == 0) {
+      incl[tile] = k3_word(e_t + a_t);
+      s_prefix = e_t;
+    }
+  }
+  __syncthreads();
+  const double e_t = s_prefix;
+#pragma unroll
+  for (int j = 0; j < SP_VECS; ++j) {
+    const float off = s_warp[j * SP_WARPS + warp] + wex[j];
+    float o[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      o[k] = (float)(e_t + (double)(off + v[j][k]));
+    const long long i0 = base + 4ll * (j * SP_THREADS + tid);
+    if (vec_ok && i0 + 4 <= n) {
+      *reinterpret_cast<float4*>(out + i0) = make_float4(o[0], o[1], o[2],
+                                                         o[3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (i0 + k < n) out[i0 + k] = o[k];
+    }
+  }
+}
+
+// 64-bit scratch words K3 needs for n_cols columns of n items: the ticket
+// and two flag words per tile.
+extern "C" long long goliath_cumsum_f32_scratch_len(int n_cols, long long n) {
+  return 1 + 2 * (long long)n_cols * ((n + SP_TILE - 1) / SP_TILE);
+}
+
+// K3. in/out: [n_cols, n] f32; `scratch` holds at least
+// goliath_cumsum_f32_scratch_len(n_cols, n) 64-bit words; the launcher
+// zeroes them with one memset, then launches one kernel. Returns the first
+// CUDA error (0 on success).
+extern "C" int goliath_cumsum_cols_f32(const float* in, float* out,
+                                       unsigned long long* scratch,
+                                       int n_cols, long long n,
+                                       cudaStream_t stream) {
+  if (n <= 0 || n_cols <= 0) return 0;
+  const long long tiles = (n + SP_TILE - 1) / SP_TILE;
+  if (tiles * n_cols > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0,
+      (size_t)goliath_cumsum_f32_scratch_len(n_cols, n) *
+          sizeof(unsigned long long),
+      stream);
+  if (err != cudaSuccess) return (int)err;
+  scan_cols_lookback<<<(unsigned)(tiles * n_cols), SP_THREADS, 0, stream>>>(
+      in, out, scratch, n_cols, n, tiles);
+  return (int)cudaGetLastError();
+}
+
+// K7. in/out: [n, n_cols] f32, scanned along axis 0; `scratch` holds at
+// least n_cols * goliath_cumsum_scratch_len(n) floats.
 extern "C" int goliath_cumsum_rows_f32(const float* in, float* out,
                                        float* scratch, int n_cols,
                                        long long n, cudaStream_t stream) {

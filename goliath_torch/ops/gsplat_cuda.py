@@ -176,18 +176,22 @@ def cumsum_cols_plain(x: torch.Tensor) -> torch.Tensor:
 
 def cumsum_cols(x: torch.Tensor) -> torch.Tensor:
     """F independent inclusive prefix sums along dim 1 of a [F, M] float32
-    tensor (K3 on CUDA tensors).
+    tensor (K3 on CUDA tensors: one memset and one single-pass kernel,
+    csrc/cumsum.cu).
 
-    Float addition is not associative: the kernel adds in its scan tree's
-    order and ``torch.cumsum`` in its own, so the two agree to a few ulp of
-    each row's largest running sum, not bit for bit."""
+    Float addition is not associative: the kernel scans each tile of 4096
+    items in float32 and carries the tiles' totals in float64, in tile
+    order, and ``torch.cumsum`` adds in its own order, so the two agree to
+    a few ulp of each row's largest running sum, not bit for bit. The
+    kernel's own bits are the same on every call."""
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"cumsum_cols takes a [F, M] float32 tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if target_backend(x) == "cpu":
         return cumsum_cols_plain(x)
     out = load_kernels().cumsum_cols_f32(x.contiguous())
-    LAUNCHES["cumsum_cols"] += 1
+    if x.numel():  # the binding launches nothing for an empty input
+        LAUNCHES["cumsum_cols"] += 1
     return out
 
 

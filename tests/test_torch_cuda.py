@@ -7,7 +7,8 @@ imports JAX):
 
 Tolerances: K4 exact (integer scan, wrapping in 32 bits as torch.cumsum);
 K5 exact, face index and depth (the
-same float32 operations, each rounded on its own, in the same order); K1 atol 1e-4 / rtol 1e-4 on color and
+same float32 operations, each rounded on its own, in the same order; its
+cull skips misses only); K3 bit-identical from call to call; K1 atol 1e-4 / rtol 1e-4 on color and
 transmittance (sequential compositing against the plain version's
 per-chunk cumprod, float32) and the processed-block count exact. K3:
 2e-6 of each row's largest running sum against a float64 scan, 1e-5
@@ -106,10 +107,11 @@ def test_cumsum1d_wraps_as_torch_cumsum(cuda):
 @pytest.mark.parametrize("f,m", [(1, 1), (3, 4097), (10, 1 << 20),
                                  (2, (1 << 24) + 5)])
 def test_cumsum_cols_kernel_matches_plain(cuda, f, m):
-    """One block, several blocks and three scan levels; every row against
-    a float64 torch.cumsum relative to the row's largest running sum. The
-    float32 torch.cumsum (the plain version) is itself up to ~6e-6 off that
-    reference at 2^24 items, so the two float32 scans are held to 1e-5."""
+    """One tile, several tiles and 4097 tiles of 4096 items; every row
+    against a float64 torch.cumsum relative to the row's largest running
+    sum. The float32 torch.cumsum (the plain version) is itself up to ~6e-6
+    off that reference at 2^24 items, so the two float32 scans are held to
+    1e-5."""
     g = torch.Generator(device=cuda).manual_seed(m)
     x = torch.randn(f, m, generator=g, device=cuda)
     before = dict(gc.LAUNCHES)
@@ -120,6 +122,55 @@ def test_cumsum_cols_kernel_matches_plain(cuda, f, m):
     assert float(((got.double() - ref).abs() / scale).max()) <= 2e-6
     plain = gc.cumsum_cols_plain(x)
     assert float(((got - plain).double().abs() / scale).max()) <= 1e-5
+
+
+def _hold_k3(x):
+    """K3 on x: one launch, held as test_cumsum_cols_kernel_matches_plain
+    holds it."""
+    before = gc.LAUNCHES["cumsum_cols"]
+    got = gc.cumsum_cols(x)
+    assert gc.LAUNCHES["cumsum_cols"] == before + 1
+    ref = torch.cumsum(x.double(), dim=1)
+    scale = ref.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    assert float(((got.double() - ref).abs() / scale).max()) <= 2e-6
+    plain = gc.cumsum_cols_plain(x)
+    assert float(((got - plain).double().abs() / scale).max()) <= 1e-5
+    return got
+
+
+@pytest.mark.parametrize("m", [1, 3, 4095, 4096, 4097, 8190, 3 * 4096 + 2])
+def test_cumsum_cols_at_tile_edges(cuda, m):
+    """Around K3's tile of 4096 items, with rows that start unaligned (m
+    not a multiple of 4: rows 1 and 2 of [3, m] take scalar loads) and an
+    input whose every row starts 4 bytes past a 16-byte boundary."""
+    g = torch.Generator(device=cuda).manual_seed(m + 7)
+    x = torch.randn(3, m, generator=g, device=cuda)
+    _hold_k3(x)
+    shifted = torch.randn(3 * m + 1, generator=g, device=cuda)[1:].view(3, m)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    _hold_k3(shifted)
+
+
+@pytest.mark.parametrize("f,m", [(10, 1 << 20), (2, (1 << 24) + 5)])
+def test_cumsum_cols_is_deterministic(cuda, f, m):
+    """K3 folds its float64 carry in tile order, so its bits do not depend
+    on which predecessor's prefix a tile's look-back found: 20 calls while
+    another stream keeps the card busy with matrix products, all
+    bit-identical to a first call on an idle card."""
+    g = torch.Generator(device=cuda).manual_seed(f * m)
+    x = torch.randn(f, m, generator=g, device=cuda) + 0.25
+    first = _hold_k3(x)
+    torch.cuda.synchronize()
+    a = torch.randn(4096, 4096, generator=g, device=cuda) / 64.0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(40):
+            a = torch.tanh(a @ a)
+    outs = [gc.cumsum_cols(x) for _ in range(20)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert torch.equal(out.view(torch.int32), first.view(torch.int32)), i
 
 
 def _scene(rng, N, H, W, opaque):
@@ -275,19 +326,21 @@ def _mesh_scene(dev, H, W, n_lat, n_lon):
     return v_pix[1].to(dev), torch.from_numpy(vi).to(dev)
 
 
-@pytest.mark.parametrize("mfpt,chunk,ts", [
-    (256, 32, 16),   # no overflow
-    (16, 8, 16),     # overflowing tiles: the chunk-aligned window cuts them
-    (64, 32, 32),    # 1024-thread blocks, ragged image edge
+@pytest.mark.parametrize("mfpt,chunk,ts,H,W", [
+    (256, 32, 16, 72, 100),   # no overflow
+    (16, 8, 16, 72, 100),     # overflowing tiles: the chunk-aligned window
+    (64, 32, 32, 72, 100),    # 1024-thread blocks, ragged image edge
+    (64, 32, 8, 72, 100),     # tile 8: two warps of 8x4 a tile
+    (64, 32, 16, 61, 93),     # ragged image edges at tile 16
+    (64, 16, 12, 61, 93),     # tile 12: row order, a partial last warp
 ])
-def test_zbuffer_kernel_matches_plain(cuda, mfpt, chunk, ts):
+def test_zbuffer_kernel_matches_plain(cuda, mfpt, chunk, ts, H, W):
     """K5 against its plain version on the same face rows: the face index
     and the depth equal bit for bit (both round each product and sum on its
-    own, in the TPU kernel's order)."""
+    own, in the TPU kernel's order; the kernel's cull skips misses only)."""
     from goliath_torch.ops import rasterizer as tr
     from goliath_torch.ops import rasterizer_cuda as rc
 
-    H, W = 72, 100
     v_pix, vi = _mesh_scene(cuda, H, W, 16, 32)
     rows, b = tr.bin_faces(v_pix, vi, H, W, ts)
     args = (rows, b.sorted_prim, b.tile_start, b.tile_end, H, W, ts,
@@ -297,10 +350,42 @@ def test_zbuffer_kernel_matches_plain(cuda, mfpt, chunk, ts):
     assert gc.LAUNCHES["zbuffer"] == before["zbuffer"] + 1
     p_idx, p_z = rc.zbuffer_plain(*args)
     torch.cuda.synchronize()
-    assert torch.equal(idx, p_idx) and torch.equal(z, p_z)
+    assert torch.equal(idx, p_idx)
+    assert torch.equal(z.view(torch.int32), p_z.view(torch.int32))
     assert float((idx >= 0).float().mean()) > 0.1
     if mfpt == 16:
         assert int((b.tile_end - b.tile_start).max()) > mfpt
+
+
+@pytest.mark.parametrize("ts", [8, 16, 32])
+def test_zbuffer_kernel_on_slivers_at_full_screen_coordinates(cuda, ts):
+    """K5 against its plain version on random faces and slivers spread
+    over a 2048x1334 screen, where the edge functions round the most: face
+    index and depth bit-equal."""
+    from goliath_torch.ops import rasterizer as tr
+    from goliath_torch.ops import rasterizer_cuda as rc
+
+    H, W, n = 1334, 2048, 400
+    rng = np.random.default_rng(ts)
+    p0 = rng.uniform([0, 0], [W, H], (n, 2))
+    p1 = p0 + rng.normal(0, 20, (n, 2))
+    p2 = p0 + rng.normal(0, 20, (n, 2))
+    p2[::2] = p0[::2] + rng.uniform(0.2, 0.8, (n // 2, 1)) * (
+        p1[::2] - p0[::2]) + rng.normal(0, 0.05, (n // 2, 2))
+    corners = np.stack([p0, p1, p2], 1)
+    z = rng.uniform(1.0, 10.0, (n, 3, 1))
+    v_pix = torch.from_numpy(np.concatenate([corners, z], -1).reshape(
+        -1, 3).astype(np.float32)).to(cuda)
+    vi = torch.arange(3 * n, device=cuda).reshape(n, 3)
+    rows, b = tr.bin_faces(v_pix, vi, H, W, ts)
+    args = (rows, b.sorted_prim, b.tile_start, b.tile_end, H, W, ts,
+            b.num_tiles_x, b.num_tiles_y, 32, 256)
+    idx, z = rc.zbuffer(*args)
+    p_idx, p_z = rc.zbuffer_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, p_idx)
+    assert torch.equal(z.view(torch.int32), p_z.view(torch.int32))
+    assert int((idx >= 0).sum()) > 10_000
 
 
 def test_render_layer_on_the_card_matches_the_cpu(cuda):
