@@ -28,7 +28,9 @@ the final result line:
   6. K3 (float32 column scan, single pass) against torch.cumsum at
      [10, 3,145,728], on random values and on K2's pair gradients, and
      against a float64 scan at the folded step's [10, 12,582,912] on
-     random values; two calls bit-equal; timed at both shapes;
+     random values; two calls bit-equal; timed at both shapes; then K7 on
+     the same pair gradients as [3,145,728, 10] against a float64 scan,
+     20 calls bit-equal;
   7. P1 (the compositor ablation probe, variants of K1): full equal to K1
      bit for bit on the frame, every variant against its plain version on
      small frames, every variant timed on the frame, then
@@ -52,9 +54,14 @@ the final result line:
      against their plain versions on a small frame whose tiles overflow,
      and one run_test frame of configs/rgca_synthetic.yml (use_pallas
      unset) that must take that window alone;
- 12. K7 (float32 row scan) against torch.cumsum(x, 0) at [2,097,152, 10]
-     and at a ragged M, goliath_torch.scripts.profile_reduce.main, and the
-     presort reduce on K7 against the channel-first reduce on K3;
+ 12. K7 (float32 row scan, single pass) against a float64 scan at
+     [2,097,152, 10], a ragged [1,000,003, 10], [3,145,728, 10] and
+     [12,582,912, 10] (and against torch.cumsum(x, 0) at the first two),
+     timed at the three budgets beside the two-transpose route through K3,
+     its device operations a call from the profiler;
+     goliath_torch.scripts.profile_reduce.main, and the presort reduce on
+     K7 against the channel-first reduce on K3 (K7 on the captured frame's
+     pair gradients, with 20 calls bit-equal, runs after phase 6);
  13. the mesh eval path: goliath_torch.scripts.run_test.main on
      configs/mesh_vae.yml at full width (65,536-face sphere, 2048x1334
      image), 3 test frames, counts set to 0 just before and read just
@@ -1687,55 +1694,135 @@ def xla_train_step(gc, torch):
 
 
 # K7 against a float64 scan as K3 (a fraction of each column's largest
-# running sum), and against torch.cumsum(x, 0) within that call's own
-# distance from the float64 scan plus the same (along dim 0 torch.cumsum
-# adds sequentially and drifts further than a scan tree: 6.6e-5 of the
-# running sum at 2^24 rows, tests/test_torch_cuda.py); the presort reduce
-# on K7 against the
-# channel-first reduce on K3: each sum is a difference of two float32
-# prefixes on both routes, so 4 x K3_TOL_F64 of the column's largest
-# running sum
+# running sum, the scan taken along the last dim of a transposed copy:
+# torch.cumsum along dim 0 in float64 takes ~0.6 s a call at 2M rows), and,
+# at the two shapes where it is timed, against torch.cumsum(x, 0) within
+# that call's own distance from the float64 scan plus the same (along dim 0
+# torch.cumsum adds sequentially and drifts further than a scan tree: 6.6e-5
+# of the running sum at 2^24 rows, tests/test_torch_cuda.py); the presort
+# reduce on K7 against the channel-first reduce on K3: each sum is a
+# difference of two float32 prefixes on both routes, so 4 x K3_TOL_F64 of
+# the column's largest running sum
 K7_REDUCE_TOL = 4 * K3_TOL_F64
+K7_DETERMINISM_CALLS = 20
+
+
+def k7_f64_error(torch, got, x):
+    """K7's output against a float64 scan of [M, F] x, as the largest
+    fraction of each column's largest running sum; (that error, the
+    float64 scan [F, M], the scale [F, 1])."""
+    ref = torch.cumsum(x.t().contiguous().double(), 1)
+    scale = ref.abs().amax(1, keepdim=True).clamp(min=1e-30)
+    return float(((got.t().double() - ref).abs() / scale).max()), ref, scale
+
+
+def check_k7_frame(gc, torch, frame):
+    """K7 on the frame's real pair gradients in pre-sort order as
+    [budget, F] (what reduce_presort_pair_grads would scan): against a
+    float64 scan, and 20 calls bit-equal (K7's carry is folded in tile
+    order, as K3's)."""
+    x = frame["presort"].t().contiguous()
+    first = gc.cumsum_rows(x)
+    e64, _, _ = k7_f64_error(torch, first, x)
+    n_diff = 0
+    for _ in range(K7_DETERMINISM_CALLS):
+        n_diff += int((gc.cumsum_rows(x).view(torch.int32)
+                       != first.view(torch.int32)).sum())
+    torch.cuda.synchronize()
+    log(f"K7 {list(x.shape)} the frame's pair gradients (pre-sort order): "
+        f"error as a fraction of each column's largest running sum against "
+        f"a float64 scan {e64:.3e} (tolerance {K3_TOL_F64}); "
+        f"{K7_DETERMINISM_CALLS} more calls differ from the first in "
+        f"{n_diff} entries (bits) of {K7_DETERMINISM_CALLS} x {x.numel()}")
+    if e64 > K3_TOL_F64:
+        raise AssertionError("K7 differs from the float64 scan on the frame's "
+                             "pair gradients")
+    if n_diff:
+        raise AssertionError("K7 gives other bits on another call")
+    return dict(frame_err_f64=e64, frame_shape=list(x.shape))
 
 
 def check_k7(gc, torch, card_line):
-    """K7 against torch.cumsum(x, 0) at [2,097,152, 10] and at a ragged M;
-    then goliath_torch.scripts.profile_reduce.main (its counts reset just
-    before and read just after), and the presort reduce on K7 against the
+    """K7 against a float64 scan at [2,097,152, 10] (profile_reduce's
+    budget), a ragged [1,000,003, 10], [3,145,728, 10] (the per-sample pair
+    budget) and [12,582,912, 10] (the folded one), and against
+    torch.cumsum(x, 0) at the first two; timed at the three budgets beside
+    its bound and the two-transpose route through K3, with its device
+    operations a call from the profiler (one memset and one kernel); then
+    goliath_torch.scripts.profile_reduce.main (its counts reset just before
+    and read just after), and the presort reduce on K7 against the
     channel-first reduce on K3 on profile_reduce's inputs."""
     from goliath_torch.ops import gsplat
     from goliath_torch.scripts import profile_reduce
     from goliath_torch.utils.timing import cuda_ms
 
     gen = torch.Generator(device=DEVICE).manual_seed(7)
-    worst, timing = 0.0, None
-    for M, F in ((2_097_152, 10), (1_000_003, 10)):
+    worst, timing = 0.0, {}
+    for M, F in ((2_097_152, 10), (1_000_003, 10), (3_145_728, 10),
+                 (K3_FOLD_M, 10)):
         x = torch.randn((M, F), generator=gen, device=DEVICE)
         got = gc.cumsum_rows(x)
-        plain = gc.cumsum_rows_plain(x)
-        ref = torch.cumsum(x.double(), 0)
-        torch.cuda.synchronize()
-        scale = ref.abs().amax(0, keepdim=True).clamp(min=1e-30)
-        e64 = float(((got.double() - ref).abs() / scale).max())
-        e32 = float(((got - plain).double().abs() / scale).max())
-        p64 = float(((plain.double() - ref).abs() / scale).max())
-        worst = max(worst, float((got - plain).abs().max()))
+        e64, ref, scale = k7_f64_error(torch, got, x)
+        with_plain = M <= 2_097_152   # torch.cumsum(x, 0): ~0.3 s a call
+        if with_plain:
+            plain = gc.cumsum_rows_plain(x)
+            e32 = float(((got - plain).t().double().abs() / scale).max())
+            p64 = float(((plain.t().double() - ref).abs() / scale).max())
+            worst = max(worst, float((got - plain).abs().max()))
+            del plain
+        del ref, scale
         ms = cuda_ms(lambda: gc.cumsum_rows(x), reps=50)
-        # ~0.3-0.6 s a call along dim 0 (sequential per column)
-        lib_ms = cuda_ms(lambda: torch.cumsum(x, 0), reps=2, warmup=1)
         b_ms, b_by = bound_ms(2 * M * F * 4, M * F)
-        log(f"K7 [{M}, {F}]: error as a fraction of each column's largest "
-            f"running sum: against a float64 scan {e64:.3e} (tolerance "
-            f"{K3_TOL_F64}), against torch.cumsum(x, 0) float32 {e32:.3e} "
-            f"(tolerance: torch.cumsum's own distance from the float64 scan,"
-            f" {p64:.3e}, + {K3_TOL_F64}); {ms:.4f} ms, plain = "
-            f"torch.cumsum(x, 0) {lib_ms:.4f} ms, bound {b_ms:.4f} ms by "
-            f"{b_by} ({2 * M * F * 4} bytes) on {card_line}")
-        if not (e64 <= K3_TOL_F64 and e32 <= p64 + K3_TOL_F64):
-            raise AssertionError(f"K7 differs from torch.cumsum at [{M}, {F}]")
-        if timing is None:
-            timing = dict(ms=ms, plain_ms=lib_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=lib_ms)
+        line = (f"K7 [{M}, {F}]: error as a fraction of each column's "
+                f"largest running sum against a float64 scan {e64:.3e} "
+                f"(tolerance {K3_TOL_F64})")
+        if with_plain:
+            line += (f", against torch.cumsum(x, 0) float32 {e32:.3e} "
+                     f"(tolerance: torch.cumsum's own distance from the "
+                     f"float64 scan, {p64:.3e}, + {K3_TOL_F64})")
+        log(f"{line}; {ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} "
+            f"({2 * M * F * 4} bytes) on {card_line}")
+        if e64 > K3_TOL_F64 or (with_plain and e32 > p64 + K3_TOL_F64):
+            raise AssertionError(f"K7 differs from the float64 scan or "
+                                 f"torch.cumsum at [{M}, {F}]")
+        if M % 1_048_576 == 0:
+            # the yardstick: K3 between two transposes
+            two_t = cuda_ms(lambda: gc.cumsum_cols(
+                x.t().contiguous()).t().contiguous(), reps=20)
+            log(f"K7 [{M}, {F}] timing: {ms:.4f} ms; the two-transpose "
+                f"route (K3 on x.t().contiguous(), transposed back) "
+                f"{two_t:.4f} ms; K7 / bound {ms / b_ms:.2f}")
+            # the kernels line's own keys at profile_reduce's budget
+            sfx = "" if M == 2_097_152 else f"_{M}"
+            timing.update({f"ms{sfx}": ms, f"bound_ms{sfx}": b_ms,
+                           f"two_transpose_ms{sfx}": two_t})
+        if M == 2_097_152:
+            # ~0.3-0.6 s a call along dim 0 (sequential per column)
+            lib_ms = cuda_ms(lambda: torch.cumsum(x, 0), reps=2, warmup=1)
+            log(f"K7 [{M}, {F}]: plain = torch.cumsum(x, 0) {lib_ms:.4f} ms")
+            timing.update(bound_by=b_by, plain_ms=lib_ms, library_ms=lib_ms)
+            # the profiler may miss some of the calls' events (or all of
+            # them), so the check is on what it did see: no operation but
+            # the K7 kernel and a memset, neither more than once a call
+            p_ms, _, p_names = profiled_device_ms(
+                torch, lambda: gc.cumsum_rows(x), 50)
+            if p_ms is None:
+                log("K7 profiled device time: not measured (the profiler "
+                    "saw no device activity)")
+            else:
+                kernels = [k for k in p_names if "scan_rows_lookback" in k]
+                memsets = [k for k in p_names if "Memset" in k]
+                if kernels:   # over the calls whose kernel it recorded
+                    p_ms /= p_names[kernels[0]]
+                log(f"K7 [{M}, {F}] device operations a call (50 calls; "
+                    f"the profiler may miss a few): {p_names}; device time "
+                    f"a call it recorded {p_ms:.4f} ms")
+                if len(kernels) + len(memsets) != len(p_names) \
+                        or len(kernels) > 1 or max(p_names.values()) > 1.0:
+                    raise AssertionError("K7 is not one memset and one "
+                                         "kernel a call")
+            timing["profiled_ms"] = p_ms
+        del x, got
 
     gc.reset_launch_counts()
     profile_reduce.main()
@@ -1747,7 +1834,8 @@ def check_k7(gc, torch, card_line):
     presort = profile_reduce.via_index_copy(sorted_g, perm)
     k7 = gsplat.reduce_presort_pair_grads(presort, offsets, ends)
     k3 = gsplat.reduce_sorted_pair_grads(sorted_g, perm, offsets, ends).T
-    run_max = torch.cumsum(presort.double(), 0).abs().amax(0).float()
+    run_max = torch.cumsum(presort.t().contiguous().double(), 1).abs().amax(
+        1).float()
     err = (k7 - k3).abs().amax(0)
     log(f"presort reduce (K7) vs channel-first reduce (K3), per column: "
         f"max_abs_err {[f'{float(e):.3e}' for e in err]}, largest running "
@@ -1924,6 +2012,7 @@ def main() -> int:
                   frame)
         if "backward_check" in phases:
             phase("k3_check", check_k3, gc, torch, frame)
+            phase("k7_frame", check_k7_frame, gc, torch, frame)
         if "k1_check" in phases:
             phase("p1_probe", p1_probe, gc, torch, seen["k1"], frame,
                   card_line)
@@ -1983,7 +2072,7 @@ def main() -> int:
                   "k6_check:compositor_fwd_fold", "fold_train_path"]),
               "pair_grads_fold": ("K6 bwd", [
                   "k6_check:pair_grads_fold", "fold_train_path"]),
-              "cumsum_rows": ("K7", ["k7_check"]),
+              "cumsum_rows": ("K7", ["k7_check", "k7_frame"]),
               **{f"probe_{v}": (f"P1 {v}", [f"p1_probe:probe_{v}"])
                  for v in gc.PROBE_VARIANTS}}
     verdicts = []

@@ -10,9 +10,10 @@
 #include <c10/cuda/CUDAGuard.h>
 #include <torch/extension.h>
 
-extern "C" long long goliath_cumsum_scratch_len(long long n);
 extern "C" long long goliath_cumsum_i32_scratch_len(long long n);
 extern "C" long long goliath_cumsum_f32_scratch_len(int n_cols, long long n);
+extern "C" long long goliath_cumsum_rows_scratch_len(int n_cols, long long n);
+extern "C" int goliath_cumsum_rows_tile_rows(int n_cols);
 extern "C" int goliath_cumsum_i32(const int32_t* in, int32_t* out,
                                   unsigned long long* scratch, long long n,
                                   cudaStream_t stream);
@@ -21,8 +22,9 @@ extern "C" int goliath_cumsum_cols_f32(const float* in, float* out,
                                        int n_cols, long long n,
                                        cudaStream_t stream);
 extern "C" int goliath_cumsum_rows_f32(const float* in, float* out,
-                                       float* scratch, int n_cols,
-                                       long long n, cudaStream_t stream);
+                                       unsigned long long* scratch,
+                                       int n_cols, long long n,
+                                       cudaStream_t stream);
 extern "C" int goliath_compositor_bwd(
     const float* rows, int feat, int n_chan, const int32_t* tile_start,
     const int32_t* tile_end, const int32_t* tile_cnt, int tiles_per_img,
@@ -97,21 +99,32 @@ at::Tensor cumsum_cols_f32(const at::Tensor& x) {
   return out;
 }
 
-// Inclusive prefix sums along dim 0 of a [M, F] float32 tensor.
+// Inclusive prefix sums along dim 0 of a [M, F] float32 tensor: one memset
+// of the flag words, then one kernel, as cumsum_cols_f32.
 at::Tensor cumsum_rows_f32(const at::Tensor& x) {
   check_input(x, at::kFloat, 2, "x");
   const c10::cuda::CUDAGuard guard(x.device());
+  TORCH_CHECK(x.size(1) <= INT32_MAX, "too many columns");
   const long long n = x.size(0);
-  const int64_t n_cols = x.size(1);
+  const int n_cols = static_cast<int>(x.size(1));
   at::Tensor out = at::empty_like(x);
-  at::Tensor scratch = at::empty(
-      {std::max(n_cols * goliath_cumsum_scratch_len(n), 1LL)}, x.options());
+  if (n_cols == 0 || n == 0) return out;
+  at::Tensor scratch =
+      at::empty({goliath_cumsum_rows_scratch_len(n_cols, n)},
+                x.options().dtype(at::kLong));
   check_launch(goliath_cumsum_rows_f32(
                    x.data_ptr<float>(), out.data_ptr<float>(),
-                   scratch.data_ptr<float>(), static_cast<int>(n_cols), n,
-                   at::cuda::getCurrentCUDAStream().stream()),
+                   reinterpret_cast<unsigned long long*>(
+                       scratch.data_ptr<int64_t>()),
+                   n_cols, n, at::cuda::getCurrentCUDAStream().stream()),
                "cumsum_rows_f32");
   return out;
+}
+
+// The rows of one K7 tile at n_cols columns (its tests' edge sizes).
+int64_t cumsum_rows_tile_rows(int64_t n_cols) {
+  TORCH_CHECK(n_cols >= 1 && n_cols <= INT32_MAX, "n_cols out of range");
+  return goliath_cumsum_rows_tile_rows(static_cast<int>(n_cols));
 }
 
 // rows [R, 8 + C] f32; tile_start/tile_end [n_imgs * ntx * nty] i32 with
@@ -256,6 +269,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K2: tile compositor backward, per-pair gradients");
   m.def("cumsum_rows_f32", &cumsum_rows_f32,
         "K7: inclusive float32 prefix sums along dim 0 of [M, F]");
+  m.def("cumsum_rows_tile_rows", &cumsum_rows_tile_rows,
+        "K7: the rows of one tile at F columns");
   m.def("cumsum_i32", &cumsum_i32, "K4: inclusive int32 prefix sum");
   m.def("compositor_fwd", &compositor_fwd,
         "K1 (K6 with n_imgs > 1, P1 with a variant): tile compositor forward");

@@ -5,21 +5,21 @@
 // (goliath_torch/ops/scatter.py), and replaces the JAX package's
 // ops/gsplat_pallas.py `_cumsum1d_kernel` via `cumsum1d_pl`. K3 and K7 scan
 // F independent float32 columns of n items each: the rows of a contiguous
-// [F, n] array (K3) or the columns of a contiguous [n, F] array (K7). K3
-// (F = 6 + C columns of per-pair gradients, n = the pair budget) serves the
-// per-prim gradient reduce of the compositor backward (goliath_torch/ops/
-// gsplat.py `reduce_sorted_pair_grads`) and the sorted scatter-add; it
-// replaces `_cumsum1d_batched_kernel` via `cumsum_cols_pl` (pallas_call at
-// gsplat_pallas.py:230). K7 (axis 0 of a row-major [M, F] array) serves
-// the presort reduce (goliath_torch/ops/gsplat.py
-// `reduce_presort_pair_grads`, which the render path does not take, as in
-// the JAX package) and goliath_torch/scripts/profile_reduce.py; it replaces
-// `_cumsum_rows_kernel` via `cumsum_rows_pl` (pallas_call at
-// gsplat_pallas.py:98).
+// [F, n] array (K3) or the columns of a contiguous row-major [n, F] array
+// (K7). K3 (F = 6 + C columns of per-pair gradients, n = the pair budget)
+// serves the per-prim gradient reduce of the compositor backward
+// (goliath_torch/ops/gsplat.py `reduce_sorted_pair_grads`) and the sorted
+// scatter-add; it replaces `_cumsum1d_batched_kernel` via `cumsum_cols_pl`
+// (pallas_call at gsplat_pallas.py:230). K7 (axis 0 of [n, F]) serves the
+// presort reduce (goliath_torch/ops/gsplat.py `reduce_presort_pair_grads`,
+// which the render path does not take, as in the JAX package) and
+// goliath_torch/scripts/profile_reduce.py; it replaces `_cumsum_rows_kernel`
+// via `cumsum_rows_pl` (pallas_call at gsplat_pallas.py:98).
 //
 // The TPU kernels walk a sequential grid with an f32 carry in VMEM scratch
 // (exact for integers only below 2^24); the batched one packs all F columns
-// into one block because each sequential grid step pays a DMA latency.
+// into one block because each sequential grid step pays a DMA latency, and
+// the row kernel scans each [block, F] block by a triangular matmul.
 // Hopper blocks run in no order.
 //
 // K4 is a single-pass scan with decoupled look-back (`scan_lookback`): one
@@ -80,143 +80,75 @@
 // K4 keeps its own kernel (int32, one column): sharing would put K3's
 // float64 fold on the binning's path.
 //
-// K7 is the classic three-step float32 scan, with the column as the grid's
-// second axis and the layout as a template flag (kRowMajor false: a column
-// is a contiguous row of [F, n], used by the recursion on the block totals;
-// true: a column of [n, F], its items F apart):
-//   1. scan_blocks: each block scans 4096 items of one column (1024
-//      threads x 4) with warp shuffles and writes its total to scratch;
-//   2. the block totals [F, blocks] are scanned by the same routine
-//      (recursively);
-//   3. add_offsets adds the scanned total of the blocks before each block.
-// Float addition is not associative: K3 and K7 add in their own orders,
-// torch.cumsum in its own, so they agree to rounding, a few ulp of the
-// largest running sum of the column. K7 reads its columns F items apart,
-// so neighbouring threads do not read neighbouring words: each column's
-// block pulls the same cache lines as the other F - 1 (from L2); a block
-// that scanned all F columns of its rows at once would read each line once.
+// K7 is a single pass too (`scan_rows_lookback`): one memset of its flag
+// words, then one kernel that reads each item once and writes it once.
+// Bound: bytes, 4 read + 4 written per item: 0.0501 ms at [2,097,152, 10]
+// (profile_reduce's budget, 168 MB), 0.0751 ms at [3,145,728, 10] (the
+// per-sample pair budget) and 0.300 ms at [12,582,912, 10] (the folded
+// one), at 3.35 TB/s. It reads whole lines: a block that scanned one
+// column would load words F floats apart, each line pulled by F blocks.
+//   - Tiles: R consecutive rows and all the columns of a window (the F
+//     columns when F <= 32, else ceil(F / 32) windows of equal width),
+//     drawn by an atomic ticket k -> (tile k / windows, window k % windows),
+//     so a tile's predecessors in its window hold smaller tickets and a
+//     block waits only on blocks that started before it. With one window a
+//     tile is R * F contiguous floats, read with 16-byte loads when `in`
+//     and `out` start on 16-byte boundaries (R is a multiple of 32, so
+//     every tile does too) and with scalar loads otherwise (x[1:] of an
+//     F = 3 tensor starts 12 bytes in); several windows read row segments
+//     with scalar loads. Any F >= 1: no grid axis per column.
+//   - The block stages the tile in shared memory, flat (row-major) with one
+//     pad word after every 32 (`k7_pad`), so that a warp's stores of the
+//     j-th words of its 32 float4s land in 32 banks.
+//   - Warp w scans the columns w, w + warps, ... of the window, a warp a
+//     column at F = 10: lane l sums a run of K consecutive rows of the
+//     column, a warp scan (shuffles) of the 32 run totals follows, and the
+//     tile's chunks of 32 K rows follow each other with a carry. A warp
+//     owns its column, so no cross-warp pass and no barrier stand between
+//     the scan and the look-back, and the warps look back on their columns
+//     at once. Every add is float64: pass 1 gives the tile's aggregate
+//     A(t, c); after the look-back, pass 2 reads the runs again, repeats
+//     the same adds from E(t, c) on and writes each item's output, rounded
+//     once to float32, in its place in shared memory. K = 32 / 2^a, where 2^a
+//     is the largest power of two (at most 32) that divides the window's
+//     width W: neighbouring lanes' runs then start 32 q words apart with
+//     q = K W / 32 odd, which the pad turns into 32 different banks. K is
+//     halved while one chunk (32 K W items) exceeds K7_TILE_ITEMS (16,384,
+//     66 KB with the pad), and the tile holds as many chunks as fit:
+//     F = 10 takes K = 16, R = 1,536 rows (15,360 items, 63 KB) and 10
+//     warps (64 registers a thread: 3 blocks an SM).
+//   - Why tiles that large: the block's phases (load, pass 1, look-back,
+//     pass 2, store) do not overlap, so the bytes in flight are what the
+//     blocks in their load phase ask for. At [2,097,152, 10] tiles of 512
+//     rows took 0.149 ms, 1,024 rows 0.088 ms, 1,536 rows 0.080 ms and
+//     2,048 rows (2 blocks an SM) 0.082 ms (scripts/time_scans.py, NVIDIA
+//     H100 80GB HBM3 at 700 W; a float32 scan above the runs then).
+//   - The carry is K3's, per column: E(t, c) is the left fold of the
+//     column's tile aggregates in tile order, found by the look-back from
+//     the nearest published inclusive prefix (`fold_lookback`, shared with
+//     K3); one aggregate word and one inclusive word per (tile, column) in
+//     K3's encoding, zeroed by the memset. A(t, c) depends on the tile's
+//     items alone, so every output has the same bits on every call
+//     whatever the timing.
+//   - The block stores the outputs from shared memory with 16-byte stores
+//     (scalar ones where the loads were).
+//   - Precision: float32 inputs are exact in float64, so each output's
+//     error is its one rounding to float32 plus the float64 adds' (K3, whose
+//     tile prefix is float32, is 2-3e-7 of the running sum from a float64
+//     scan; a float32 aggregate here gave 4.7e-7 at [2,097,152, 10] on the
+//     card, its roundings gathered along the chain of 1,366 tiles).
+// K4, K3 and K7 add in their own orders and torch.cumsum in its own, so
+// the float scans agree with it to rounding, a few ulp of the largest
+// running sum of the column.
 //
 // Plain C interface, bound to PyTorch by csrc/bindings.cpp, which
-// allocates the scratch (`goliath_cumsum_scratch_len`,
-// `goliath_cumsum_f32_scratch_len`, `goliath_cumsum_i32_scratch_len`): the
+// allocates the scratch (`goliath_cumsum_i32_scratch_len`,
+// `goliath_cumsum_f32_scratch_len`, `goliath_cumsum_rows_scratch_len`): the
 // launchers allocate nothing, launch on the given stream and do not
 // synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#define SCAN_THREADS 1024
-#define SCAN_ITEMS 4
-#define SCAN_BLOCK (SCAN_THREADS * SCAN_ITEMS)
-
-// `in` and `out` are not __restrict__: the scan of the block totals runs in
-// place (in == out). blockIdx.y is the column of the gridDim.y columns
-// (layout as kRowMajor says); their block totals are gridDim.x apart (a
-// contiguous [F, blocks] array).
-template <bool kRowMajor>
-__global__ void __launch_bounds__(SCAN_THREADS)
-scan_blocks(const float* in, float* out, float* __restrict__ block_sums,
-            long long n) {
-  __shared__ float warp_sums[SCAN_THREADS / 32];
-  const long long col = kRowMajor ? blockIdx.y : (long long)blockIdx.y * n;
-  const long long step = kRowMajor ? gridDim.y : 1;
-  in += col;
-  out += col;
-  const long long base = (long long)blockIdx.x * SCAN_BLOCK;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  // each thread scans SCAN_ITEMS consecutive items in registers. Every
-  // item is read and written by the same thread only, and every read comes
-  // before the barriers below, so in == out is safe.
-  float v[SCAN_ITEMS];
-  float local = 0.0f;
-#pragma unroll
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long idx = base + (long long)tid * SCAN_ITEMS + i;
-    local += (idx < n) ? in[idx * step] : 0.0f;
-    v[i] = local;
-  }
-
-  // inclusive scan of the thread totals within the warp
-  float x = local;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-
-  // inclusive scan of the 32 warp totals by warp 0
-  if (warp == 0) {
-    float s = warp_sums[lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    warp_sums[lane] = s;
-  }
-  __syncthreads();
-
-  const float prefix = (x - local) + (warp > 0 ? warp_sums[warp - 1] : 0.0f);
-#pragma unroll
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long idx = base + (long long)tid * SCAN_ITEMS + i;
-    if (idx < n) out[idx * step] = v[i] + prefix;
-  }
-  if (block_sums != nullptr && tid == 0)
-    block_sums[(long long)blockIdx.y * gridDim.x + blockIdx.x] =
-        warp_sums[SCAN_THREADS / 32 - 1];
-}
-
-template <bool kRowMajor>
-__global__ void __launch_bounds__(SCAN_THREADS)
-add_offsets(float* __restrict__ out, const float* __restrict__ scanned,
-            long long n) {
-  if (blockIdx.x == 0) return;
-  const long long step = kRowMajor ? gridDim.y : 1;
-  out += kRowMajor ? blockIdx.y : (long long)blockIdx.y * n;
-  const float off =
-      scanned[(long long)blockIdx.y * gridDim.x + blockIdx.x - 1];
-  const long long base = (long long)blockIdx.x * SCAN_BLOCK;
-#pragma unroll
-  for (int i = 0; i < SCAN_ITEMS; ++i) {
-    const long long idx = base + (long long)i * SCAN_THREADS + threadIdx.x;
-    if (idx < n) out[idx * step] += off;
-  }
-}
-
-// Scratch items the scan of one column of n items needs: the block totals
-// of every level above the first. F columns need F times as many.
-extern "C" long long goliath_cumsum_scratch_len(long long n) {
-  const long long nb = (n + SCAN_BLOCK - 1) / SCAN_BLOCK;
-  return nb <= 1 ? 0 : nb + goliath_cumsum_scratch_len(nb);
-}
-
-// Inclusive scan of each of the n_cols columns of n items (layout as
-// kRowMajor says) of `in` into `out`, which has the same layout. Returns the
-// first CUDA error of the launches (0 on success).
-template <bool kRowMajor>
-static int cumsum_cols(const float* in, float* out, float* scratch,
-                       int n_cols, long long n, cudaStream_t stream) {
-  if (n <= 0 || n_cols <= 0) return 0;
-  if (n_cols > 65535) return (int)cudaErrorInvalidValue;  // grid y limit
-  const long long nb = (n + SCAN_BLOCK - 1) / SCAN_BLOCK;
-  const dim3 grid((unsigned)nb, (unsigned)n_cols);
-  scan_blocks<kRowMajor><<<grid, SCAN_THREADS, 0, stream>>>(
-      in, out, nb > 1 ? scratch : nullptr, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || nb == 1) return (int)err;
-  // the block totals form a contiguous [n_cols, nb] array
-  const int rec = cumsum_cols<false>(scratch, scratch, scratch + n_cols * nb,
-                                     n_cols, nb, stream);
-  if (rec != 0) return rec;
-  add_offsets<kRowMajor><<<grid, SCAN_THREADS, 0, stream>>>(out, scratch, n);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // K4: single-pass int32 scan with decoupled look-back
@@ -231,10 +163,12 @@ static int cumsum_cols(const float* in, float* out, float* scratch,
 #define SP_AGGREGATE 1ull
 #define SP_INCLUSIVE 2ull
 
-__device__ __forceinline__ unsigned warp_incl_scan(unsigned x, int lane) {
+// a warp's inclusive scan: K4 (unsigned), K3 (float) and K7 (double)
+template <typename T>
+__device__ __forceinline__ T warp_incl_scan(T x, int lane) {
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(0xffffffffu, x, o);
+    const T y = __shfl_up_sync(0xffffffffu, x, o);
     if (lane >= o) x += y;
   }
   return x;
@@ -370,15 +304,6 @@ extern "C" int goliath_cumsum_i32(const int32_t* in, int32_t* out,
 // K3: single-pass float32 column scan, float64 carry folded in tile order
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ float warp_incl_scan_f(float x, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  return x;
-}
-
 // a published flag word: the complement of the (canonical-NaN) bits
 __device__ __forceinline__ unsigned long long k3_word(double v) {
   const long long bits =
@@ -388,6 +313,39 @@ __device__ __forceinline__ unsigned long long k3_word(double v) {
 
 __device__ __forceinline__ double k3_value(unsigned long long w) {
   return __longlong_as_double((long long)~w);
+}
+
+// E(t) of one column for a whole warp (K3 and K7): the left fold in tile
+// order of the aggregates of the tiles before `tile`, from the nearest
+// inclusive prefix among the 32 predecessors the warp reads at a time (a
+// virtual I(-1) = 0 before tile 0). agg and incl are the column's flag
+// words; the tiles between that prefix and this tile started earlier and
+// publish their aggregates without waiting, so the wait ends.
+__device__ __forceinline__ double fold_lookback(
+    const volatile unsigned long long* agg,
+    const volatile unsigned long long* incl, long long tile, int lane) {
+  if (tile == 0) return 0.0;
+  // look back until one of the 32 nearest predecessors shows I
+  const long long pred = tile - 1 - lane;
+  unsigned long long fi = pred >= 0 ? incl[pred] : k3_word(0.0);
+  unsigned mask;
+  while ((mask = __ballot_sync(0xffffffffu, fi != 0ull)) == 0u)
+    fi = incl[pred];  // every lane has pred >= 0 here
+  const int stop = __ffs(mask) - 1;  // the nearest tile with I
+  // the aggregates of the tiles between it and this one
+  unsigned long long fa = lane < stop ? agg[pred] : 1ull;
+  while (!__all_sync(0xffffffffu, fa != 0ull)) {
+    if (fa == 0ull) fa = agg[pred];
+  }
+  const double a_l = lane < stop ? k3_value(fa) : 0.0;
+  // fold in increasing tile order: lane stop - 1 first, lane 0 last
+  double e_t = __shfl_sync(0xffffffffu, k3_value(fi), stop);
+#pragma unroll
+  for (int l = 30; l >= 0; --l) {
+    const double x = __shfl_sync(0xffffffffu, a_l, l);
+    if (l < stop) e_t += x;
+  }
+  return e_t;
 }
 
 // scratch: [0] the ticket counter, then agg [n_cols, tiles] and incl
@@ -434,7 +392,7 @@ scan_cols_lookback(const float* __restrict__ in, float* __restrict__ out,
   for (int j = 0; j < SP_VECS; ++j) {
 #pragma unroll
     for (int k = 1; k < 4; ++k) v[j][k] += v[j][k - 1];
-    const float wx = warp_incl_scan_f(v[j][3], lane);
+    const float wx = warp_incl_scan(v[j][3], lane);
     const float up = __shfl_up_sync(0xffffffffu, wx, 1);
     wex[j] = lane > 0 ? up : 0.0f;
     if (lane == 31) s_warp[j * SP_WARPS + warp] = wx;
@@ -442,34 +400,12 @@ scan_cols_lookback(const float* __restrict__ in, float* __restrict__ out,
   __syncthreads();
   if (warp == 0) {
     // the SP_VECS x SP_WARPS totals in vector order (j, then warp)
-    const float incl_f = warp_incl_scan_f(s_warp[lane], lane);
+    const float incl_f = warp_incl_scan(s_warp[lane], lane);
     const float up = __shfl_up_sync(0xffffffffu, incl_f, 1);
     s_warp[lane] = lane > 0 ? up : 0.0f;
     const double a_t = (double)__shfl_sync(0xffffffffu, incl_f, 31);
     if (lane == 0) agg[tile] = k3_word(a_t);
-    double e_t = 0.0;
-    if (tile > 0) {
-      // look back until one of the 32 nearest predecessors shows I
-      const long long pred = tile - 1 - lane;
-      unsigned long long fi = pred >= 0 ? incl[pred] : k3_word(0.0);
-      unsigned mask;
-      while ((mask = __ballot_sync(0xffffffffu, fi != 0ull)) == 0u)
-        fi = incl[pred];  // every lane has pred >= 0 here
-      const int stop = __ffs(mask) - 1;  // the nearest tile with I
-      // the aggregates of the tiles between it and this one
-      unsigned long long fa = lane < stop ? agg[pred] : 1ull;
-      while (!__all_sync(0xffffffffu, fa != 0ull)) {
-        if (fa == 0ull) fa = agg[pred];
-      }
-      const double a_l = lane < stop ? k3_value(fa) : 0.0;
-      // fold in increasing tile order: lane stop - 1 first, lane 0 last
-      e_t = __shfl_sync(0xffffffffu, k3_value(fi), stop);
-#pragma unroll
-      for (int l = 30; l >= 0; --l) {
-        const double x = __shfl_sync(0xffffffffu, a_l, l);
-        if (l < stop) e_t += x;
-      }
-    }
+    const double e_t = fold_lookback(agg, incl, tile, lane);
     if (lane == 0) {
       incl[tile] = k3_word(e_t + a_t);
       s_prefix = e_t;
@@ -524,10 +460,236 @@ extern "C" int goliath_cumsum_cols_f32(const float* in, float* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K7: single-pass float32 row scan of [n, F], K3's carry per column
+// ---------------------------------------------------------------------------
+
+#define K7_TILE_ITEMS 16384  // the most floats a tile stages
+#define K7_WINDOW_COLS 32    // the most columns of a window
+#define K7_MIN_WARPS 8       // warps that load and store, scanning or not
+#define K7_MAX_WARPS 16
+#define K7_LOADS 8           // float4 loads a thread keeps in flight
+
+// the tile's flat item i in shared memory: one pad word after every 32
+__host__ __device__ __forceinline__ int k7_pad(int i) {
+  return i + (i >> 5);
+}
+
+// The tiling of n rows of n_cols columns (see the note at the top).
+struct K7Tiling {
+  int windows, width;  // column windows and their width (the last narrower)
+  int run, rows;       // K rows a lane scans at once; R rows a tile
+  int warps;
+  long long tiles;     // tiles of R rows
+};
+
+static K7Tiling k7_tiling(int n_cols, long long n) {
+  K7Tiling t;
+  t.windows = (n_cols + K7_WINDOW_COLS - 1) / K7_WINDOW_COLS;
+  t.width = (n_cols + t.windows - 1) / t.windows;
+  t.run = 32;
+  for (int w = t.width; t.run > 1 && w % 2 == 0; w /= 2) t.run /= 2;
+  while (t.run > 1 && 32 * t.run * t.width > K7_TILE_ITEMS) t.run /= 2;
+  t.rows = 32 * t.run * (K7_TILE_ITEMS / (32 * t.run * t.width));
+  const int per_warp = (t.width + K7_MAX_WARPS - 1) / K7_MAX_WARPS;
+  t.warps = (t.width + per_warp - 1) / per_warp;
+  if (t.warps < K7_MIN_WARPS) t.warps = K7_MIN_WARPS;
+  t.tiles = (n + t.rows - 1) / t.rows;
+  return t;
+}
+
+// scratch: [0] the ticket counter, then agg [n_cols, tiles] and incl
+// [n_cols, tiles] flag words, all zeroed by the launcher's memset. Dynamic
+// shared memory: the tile, rows x width floats with their pad words.
+template <int K>
+__global__ void __launch_bounds__(K7_MAX_WARPS * 32)
+scan_rows_lookback(const float* __restrict__ in, float* __restrict__ out,
+                   unsigned long long* __restrict__ scratch, int n_cols,
+                   long long n, long long tiles, int windows, int width,
+                   int rows, bool vec_ok) {
+  extern __shared__ float s_tile[];
+  __shared__ double s_e[K7_WINDOW_COLS];  // A(t, c)
+  __shared__ unsigned s_ticket;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  if (tid == 0) s_ticket = atomicAdd((unsigned*)scratch, 1u);
+  __syncthreads();
+  const long long tile = s_ticket / (unsigned)windows;
+  const int c0 = (int)(s_ticket % (unsigned)windows) * width;
+  const int wc = min(width, n_cols - c0);      // this window's columns
+  const long long r0 = tile * rows;
+  const int nr = (int)min((long long)rows, n - r0);  // rows of the tile
+  const int items = rows * wc;  // staged; rows past n as zeros
+  const bool vec = vec_ok && windows == 1;
+  const int valid = nr * wc;    // with one window: the tile's floats
+
+  // stage the tile
+  if (vec) {
+    const float* src = in + r0 * n_cols;
+    for (int v0 = 0; v0 < items / 4; v0 += K7_LOADS * blockDim.x) {
+      float4 q[K7_LOADS];
+#pragma unroll
+      for (int m = 0; m < K7_LOADS; ++m) {
+        const int i = 4 * (v0 + m * blockDim.x + tid);
+        if (i + 4 <= valid) {
+          q[m] = *reinterpret_cast<const float4*>(src + i);
+        } else {
+          q[m].x = i < valid ? src[i] : 0.0f;
+          q[m].y = i + 1 < valid ? src[i + 1] : 0.0f;
+          q[m].z = i + 2 < valid ? src[i + 2] : 0.0f;
+          q[m].w = i + 3 < valid ? src[i + 3] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < K7_LOADS; ++m) {
+        const int i = 4 * (v0 + m * blockDim.x + tid);
+        if (i < items) {
+          s_tile[k7_pad(i)] = q[m].x;
+          s_tile[k7_pad(i + 1)] = q[m].y;
+          s_tile[k7_pad(i + 2)] = q[m].z;
+          s_tile[k7_pad(i + 3)] = q[m].w;
+        }
+      }
+    }
+  } else {
+    for (int i = tid; i < items; i += blockDim.x) {
+      const int r = i / wc;
+      s_tile[k7_pad(i)] =
+          r < nr ? in[(r0 + r) * n_cols + c0 + (i - r * wc)] : 0.0f;
+    }
+  }
+  __syncthreads();
+
+  // pass 1, each warp on its columns: the float64 totals of runs of K
+  // rows a lane, scanned across the warp, chunk after chunk, give A(t, c)
+  volatile unsigned long long* agg =
+      (volatile unsigned long long*)(scratch + 1);
+  volatile unsigned long long* incl = agg + (long long)n_cols * tiles;
+  for (int c = warp; c < wc; c += warps) {
+    double a_t = 0.0;
+    for (int j = 0; j < rows; j += 32 * K) {
+      const int i0 = (j + lane * K) * wc + c;
+      double run = 0.0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) run += (double)s_tile[k7_pad(i0 + k * wc)];
+      a_t += __shfl_sync(0xffffffffu, warp_incl_scan(run, lane), 31);
+    }
+    if (lane == 0) {
+      agg[(long long)(c0 + c) * tiles + tile] = k3_word(a_t);
+      s_e[c] = a_t;
+    }
+  }
+  // the look-back on each of them; then pass 2 writes each item's
+  // (float)(E(t, c) + the float64 prefix of the tile's items up to it) in
+  // its place, the same adds in the same order as pass 1
+  for (int c = warp; c < wc; c += warps) {
+    const long long col = (long long)(c0 + c) * tiles;
+    const double e_t = fold_lookback(agg + col, incl + col, tile, lane);
+    if (lane == 0) incl[col + tile] = k3_word(e_t + s_e[c]);
+    double carry = e_t;
+    for (int j = 0; j < rows; j += 32 * K) {
+      const int i0 = (j + lane * K) * wc + c;
+      float v[K];
+      double run = 0.0;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        v[k] = s_tile[k7_pad(i0 + k * wc)];
+        run += (double)v[k];
+      }
+      const double wx = warp_incl_scan(run, lane);
+      const double up = __shfl_up_sync(0xffffffffu, wx, 1);
+      double acc = carry + (lane > 0 ? up : 0.0);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        acc += (double)v[k];
+        s_tile[k7_pad(i0 + k * wc)] = (float)acc;
+      }
+      carry += __shfl_sync(0xffffffffu, wx, 31);
+    }
+  }
+  __syncthreads();
+
+  // store the outputs as the items were staged
+  if (vec) {
+    float* dst = out + r0 * n_cols;
+    for (int v = tid; 4 * v < valid; v += blockDim.x) {
+      const int i = 4 * v;
+      if (i + 4 <= valid) {
+        *reinterpret_cast<float4*>(dst + i) =
+            make_float4(s_tile[k7_pad(i)], s_tile[k7_pad(i + 1)],
+                        s_tile[k7_pad(i + 2)], s_tile[k7_pad(i + 3)]);
+      } else {
+        for (int k = 0; i + k < valid; ++k) dst[i + k] = s_tile[k7_pad(i + k)];
+      }
+    }
+  } else {
+    for (int i = tid; i < nr * wc; i += blockDim.x) {
+      const int r = i / wc;
+      out[(r0 + r) * n_cols + c0 + (i - r * wc)] = s_tile[k7_pad(i)];
+    }
+  }
+}
+
+// 64-bit scratch words K7 needs for n rows of n_cols columns: the ticket
+// and two flag words per (tile, column).
+extern "C" long long goliath_cumsum_rows_scratch_len(int n_cols, long long n) {
+  if (n <= 0 || n_cols <= 0) return 1;
+  return 1 + 2 * (long long)n_cols * k7_tiling(n_cols, n).tiles;
+}
+
+// R, the rows of one K7 tile at n_cols columns.
+extern "C" int goliath_cumsum_rows_tile_rows(int n_cols) {
+  return n_cols > 0 ? k7_tiling(n_cols, 1).rows : 0;
+}
+
+template <int K>
+static cudaError_t launch_scan_rows(const float* in, float* out,
+                                    unsigned long long* scratch, int n_cols,
+                                    long long n, const K7Tiling& t,
+                                    bool vec_ok, cudaStream_t stream) {
+  const size_t smem = (size_t)k7_pad(t.rows * t.width) * sizeof(float);
+  if (smem > 48 * 1024) {  // above the default limit of dynamic shared
+    const cudaError_t err = cudaFuncSetAttribute(
+        scan_rows_lookback<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  scan_rows_lookback<K>
+      <<<(unsigned)(t.tiles * t.windows), t.warps * 32, smem, stream>>>(
+          in, out, scratch, n_cols, n, t.tiles, t.windows, t.width, t.rows,
+          vec_ok);
+  return cudaGetLastError();
+}
+
 // K7. in/out: [n, n_cols] f32, scanned along axis 0; `scratch` holds at
-// least n_cols * goliath_cumsum_scratch_len(n) floats.
+// least goliath_cumsum_rows_scratch_len(n_cols, n) 64-bit words; the
+// launcher zeroes them with one memset, then launches one kernel. Returns
+// the first CUDA error (0 on success).
 extern "C" int goliath_cumsum_rows_f32(const float* in, float* out,
-                                       float* scratch, int n_cols,
-                                       long long n, cudaStream_t stream) {
-  return cumsum_cols<true>(in, out, scratch, n_cols, n, stream);
+                                       unsigned long long* scratch,
+                                       int n_cols, long long n,
+                                       cudaStream_t stream) {
+  if (n <= 0 || n_cols <= 0) return 0;
+  const K7Tiling t = k7_tiling(n_cols, n);
+  if (t.tiles * t.windows > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaMemsetAsync(
+      scratch, 0,
+      (size_t)goliath_cumsum_rows_scratch_len(n_cols, n) *
+          sizeof(unsigned long long),
+      stream);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec_ok = (((uintptr_t)in | (uintptr_t)out) & 15) == 0;
+  switch (t.run) {
+#define K7_CASE(K)                                                          \
+  case K:                                                                   \
+    err = launch_scan_rows<K>(in, out, scratch, n_cols, n, t, vec_ok,       \
+                              stream);                                      \
+    break;
+    K7_CASE(32) K7_CASE(16) K7_CASE(8) K7_CASE(4) K7_CASE(2) K7_CASE(1)
+#undef K7_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
 }

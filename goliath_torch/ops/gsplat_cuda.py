@@ -33,8 +33,9 @@ are unchanged.
 * K4 ``cumsum1d`` (``csrc/cumsum.cu``, a single-pass scan with decoupled
   look-back) replaces ``_cumsum1d_kernel`` / ``cumsum1d_pl``. Plain
   version: ``torch.cumsum(dtype=int32)``.
-* K7 ``cumsum_rows`` (``csrc/cumsum.cu``, K3's scan over the columns of a
-  row-major [M, F]) replaces ``_cumsum_rows_kernel`` / ``cumsum_rows_pl``.
+* K7 ``cumsum_rows`` (``csrc/cumsum.cu``, a single-pass scan of the
+  columns of a row-major [M, F], tiles of whole rows summed in float64,
+  K3's float64 carry per column) replaces ``_cumsum_rows_kernel`` / ``cumsum_rows_pl``.
   Plain version: ``torch.cumsum(x.float(), 0)``.
 * P1 ``probe_fwd`` (``csrc/compositor_fwd.cu``, compile-time variants of
   K1) replaces the kernel variants of scripts/probe_kernel.py. Plain
@@ -206,15 +207,22 @@ def cumsum_rows_plain(x: torch.Tensor) -> torch.Tensor:
 
 def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
     """Inclusive prefix sum along dim 0 of a [M, F] float32 tensor, each of
-    the F columns on its own (K7 on CUDA tensors; the counterpart of
-    ``cumsum_rows_pl``). Agrees with ``torch.cumsum`` to rounding, as K3."""
+    the F columns on its own (K7 on CUDA tensors: one memset and one
+    single-pass kernel, csrc/cumsum.cu; the counterpart of
+    ``cumsum_rows_pl``).
+
+    The kernel sums each tile of whole rows in float64 and carries the
+    tiles' totals in float64, in tile order, as K3 does: each output is
+    rounded once to float32, it agrees with ``torch.cumsum`` to rounding,
+    and its own bits are the same on every call."""
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f"cumsum_rows takes a [M, F] float32 tensor, got "
                          f"{tuple(x.shape)} {x.dtype}")
     if target_backend(x) == "cpu":
         return cumsum_rows_plain(x)
     out = load_kernels().cumsum_rows_f32(x.contiguous())
-    LAUNCHES["cumsum_rows"] += 1
+    if x.numel():  # the binding launches nothing for an empty input
+        LAUNCHES["cumsum_rows"] += 1
     return out
 
 

@@ -17,8 +17,10 @@ against the float32 torch.cumsum (float32 sums in other orders over up to
 largest entry (the same float32 sums over a tile's pixels in other orders;
 the suffix-from-total identity cancels terms as large as the column's
 largest). K6 (K1 and K2 with an image axis) and the XLA block window of K1
-and K2: as K1 and K2. K7: as K3. P1: ``full`` equal to K1 bit for bit, the
-other variants as K1 against their plain versions. Gradients of render on
+and K2: as K1 and K2. K7: as K3 against a float64 scan, against
+torch.cumsum(x, 0) within that call's own distance from the float64 scan
+plus 2e-6, and bit-identical from call to call. P1: ``full`` equal to K1
+bit for bit, the other variants as K1 against their plain versions. Gradients of render on
 the card against the CPU: rtol 1e-3 with atol 1e-3 of each gradient's
 largest entry. The mesh RenderLayer on the card
 against the CPU: the same coverage, the same face on >= 99.9% of the
@@ -533,26 +535,87 @@ def test_xla_window_kernels_match_plain(cuda, maxpp, chunk, ts):
                                                 "pair_grads_xla": 1}
 
 
-@pytest.mark.parametrize("m,f", [(1, 10), (4097, 10), (1000003, 3),
-                                 ((1 << 24) + 5, 2)])
-def test_cumsum_rows_kernel_matches_plain(cuda, m, f):
-    """K7 on ragged M, one to three scan levels, against a float64 scan
-    (2e-6 of each column's largest running sum) and against the float32
-    torch.cumsum(x, 0), its plain version, within that version's own
-    distance from the float64 scan plus 2e-6: along dim 0 torch.cumsum
-    adds sequentially and drifts further (6.6e-5 of the running sum at
-    2^24 rows on the card) than K7's scan tree."""
-    g = torch.Generator(device=cuda).manual_seed(m)
-    x = torch.randn(m, f, generator=g, device=cuda)
+def _hold_k7(x):
+    """K7 on x: one launch; against a float64 scan (2e-6 of each column's
+    largest running sum, the scan taken along the last dim of a transposed
+    copy) and against the float32 torch.cumsum(x, 0), its plain version,
+    within that version's own distance from the float64 scan plus 2e-6:
+    along dim 0 torch.cumsum adds sequentially and drifts further (6.6e-5
+    of the running sum at 2^24 rows on the card) than K7's tiles."""
     before = gc.LAUNCHES["cumsum_rows"]
     got = gc.cumsum_rows(x)
     assert gc.LAUNCHES["cumsum_rows"] == before + 1
-    ref = torch.cumsum(x.double(), 0)
-    scale = ref.abs().amax(0, keepdim=True).clamp(min=1e-30)
-    assert float(((got.double() - ref).abs() / scale).max()) <= 2e-6
+    assert got.shape == x.shape and got.is_contiguous()
+    ref = torch.cumsum(x.t().contiguous().double(), 1)
+    scale = ref.abs().amax(1, keepdim=True).clamp(min=1e-30)
+    assert float(((got.t().double() - ref).abs() / scale).max()) <= 2e-6
     plain = gc.cumsum_rows_plain(x)
-    own = float(((plain.double() - ref).abs() / scale).max())
-    assert float(((got - plain).double().abs() / scale).max()) <= own + 2e-6
+    own = float(((plain.t().double() - ref).abs() / scale).max())
+    assert float(((got - plain).t().double().abs() / scale).max()) <= (
+        own + 2e-6)
+    return got
+
+
+@pytest.mark.parametrize("m,f", [
+    (1, 10), (4097, 10), (1000003, 3), ((1 << 24) + 5, 2),
+    *[(1, f) for f in (1, 3, 16, 33)],
+    *[(m, f) for f in (1, 3, 10, 16, 33)
+      for m in ("R-1", "R", "R+1", "2R+1")]])
+def test_cumsum_rows_kernel_matches_plain(cuda, m, f):
+    """K7 on ragged M: long chains of tiles (1,000,003 rows at F = 3 and
+    2^24 + 5 at F = 2, past the look-back's window of 32 tiles, with a
+    ragged last tile) and M around its tile of R rows (R depends on F: the
+    binding reports it), at F = 1 (one column a tile of 8 warps), 3, 10 (a
+    warp a column), 16 and 33 (two windows of columns, scalar loads)."""
+    if isinstance(m, str):
+        R = gc.load_kernels().cumsum_rows_tile_rows(f)
+        m = {"R-1": R - 1, "R": R, "R+1": R + 1, "2R+1": 2 * R + 1}[m]
+    g = torch.Generator(device=cuda).manual_seed(m)
+    _hold_k7(torch.randn(m, f, generator=g, device=cuda))
+
+
+def test_cumsum_rows_kernel_on_an_unaligned_row_slice(cuda):
+    """x[1:] of an F = 3 tensor starts 12 bytes past a 16-byte boundary:
+    scalar loads and stores, the same results."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    R = gc.load_kernels().cumsum_rows_tile_rows(3)
+    base = torch.randn(3 * R + 8, 3, generator=g, device=cuda)
+    x = base[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 == 12
+    got = _hold_k7(x)
+    aligned = gc.cumsum_rows(x.clone())
+    assert torch.equal(got.view(torch.int32), aligned.view(torch.int32))
+
+
+@pytest.mark.parametrize("shape", [(0, 10), (7, 0), (0, 0)])
+def test_cumsum_rows_empty_input_launches_nothing(cuda, shape):
+    """No row or no column: an empty result of the input's shape, and no
+    launch counted."""
+    before = gc.LAUNCHES["cumsum_rows"]
+    got = gc.cumsum_rows(torch.empty(shape, device=cuda))
+    assert gc.LAUNCHES["cumsum_rows"] == before
+    assert got.shape == shape and got.is_cuda
+
+
+@pytest.mark.parametrize("m,f", [(3_145_728, 10), ((1 << 24) + 5, 2)])
+def test_cumsum_rows_is_deterministic(cuda, m, f):
+    """K7 folds its float64 carry in tile order, as K3: 20 calls while
+    another stream keeps the card busy with matrix products, all
+    bit-identical to a first call on an idle card."""
+    g = torch.Generator(device=cuda).manual_seed(f * m)
+    x = torch.randn(m, f, generator=g, device=cuda) + 0.25
+    first = _hold_k7(x)
+    torch.cuda.synchronize()
+    a = torch.randn(4096, 4096, generator=g, device=cuda) / 64.0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(40):
+            a = torch.tanh(a @ a)
+    outs = [gc.cumsum_rows(x) for _ in range(20)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert torch.equal(out.view(torch.int32), first.view(torch.int32)), i
 
 
 @pytest.mark.parametrize("opaque,maxpp,chunk,ts", [

@@ -29,17 +29,21 @@ from test_torch_gsplat import _scene
 torch.set_num_threads(1)
 
 
-def test_cumsum_rows_plain_matches_pallas_kernel():
-    x = np.random.RandomState(0).standard_normal((1000, 10)).astype(
+@pytest.mark.parametrize("f", [1, 3, 10, 16])
+@pytest.mark.parametrize("m", [1, 63, 1000])
+def test_cumsum_rows_plain_matches_pallas_kernel(m, f):
+    """M ragged against the JAX kernel's block of 64 (one short block, one
+    block less a row, 15 blocks and a part)."""
+    x = np.random.RandomState(0).standard_normal((m, f)).astype(
         np.float32)
     ref = gsplat_pallas.cumsum_rows_pl(jnp.asarray(x), block=64,
                                        interpret=True)
     got = gsplat_cuda.cumsum_rows(torch.from_numpy(x))
-    assert got.shape == (1000, 10)
+    assert got.shape == (m, f)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5,
                                atol=1e-3)
     with pytest.raises(ValueError, match="float32"):
-        gsplat_cuda.cumsum_rows(torch.zeros(3, 4, dtype=torch.int32))
+        gsplat_cuda.cumsum_rows(torch.zeros(3, f, dtype=torch.int32))
 
 
 def test_reduce_presort_pair_grads_matches_jax_and_the_k3_route():
