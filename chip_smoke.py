@@ -71,10 +71,20 @@ the final result line:
      mesh path's first frame, face index and depth equal bit for bit, with
      the row-pixel evaluations its per-warp cull makes; K4
      against torch.cumsum on the mesh path's six scans, exactly;
- 15. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
-     path at a small size, on the card against the CPU (plain versions) as
-     the small-input reference;
- 16. per kernel (and per mode of a kernel): check result, launches on each
+ 15. the mesh training path: goliath_torch.scripts.run_train.main on
+     configs/mesh_vae.yml at full width (the same data, 7 of the config's
+     10 losses), the config's batch size 4 and 3 steps, counts set to 0
+     just before and read just after: finite losses that move, a gradient
+     in every parameter group, a checkpoint, K5 once per sample and K4
+     twice per render (the summary's 4-sample forward at iteration 0
+     included), step times, peak memory and one profiled step with its
+     busiest backward nodes; then K5 against its plain version on the
+     first step's first sample, bit for bit, and the edge-gradient
+     backward of that sample on the card against the CPU;
+ 16. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+     path and one mesh training step at a small size, on the card against
+     the CPU (plain versions) as the small-input reference;
+ 17. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -826,13 +836,18 @@ class StepProbe:
         step = self._orig(model, loss_fn, optimizer)
 
         def timed(batch, iteration):
+            if len(self.seconds) >= 2 * TRAIN_STEPS:
+                raise AssertionError(
+                    f"{len(self.seconds)} steps taken for {TRAIN_STEPS}: the "
+                    f"loop's explosion check rolled training back")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if len(self.seconds) == self.profile_step:
                 from torch.profiler import ProfilerActivity, profile
 
                 with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
+                                         ProfilerActivity.CUDA],
+                             record_shapes=True) as prof:
                     out = step(batch, iteration)
                     torch.cuda.synchronize()
                 self.profile = prof
@@ -846,30 +861,37 @@ class StepProbe:
         return timed
 
 
+def rgca_config(overrides=()):
+    """configs/rgca.yml on the full-width synthetic data of FULL_DATA."""
+    from goliath_torch.config import load_config
+
+    return load_config(str(ROOT / "configs" / "rgca.yml"), overrides=[
+        f"data={yaml_flow(FULL_DATA)}", *overrides])
+
+
 def run_training(gc, torch, card_line, label, expected, record,
-                 patch=None):
-    """run_train.main at full width (configs/rgca.yml, synthetic data at
-    2048x1334 and uv 1024, batch 4, 3 steps, no resume), counts reset just
-    before and read just after: finite losses that move, a finite, non-zero
-    gradient in every parameter group, a checkpoint, and exactly the launch
-    counts ``expected`` lists (every other kernel 0). ``patch`` (a context
+                 patch=None, make_config=rgca_config):
+    """run_train.main at full width (``make_config``: configs/rgca.yml on
+    synthetic data at 2048x1334 and uv 1024 unless another is given), the
+    config's batch 4, 3 steps, no resume, counts reset just before and read
+    just after: finite losses that move, a finite, non-zero gradient in
+    every parameter group, a checkpoint, and exactly the launch counts
+    ``expected`` lists (every other kernel 0). ``patch`` (a context
     manager) wraps the run. Leaves the step totals in ``record[label]``."""
     import contextlib
 
     from torch.autograd import DeviceType
 
     from goliath_torch import train as train_lib
-    from goliath_torch.config import load_config
     from goliath_torch.scripts import run_train
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
-        cfg = load_config(str(ROOT / "configs" / "rgca.yml"), overrides=[
-            f"data={yaml_flow(FULL_DATA)}", f"train.run_dir={run_dir}",
-            f"train.n_max_iters={TRAIN_STEPS}", "train.resume=false",
-            "train.log_every_n_steps=1"])
+        cfg = make_config([
+            f"train.run_dir={run_dir}", f"train.n_max_iters={TRAIN_STEPS}",
+            "train.resume=false", "train.log_every_n_steps=1"])
         if cfg.dataloader.batch_size != TRAIN_BATCH:
-            raise AssertionError("configs/rgca.yml no longer trains at batch "
-                                 f"{TRAIN_BATCH}")
+            raise AssertionError(f"{label}: the config no longer trains at "
+                                 f"batch {TRAIN_BATCH}")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -922,6 +944,14 @@ def run_training(gc, torch, card_line, label, expected, record,
     nodes.sort(reverse=True)
     log("busiest backward nodes of that step (device ms, calls): " + ", ".join(
         f"{key} {ms:.1f} x{count}" for ms, count, key in nodes[:8]))
+    # the gathers' backward, by the shapes of the node's inputs (the
+    # incoming gradient first), to tell the gathers apart
+    gathers = [(e.device_time_total / 1e3, e.count, e.input_shapes)
+               for e in probe.profile.key_averages(group_by_input_shape=True)
+               if e.key == "IndexBackward0"]
+    gathers.sort(key=lambda r: -r[0])
+    log("IndexBackward0 by input shapes (device ms, calls): " + ", ".join(
+        f"{shapes} {ms:.1f} x{count}" for ms, count, shapes in gathers[:6]))
 
     if iteration != TRAIN_STEPS or len(probe.totals) != TRAIN_STEPS:
         raise AssertionError(f"took {len(probe.totals)} steps, not "
@@ -1033,12 +1063,25 @@ def fold_train_path(gc, torch, card_line, record, captured):
     return launches
 
 
+def grad_error(got, ref):
+    """The largest error of a gradient as a fraction of its parameter's
+    largest |reference| gradient entry, and that parameter's name."""
+    worst, worst_name = 0.0, None
+    for name, r in ref.items():
+        scale = max(float(r.abs().max()), 1e-30)
+        err = float((got[name] - r).abs().max()) / scale
+        if err > worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
 def small_reference(torch):
-    """Phase 11: both RGCA entry points at configs/rgca_synthetic.yml size
-    on the card (kernels) against the CPU (plain versions): the eval means,
-    and two training steps (the losses of the second depend on the first
-    one's update) with the gradients of the first; then the mesh eval path
-    at the size of tests/test_torch_mesh_vae_run_test.py."""
+    """Both RGCA entry points at configs/rgca_synthetic.yml size on the
+    card (kernels) against the CPU (plain versions): the eval means, and
+    two training steps (the losses of the second depend on the first one's
+    update) with the gradients of the first; then the mesh eval path and
+    one mesh training step (its losses and gradients) at the size of
+    tests/test_torch_mesh_vae_run_test.py."""
     import numpy as np
 
     from goliath_torch import train as train_lib
@@ -1067,12 +1110,7 @@ def small_reference(torch):
             runs[device] = (last, probe.grads, probe.totals)
     (got, g_got, t_got), (ref, g_ref, t_ref) = runs[DEVICE], runs["cpu"]
     worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
-    worst_g, worst_name = 0.0, None
-    for name, r in g_ref.items():
-        scale = max(float(r.abs().max()), 1e-30)
-        err = float((g_got[name] - r).abs().max()) / scale
-        if err > worst_g:
-            worst_g, worst_name = err, name
+    worst_g, worst_name = grad_error(g_got, g_ref)
     log(f"small-input training reference (card vs CPU plain): step totals "
         f"{t_got} vs {t_ref}; second step's losses max rel diff {worst:.3e}; "
         f"first step's gradients over {len(g_ref)} parameters: largest error "
@@ -1098,28 +1136,49 @@ def small_reference(torch):
                 np.float32)
         return ds
 
-    cfg = mesh_config(MESH_SMALL)
-    run_test.build_dataset = jittered
+    cfg = mesh_config(MESH_SMALL, MESH_SMALL_DATA)
+    run_test.build_dataset = run_train.build_dataset = jittered
     try:
         got = run_test.main(cfg, device=DEVICE)
         ref = run_test.main(cfg, device="cpu")
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_small_") as d:
+                cfg = mesh_config([*MESH_SMALL, f"train.run_dir={d}",
+                                   "train.n_max_iters=1",
+                                   "train.resume=false"], MESH_SMALL_DATA)
+                with StepProbe(torch, train_lib, keep_grads=True) as probe:
+                    _it, last = run_train.main(cfg, device=device)
+                runs[device] = (last, probe.grads)
     finally:
-        run_test.build_dataset = build
+        run_test.build_dataset = run_train.build_dataset = build
     worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
     log(f"small-input mesh eval reference (card vs CPU plain): means "
         f"{json.dumps(got)}; max rel diff {worst:.3e} (tolerance "
         f"{SMALL_RTOL})")
     if not worst <= SMALL_RTOL:
         raise AssertionError("the card's mesh eval disagrees with the CPU's")
+    (got, g_got), (ref, g_ref) = runs[DEVICE], runs["cpu"]
+    worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
+    worst_g, worst_name = grad_error(g_got, g_ref)
+    log(f"small-input mesh training reference (card vs CPU plain), one "
+        f"step: losses {json.dumps(got)}, max rel diff {worst:.3e}; "
+        f"gradients over {len(g_ref)} parameters: largest error as a "
+        f"fraction of the parameter's largest gradient {worst_g:.3e} "
+        f"({worst_name}) (tolerance {SMALL_RTOL} each)")
+    if not (worst <= SMALL_RTOL and worst_g <= SMALL_RTOL
+            and set(got) == set(ref) and set(g_got) == set(g_ref)):
+        raise AssertionError("the card's mesh training step disagrees with "
+                             "the CPU's")
 
 
 MESH_DATA = {"synthetic": True, "img_h": 2048, "img_w": 1334,
              "uv_size": 1024, "n_lat": 128, "n_lon": 256, "n_cams": 4,
              "n_frames": 3}
 # the small mesh config of tests/test_torch_mesh_vae_run_test.py
+MESH_SMALL_DATA = {"synthetic": True, "img_h": 48, "img_w": 48,
+                   "uv_size": 64, "n_cams": 2, "n_frames": 2, "seed": 2}
 MESH_SMALL = [
-    'test.data={"synthetic": true, "img_h": 48, "img_w": 48, "uv_size": 64, '
-    '"n_cams": 2, "n_frames": 2, "seed": 2}',
     'model.encoder={"n_embs": 16, "enc_size": 64}',
     'model.encoder_face={"n_embs": 8, "enc_size": 32}',
     'model.decoder={"init_uv_size": 16, "n_pose_dims": 6, '
@@ -1137,21 +1196,38 @@ MESH_SMALL = [
 K5_OPS_PER_EVAL = 25
 
 
-def mesh_config(overrides=()):
-    """configs/mesh_vae.yml for run_test on synthetic data: the full-width
-    data of MESH_DATA (or what ``overrides`` set), the 3-joint synthetic
-    skeleton's 6 local pose dims, and the eval losses synthetic data runs
-    (rgb_l1, geom_l2, geom_lap with their schedules; mask_l1 against
-    image_mask: effnet needs weights that are not in the repo, head_geom_l2
-    and head_lap a capture asset, and no segmentation_fgbg is generated)."""
+# the losses of configs/mesh_vae.yml that need what the repo does not hold:
+# effnet EfficientNet weights, head_geom_l2 and head_lap a capture asset
+# (full_head_mask_geom)
+MESH_DROPPED_LOSSES = ("effnet", "head_geom_l2", "head_lap")
+# the synthetic sphere's vertices reach ~100 from its centre; at the
+# encoders' default input scale of 1 the random encoder's logvar reaches
+# ~16, so train=True draws latents of ~1e6 (exp(logvar) * noise), the first
+# step's losses are ~1e9 and jump ~1e3x a step, and the loop's explosion
+# check rolls back to iteration 0 again and again. Scaled by 0.01 the
+# input is ~1, logvar ~0.2 and the losses move by a few percent a step.
+MESH_VERTS_SCALE = 0.01
+
+
+def mesh_config(overrides=(), data=MESH_DATA):
+    """configs/mesh_vae.yml for run_test and run_train on synthetic data:
+    ``data`` (the full-width MESH_DATA unless given) for both, the 3-joint
+    synthetic skeleton's 6 local pose dims, both encoders' input scaled by
+    MESH_VERTS_SCALE, and the config's losses with their schedules and
+    weights but those of MESH_DROPPED_LOSSES (rgb_l1, mask_l1, geom_l2,
+    geom_lap, learn_blur, kl, face_kl), rgb_l1's mask and mask_l1's target
+    being image_mask: no segmentation_fgbg is generated."""
     from goliath_torch.config import Config, load_config
 
     cfg = load_config(str(ROOT / "configs" / "mesh_vae.yml"), overrides=[
-        f"test.data={yaml_flow(MESH_DATA)}", "test.ckpt=null",
-        "test.n_test_frames=3", "test.vis_path=null",
-        "model.decoder.n_pose_dims=6", *overrides])
-    losses = {k: cfg.loss.losses[k]
-              for k in ("rgb_l1", "geom_l2", "geom_lap", "mask_l1")}
+        f"data={yaml_flow(data)}", f"test.data={yaml_flow(data)}",
+        "test.ckpt=null", "test.n_test_frames=3", "test.vis_path=null",
+        "model.decoder.n_pose_dims=6", *overrides,
+        f"model.encoder.verts_scale={MESH_VERTS_SCALE}",
+        f"model.encoder_face.verts_scale={MESH_VERTS_SCALE}"])
+    losses = {k: v for k, v in cfg.loss.losses.to_dict().items()
+              if k not in MESH_DROPPED_LOSSES}
+    losses["rgb_l1"]["mask_key"] = "image_mask"
     losses["mask_l1"]["tgt_key"] = "image_mask"
     cfg.loss.losses = Config.wrap(losses)
     return cfg
@@ -1243,6 +1319,114 @@ def mesh_eval_path(gc, torch, card_line, captured):
     return launches
 
 
+class MeshTrainCapture:
+    """For the duration of a with-block: keeps in ``captured`` the
+    arguments of the first K5 launch of the run (``"k5"``: step 0, sample
+    0) and the inputs and output of the first edge-gradient backward,
+    sample 0 of step 0's batch (``"edge"``), copied to pinned host memory
+    without a synchronise."""
+
+    def __init__(self, torch, captured):
+        from goliath_torch.ops import rasterizer
+
+        self.torch, self.captured = torch, captured
+        self.rasterizer = rasterizer
+        self.orig = rasterizer.zbuffer, rasterizer.edge_grads
+
+    def to_host(self, x):   # pinned memory, no synchronise
+        return x.detach().to("cpu", non_blocking=True) \
+            if isinstance(x, self.torch.Tensor) else x
+
+    def __enter__(self):
+        orig_zb, orig_eg = self.orig
+        captured, to_host = self.captured, self.to_host
+
+        def zb(*args):
+            if "k5" not in captured:
+                captured["k5"] = tuple(to_host(a) for a in args)
+            return orig_zb(*args)
+
+        def eg(g, img, vi, bary_img, index_img, depth_img, n_verts):
+            out = orig_eg(g, img, vi, bary_img, index_img, depth_img,
+                          n_verts)
+            if "edge" not in captured:
+                first = tuple(to_host(a[:1]) for a in (
+                    g, img, bary_img, index_img, depth_img))
+                captured["edge"] = (first, to_host(vi), n_verts,
+                                    to_host(out[:1]))
+            return out
+
+        self.rasterizer.zbuffer, self.rasterizer.edge_grads = zb, eg
+        return self
+
+    def __exit__(self, *exc):
+        self.rasterizer.zbuffer, self.rasterizer.edge_grads = self.orig
+
+
+def mesh_train_path(gc, torch, card_line, record, captured):
+    """run_train.main on configs/mesh_vae.yml at full width (MESH_DATA,
+    mesh_config's losses), batch 4, 3 steps: K5 once per sample of each
+    step and of the summary's train=False forward at iteration 0, K4
+    twice per render, no splat kernel; the first K5 launch's arguments and
+    the first edge-gradient backward kept in ``captured``."""
+    n = TRAIN_BATCH * (TRAIN_STEPS + 1)
+    return run_training(
+        gc, torch, card_line, "mesh train path",
+        dict(zbuffer=n, cumsum1d=2 * n), record,
+        patch=MeshTrainCapture(torch, captured), make_config=mesh_config)
+
+
+# the edge-gradient backward on the card against the CPU, per column (x,
+# y) over the vertices that carry a gradient: rtol of the entry plus a
+# fraction of the column's typical entry (the median |reference|). The
+# card's index_add_ adds each vertex's pair terms atomically in no fixed
+# order, the CPU's in pair order; the terms have both signs.
+EDGE_RTOL, EDGE_ATOL_OF_TYPICAL = 1e-4, 1e-3
+
+
+def check_edge_grads(torch, captured):
+    """``rasterizer.edge_grads`` of the mesh training path's first sample:
+    the run's own output on the card, and a second call on the card from
+    host copies of its inputs, each against the same function on the CPU
+    (plain PyTorch on both; ``index_add_`` atomic on the card)."""
+    from goliath_torch.ops import rasterizer
+    from goliath_torch.utils.timing import cuda_ms
+
+    (g, img, bary, index_img, depth), vi, n_verts, run_out = captured
+    host = (g, img, vi, bary, index_img, depth, n_verts)
+    on_card = tuple(a.to(DEVICE) if isinstance(a, torch.Tensor) else a
+                    for a in host)
+    again = rasterizer.edge_grads(*on_card).cpu()
+    ref = rasterizer.edge_grads(*host)
+    idx = index_img[0]
+    pairs = int((idx[:, 1:] != idx[:, :-1]).sum()
+                + (idx[1:] != idx[:-1]).sum())
+    failed = []
+    for name, got in (("the run's", run_out), ("a second call's", again)):
+        for c, axis in ((0, "x"), (1, "y")):
+            carries = (ref[0, :, c] != 0) | (got[0, :, c] != 0)
+            err, big, typical, n_over, used = entries_over(
+                got[0, :, c], ref[0, :, c], carries, EDGE_RTOL,
+                EDGE_ATOL_OF_TYPICAL)
+            log(f"edge-gradient backward, {name} card output, {axis}: "
+                f"max_abs_err {err:.3e} (largest |ref| {big:.3e}, typical "
+                f"{typical:.3e}, {int(carries.sum())} of {n_verts} vertices "
+                f"carry one; tolerance rtol {EDGE_RTOL} + "
+                f"{EDGE_ATOL_OF_TYPICAL} x typical, {used:.3f} of it used)")
+            if n_over:
+                failed.append(f"{name} {axis}: {n_over} entries")
+        if float(got[0, :, 2].abs().max()) != 0.0:
+            failed.append(f"{name} z is not 0")
+    ms = cuda_ms(lambda: rasterizer.edge_grads(*on_card), reps=10)
+    log(f"edge-gradient backward at {tuple(idx.shape)}, one sample: "
+        f"{pairs} neighbour pairs on two faces or on the background; "
+        f"{ms:.4f} ms on the card (index_add_ and its elementwise ops)")
+    if failed or not float(ref.abs().max()) > 0:
+        raise AssertionError(f"the card's edge-gradient backward disagrees "
+                             f"with the CPU's: {failed}")
+    return dict(max_abs_err=float((run_out - ref).abs().max()), ms=ms)
+
+
 def k4_mesh_check(gc, torch, inputs):
     """K4 on the mesh path's own scans (per frame: the [faces] tile counts
     and the [budget] slot marks) against torch.cumsum, exactly."""
@@ -1298,12 +1482,13 @@ def face_box_evals(rows, start, win_end, ts, ntx, img_h, img_w):
     return int(cnt[ok].sum())
 
 
-def check_k5(gc, torch, args):
-    """K5 against its plain version on the mesh path's first frame (the
-    arguments its rasterize call handed to K5): face index equal on every
-    pixel and depth equal bit for bit; the row-pixel evaluations of its
-    per-warp cull (counted by the plain version's mirror) beside the first
-    design's and those inside the faces' boxes."""
+def check_k5(gc, torch, args, label="K5"):
+    """K5 against its plain version on the arguments a path's rasterize
+    call handed to K5 (the mesh eval path's first frame, the mesh training
+    path's first sample): face index equal on every pixel and depth equal
+    bit for bit; the row-pixel evaluations of its per-warp cull (counted by
+    the plain version's mirror) beside the first design's and those inside
+    the faces' boxes."""
     from goliath_torch.ops import rasterizer_cuda as rc
     from goliath_torch.utils.timing import cuda_ms
 
@@ -1329,7 +1514,7 @@ def check_k5(gc, torch, args):
     evals = face_box_evals(rows, start, win_end, ts, ntx, img_h, img_w)
     nbytes = 64 * in_window + 8 * img_h * img_w
     b_ms, b_by = bound_ms(nbytes, K5_OPS_PER_EVAL * evals)
-    log(f"K5 rows={tuple(rows.shape)} tiles={ntx * nty} ({ntx}x{nty} of "
+    log(f"{label} rows={tuple(rows.shape)} tiles={ntx * nty} ({ntx}x{nty} of "
         f"{ts}px) pairs={int(pairs.sum())} faces per tile: max "
         f"{int(pairs.max())} mean {float(pairs.float().mean()):.2f} "
         f"(mean over non-empty {float(pairs[pairs > 0].float().mean()):.2f});"
@@ -1339,7 +1524,7 @@ def check_k5(gc, torch, args):
         f"{err:.3e}); tolerance: none, both exact")
     if idx_bad or z_bad:
         bad = torch.nonzero(idx != p_idx)[:10].tolist()
-        log(f"K5 first mismatching pixels (y, x): {bad}")
+        log(f"{label} first mismatching pixels (y, x): {bad}")
         raise AssertionError("K5 differs from its plain version")
     if not covered >= MESH_MIN_COVERED:
         raise AssertionError("K5's frame covers too little of the image")
@@ -1347,14 +1532,14 @@ def check_k5(gc, torch, args):
     plain_ms = cuda_ms(lambda: rc.zbuffer_plain(*args), reps=2, warmup=1)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = K5_OPS_PER_EVAL * evals / FP32_OPS_PER_S * 1e3
-    log(f"K5 timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
-        f"ms by {b_by} ({ms / b_ms:.1f}x the bound): bytes {nbytes} "
+    log(f"{label} timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({ms / b_ms:.1f}x the bound): bytes {nbytes} "
         f"({in_window} rows in the windows at 64 B, 8 B per pixel written) "
         f"-> {t_bytes:.4f} ms; operations: {evals} row-pixel evaluations "
         f"inside the faces' bounding boxes at {K5_OPS_PER_EVAL} each -> "
         f"{t_ops:.4f} ms; library: none (no PyTorch call computes a "
         f"z-buffer)")
-    log(f"K5 row-pixel evaluations: {work['evals']} by this design's "
+    log(f"{label} row-pixel evaluations: {work['evals']} by this design's "
         f"per-warp cull ({work['warp_visits']} (row, warp) visits kept, "
         f"{work['culled_visits']} culled; the mirror k5_may_hit), "
         f"{design_evals} by the first design (every pixel of the tile), "
@@ -2040,6 +2225,17 @@ def main() -> int:
         phase("k4_mesh", k4_mesh_check, gc, torch, mesh_inputs["k4"])
     del mesh_inputs
     torch.cuda.empty_cache()
+    mesh_train_inputs = {}
+    phase("mesh_train_path", mesh_train_path, gc, torch, card_line, totals,
+          mesh_train_inputs)
+    if "k5" in mesh_train_inputs:
+        phase("k5_train_check", check_k5, gc, torch,
+              mesh_train_inputs["k5"], "K5 (mesh training, step 0 sample 0)")
+    if "edge" in mesh_train_inputs:
+        phase("edge_grad_check", check_edge_grads, torch,
+              mesh_train_inputs["edge"])
+    del mesh_train_inputs
+    torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
 
     # the phases that return (launches, measurements) of several kernels
@@ -2057,6 +2253,7 @@ def main() -> int:
              "xla_eval": xla_eval,
              "xla_train": xla_train,
              "mesh": phases.get("mesh_eval_path", {}),
+             "mesh_train": phases.get("mesh_train_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check"]),
@@ -2067,7 +2264,7 @@ def main() -> int:
                   "xla_window_check:pair_grads_xla"]),
               "cumsum_cols": ("K3", ["k3_check", "backward_check"]),
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh"]),
-              "zbuffer": ("K5", ["k5_check"]),
+              "zbuffer": ("K5", ["k5_check", "k5_train_check"]),
               "compositor_fwd_fold": ("K6 fwd", [
                   "k6_check:compositor_fwd_fold", "fold_train_path"]),
               "pair_grads_fold": ("K6 bwd", [

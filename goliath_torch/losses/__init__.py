@@ -7,11 +7,11 @@ of a config's ``loss.losses`` section with fixed weights or schedules.
 Ported: every loss the RGCA configs name, for eval and training (rgb_l1,
 rgb_l2, rgb_ssim, psnr, mask_l1, geom_l2, the Laplacian and region geometry
 losses, kl, face_kl, learn_blur, backlit_reg, l2_reg, list_l1_reg,
-bound_primscale, negcolor, primvolsum, alphaprior). The losses of paths not
-ported yet (region_rgb_l1, rgb_l1_focus, rgb_l1_phys, pose_shadow_l2, the
-perceptual losses) are not registered (ROADMAP queue 1); a config naming
-one raises. ``.detach()`` stands where the JAX package has
-``stop_gradient``.
+bound_primscale, negcolor, primvolsum, alphaprior), and mesh_vae's
+pose_shadow_l2. The losses of paths not ported yet (region_rgb_l1,
+rgb_l1_focus, rgb_l1_phys, the perceptual losses) are not registered
+(ROADMAP queue 1); a config naming one raises. ``.detach()`` stands where
+the JAX package has ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -395,6 +395,12 @@ def loss_kl(preds, batch=None, prefix="embs_"):
 @register_loss_by_fn("face_kl")
 def loss_face_kl(preds, batch=None, prefix="face_embs_"):
     return kl_loss(preds[f"{prefix}mu"], preds[f"{prefix}logvar"])
+
+
+@register_loss_by_fn("pose_shadow_l2")
+def pose_to_shadow_l2_loss(preds, batch=None):
+    return torch.mean(
+        (preds["pose_shadow_map"] - preds["shadow_map"].detach()) ** 2)
 
 
 @register_loss_by_fn("bound_primscale")

@@ -1,5 +1,4 @@
-"""Mesh-VAE full-body avatar (port of the JAX package's models/mesh_vae.py,
-the eval forward).
+"""Mesh-VAE full-body avatar (port of the JAX package's models/mesh_vae.py).
 
 The encoder takes the LBS-unposed registration geometry as a UV map and
 gives a body latent plus a face latent from the face UV quadrant; the
@@ -11,11 +10,13 @@ uv -> tex size; the texture is composited (x std + mean, x shadow) with
 seam-correct resampling and rendered with the mesh rasterizer
 (ops/rasterizer.py: binning on K4, the z-buffer K5).
 
-``train=True`` (encoder noise, the distillation target of PoseToShadow) and
-``MeshVAESummary`` wait for the training slice, as does the rasterizer's
-edge-gradient backward (ROADMAP queue 1, mesh_vae training); ``train=True``
-raises. The decoder's up-conv trunk is not recomputed in a backward here
-(the JAX package remats it for training memory).
+``train=True`` adds the encoders' reparameterization noise (drawn from the
+model's generator unless the batch gives ``noise`` / ``face_noise``) and,
+with PoseToShadow, its distillation target ``pose_shadow_map`` beside
+ShadowUNet's ``shadow_map`` (eval takes the distilled map instead). While
+grad is enabled the decoder's up-conv trunk is recomputed in the backward
+(``torch.utils.checkpoint``) instead of keeping its activations, as the
+JAX package remats it. ``MeshVAESummary`` gives the training log's images.
 
 Submodules and parameters carry the flax names (``decoder.conv_block0``,
 ``encoder_face.encoder.joint0``, ``shadow_net.shadow_pred``, ...), so
@@ -32,6 +33,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from goliath_torch.models.base import ModelFacade
 from goliath_torch.nn.blocks import (
@@ -92,7 +94,7 @@ class Encoder(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         S, g = enc_size, generator
-        self.enc_size = S
+        self.n_embs, self.enc_size = n_embs, S
         self.noise_std, self.mean_scale = noise_std, mean_scale
         self.logvar_scale, self.verts_scale = logvar_scale, verts_scale
         mask_t = torch.from_numpy(
@@ -116,8 +118,12 @@ class Encoder(nn.Module):
         self.mu = LinearWN(4 * 4 * last, n_embs, alpha=1.0, generator=g)
         self.logvar = LinearWN(4 * 4 * last, n_embs, alpha=1.0, generator=g)
 
-    def forward(self, verts_unposed_uv: torch.Tensor
+    def forward(self, verts_unposed_uv: torch.Tensor,
+                noise: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
+        """``noise`` [B, n_embs] (standard normal) turns the training
+        reparameterization on: embs = mu + exp(logvar) * noise * noise_std
+        (exp of logvar, not of half of it, as in the JAX package)."""
         B = verts_unposed_uv.shape[0]
         S = self.enc_size
         x = interpolate_bilinear(verts_unposed_uv * self.verts_scale,
@@ -128,7 +134,10 @@ class Encoder(nn.Module):
         x = x.reshape(B, -1)
         embs_mu = self.mean_scale * self.mu(x)
         embs_logvar = self.logvar_scale * self.logvar(x)
-        return dict(embs=embs_mu, embs_mu=embs_mu, embs_logvar=embs_logvar)
+        embs = embs_mu
+        if noise is not None:
+            embs = embs_mu + torch.exp(embs_logvar) * noise * self.noise_std
+        return dict(embs=embs, embs_mu=embs_mu, embs_logvar=embs_logvar)
 
 
 class FaceEncoder(nn.Module):
@@ -143,10 +152,11 @@ class FaceEncoder(nn.Module):
         self.encoder = Encoder(n_embs, face_mask, generator=generator,
                                **enc_kwargs)
 
-    def forward(self, verts_unposed_uv: torch.Tensor
+    def forward(self, verts_unposed_uv: torch.Tensor,
+                noise: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         h = self.uv_size // 2
-        preds = self.encoder(verts_unposed_uv[:, :, h:, :h])
+        preds = self.encoder(verts_unposed_uv[:, :, h:, :h], noise)
         return {f"face_{k}": v for k, v in preds.items()}
 
 
@@ -211,6 +221,11 @@ class ConvDecoder(nn.Module):
         self.tex_conv = Conv2dWNUB(n_ch[-1], 3, uv_size, uv_size, 3, 1, 1,
                                    alpha=1.0, generator=g)
 
+    def _up_trunk(self, x: torch.Tensor) -> torch.Tensor:
+        for b in range(len(self.sizes) - 1):
+            x = getattr(self, f"conv_block{b}")(x)
+        return x
+
     def forward(self, pose: torch.Tensor, embs: torch.Tensor,
                 face_embs: torch.Tensor) -> Dict[str, torch.Tensor]:
         B = pose.shape[0]
@@ -234,8 +249,12 @@ class ConvDecoder(nn.Module):
 
         joint = self.joint_conv_block(torch.cat([pose_conv, embs_conv], 1))
         x = torch.cat([joint, joint], dim=1)
-        for b in range(len(self.sizes) - 1):
-            x = getattr(self, f"conv_block{b}")(x)
+        # the up-conv trunk to uv_size^2 dominates training memory: recompute
+        # it in the backward
+        if torch.is_grad_enabled():
+            x = checkpoint(self._up_trunk, x, use_reentrant=False)
+        else:
+            x = self._up_trunk(x)
 
         x = self.seam_sampler.impaint(x)
         x = self.seam_sampler.resample(x)
@@ -304,6 +323,8 @@ class _MeshVAENet(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         g = generator
+        # source of the training draws (the encoders' noise)
+        self.generator = generator
         self.geo_fn, self.lbs_fn = geo_fn, lbs_fn
         self.seam_sampler, self.seam_sampler_2k = seam_sampler, seam_sampler_2k
         self.renderer = renderer
@@ -352,19 +373,31 @@ class _MeshVAENet(nn.Module):
         iteration: Optional[torch.Tensor] = None,
         encode: bool = True,
         train: bool = False,
+        noise: Optional[torch.Tensor] = None,
+        face_noise: Optional[torch.Tensor] = None,
     ) -> Dict[str, Any]:
-        if train:
-            raise NotImplementedError(
-                "mesh_vae train=True (encoder noise, PoseToShadow "
-                "distillation, the rasterizer's edge gradients) is not "
-                "ported yet (ROADMAP queue 1, mesh_vae training)")
+        """With ``train=True`` the encoders' noise ([B, encoder n_embs] and
+        [B, face encoder n_embs]) is drawn from the model's generator unless
+        ``noise`` / ``face_noise`` give it."""
         enc_preds: Dict[str, torch.Tensor] = {}
         if encode:
+            if train:
+                B, dev = pose.shape[0], pose.device
+                if noise is None:
+                    noise = torch.randn(
+                        (B, self.encoder.n_embs),
+                        generator=self.generator).to(dev)
+                if face_noise is None:
+                    face_noise = torch.randn(
+                        (B, self.encoder_face.encoder.n_embs),
+                        generator=self.generator).to(dev)
+            else:
+                noise = face_noise = None
             verts_unposed = self.lbs_fn.unpose(registration_vertices,
                                                pose).detach()
             verts_unposed_uv = self.geo_fn.to_uv(verts_unposed).detach()
-            enc_preds = {**self.encoder(verts_unposed_uv),
-                         **self.encoder_face(verts_unposed_uv)}
+            enc_preds = {**self.encoder(verts_unposed_uv, noise),
+                         **self.encoder_face(verts_unposed_uv, face_noise)}
             embs = enc_preds["embs"]
             face_embs = enc_preds["face_embs"]
 
@@ -374,10 +407,11 @@ class _MeshVAENet(nn.Module):
                                            campos)
         shadow_preds = self.shadow_net(ambient_occlusion)
         if self.pose_to_shadow is not None:
-            # eval takes the distilled net's shadow map
-            shadow_preds = {**shadow_preds,
-                            "shadow_map": self.pose_to_shadow(pose)[
-                                "shadow_map"]}
+            # training distills ShadowUNet's map into PoseToShadow; eval
+            # takes the distilled net's map
+            p2s_map = self.pose_to_shadow(pose)["shadow_map"]
+            key = "pose_shadow_map" if train else "shadow_map"
+            shadow_preds = {**shadow_preds, key: p2s_map}
 
         tex_mean_rec = dec_preds["tex_mean_rec"]
         tex_view_rec = dec_view_preds["tex_view_rec"]
@@ -582,3 +616,30 @@ class AutoEncoder(ModelFacade):
     def name_to_idx(self, camera_ids) -> torch.Tensor:
         return torch.tensor([self.cameras.index(str(c)) for c in camera_ids],
                             dtype=torch.int32, device=self.device)
+
+
+class MeshVAESummary:
+    """Host-side images for the training log (port of the JAX package's
+    MeshVAESummary): the render and the ground truth through the display
+    curve, and the normals of the rendered depth, as [B, 3, H, W] arrays
+    in [0, 1]."""
+
+    def __call__(self, preds: Dict[str, Any], batch: Dict[str, Any]
+                 ) -> Dict[str, np.ndarray]:
+        from goliath_torch.utils.geom import depth2normals
+        from goliath_torch.utils.image import linear2display
+
+        def host(x):
+            return x.detach().float().cpu().numpy()
+
+        out = {"render": np.clip(host(linear2display(
+            preds["rgb"][:, :3])) / 255.0, 0, 1)}
+        if "image" in batch:
+            out["gt"] = np.clip(host(linear2display(batch["image"])) / 255.0,
+                                0, 1)
+        if "depth" in preds and "focal" in batch:
+            mask = host(preds["depth"]) > 0
+            n = host(depth2normals(preds["depth"], batch["focal"],
+                                   batch["princpt"]))
+            out["normals"] = np.clip((1.0 - n) / 2.0 * mask, 0, 1)
+        return out

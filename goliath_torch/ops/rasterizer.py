@@ -8,9 +8,11 @@
 * ``render_barys``: screen-space barycentrics and perspective-correct depth
   at the rasterized faces, differentiable with respect to the vertices.
 * ``interpolate``: barycentric blend of per-vertex attributes.
-* ``edge_grad_estimator``: the identity on the image in the forward. Its
-  backward (silhouette gradients to the vertices) is not ported yet and
-  raises (ROADMAP queue 1, mesh_vae training).
+* ``edge_grad_estimator``: the identity on the image in the forward; its
+  backward adds the silhouette gradients of neighbouring pixel pairs that
+  lie on different faces to the screen-space x and y of the front face's
+  vertices (``edge_grads``, plain PyTorch as in the JAX package, whose
+  backward is XLA outside any Pallas kernel).
 * ``rasterize_reference``: the exact per-pixel, all-faces oracle.
 * ``RenderLayer``: the facade the models call, one sample at a time.
 
@@ -159,26 +161,85 @@ def interpolate(vert_attrs: torch.Tensor, vi: torch.Tensor,
     return out * (index_img != -1)[None]
 
 
+def _pair_grads(g, img, vi, bary_img, index_img, depth_or_big, V: int,
+                dim: int) -> torch.Tensor:
+    """Silhouette gradient of every pixel pair that neighbours along ``dim``
+    (-1: x, -2: y) of a batch, scattered into the x (or y) of the front
+    face's vertices: [B * (V + 1)], sample b's vertex v at b * (V + 1) + v
+    and its drop slot at b * (V + 1) + V."""
+    n = index_img.shape[dim]
+
+    def a(x):
+        return x.narrow(dim, 0, n - 1)
+
+    def b(x):
+        return x.narrow(dim, 1, n - 1)
+
+    fa, fb = a(index_img), b(index_img)
+    boundary = fa != fb
+    a_front = a(depth_or_big) < b(depth_or_big)   # pixel a's face occludes
+    img_a, img_b, g_a, g_b = a(img), b(img), a(g), b(g)
+    # moving the boundary toward the back pixel replaces back color with
+    # front color there: dL/dpos = <g_back, img_front - img_back>
+    dl_front = torch.where(a_front, (g_b * (img_a - img_b)).sum(1),
+                           -(g_a * (img_b - img_a)).sum(1))
+    dl_front = torch.where(boundary, dl_front, 0.0)
+    front_face = torch.where(a_front, fa, fb)                # [B, h, w]
+    front_bary = torch.where(a_front[:, None], a(bary_img), b(bary_img))
+    contrib = front_bary * dl_front[:, None]                 # [B, 3, h, w]
+    vids = vi[front_face.clamp(0, vi.shape[0] - 1).long()]   # [B, h, w, 3]
+    ok = boundary & (front_face >= 0)
+    vids = torch.where(ok[:, None], vids.permute(0, 3, 1, 2), V)
+    base = torch.arange(vids.shape[0], device=vids.device) * (V + 1)
+    acc = torch.zeros(vids.shape[0] * (V + 1), dtype=contrib.dtype,
+                      device=contrib.device)
+    return acc.index_add_(0, (vids + base[:, None, None, None]).reshape(-1),
+                          contrib.reshape(-1))
+
+
+def edge_grads(g: torch.Tensor, img: torch.Tensor, vi: torch.Tensor,
+               bary_img: torch.Tensor, index_img: torch.Tensor,
+               depth_img: torch.Tensor, n_verts: int) -> torch.Tensor:
+    """The edge-gradient estimator's gradient with respect to v_pix
+    [B, V, 3] (x and y; z is 0) for the image gradient ``g`` [B, C, H, W]
+    (the JAX package's ``_eg_bwd``, per sample there). A pixel pair on
+    different faces gives its front face's vertices (the pixel of the
+    smaller depth, background at BIG_DEPTH, ties to the second pixel) the
+    front face's barycentrics times <g_back, img_front - img_back>; pairs
+    on one face, or whose front is the background, give nothing.
+    ``index_add_`` sums in the order of the pairs on the CPU and
+    atomically (in no fixed order) on the card."""
+    depth_or_big = torch.where(index_img != -1, depth_img, BIG_DEPTH)
+    B, V = img.shape[0], n_verts
+    gx, gy = (_pair_grads(g, img, vi, bary_img, index_img, depth_or_big, V,
+                          dim).view(B, V + 1)[:, :V] for dim in (-1, -2))
+    return torch.stack([gx, gy, torch.zeros_like(gx)], dim=-1)
+
+
 class EdgeGradEstimator(torch.autograd.Function):
-    """The identity on the image; its backward would add the silhouette
-    gradients of the JAX package's ``edge_grad_estimator``."""
+    """The identity on the image; its backward passes the image gradient
+    through and adds the silhouette gradients (``edge_grads``) to v_pix.
+    Nothing flows to the barycentrics, the face index or the depth."""
 
     @staticmethod
-    def forward(ctx, v_pix, bary_img, img, index_img, depth_img):
+    def forward(ctx, v_pix, vi, bary_img, img, index_img, depth_img):
+        ctx.save_for_backward(vi, bary_img, img, index_img, depth_img)
+        ctx.n_verts = v_pix.shape[-2]
         return img.view_as(img)
 
     @staticmethod
     def backward(ctx, g):
-        raise NotImplementedError(
-            "the mesh rasterizer's edge-gradient backward is not ported yet "
-            "(ROADMAP queue 1, mesh_vae training)")
+        vi, bary_img, img, index_img, depth_img = ctx.saved_tensors
+        return (edge_grads(g, img, vi, bary_img, index_img, depth_img,
+                           ctx.n_verts), None, None, g, None, None)
 
 
 def edge_grad_estimator(v_pix, vi, bary_img, img, index_img, depth_img):
-    """The image ``img``, through which a backward would pass silhouette
-    gradients to ``v_pix`` (one sample, or a batch of them)."""
-    del vi  # the backward's face table; unused until it is ported
-    return EdgeGradEstimator.apply(v_pix, bary_img, img, index_img,
+    """The image ``img`` [B, C, H, W], through which the backward passes
+    silhouette gradients to ``v_pix`` [B, V, 3] (``bary_img`` [B, 3, H, W],
+    ``index_img`` and ``depth_img`` [B, H, W]; the JAX package maps its
+    per-sample estimator over the batch)."""
+    return EdgeGradEstimator.apply(v_pix, vi, bary_img, img, index_img,
                                    depth_img)
 
 

@@ -9,7 +9,8 @@ the RGCA and mesh_vae paths use).
   package never imports it.
 * Device-side ops (torch): vertex -> UV transfer (``values_to_uv``, a
   gather and a barycentric lerp), UV -> vertex sampling, vertex normals,
-  view cosines, the depth-discontinuity mask.
+  view cosines, the depth-discontinuity mask, depth -> camera-space XYZ ->
+  normals.
 
 TBN frames, projections and view-texture unprojection come with the paths
 that use them (ROADMAP queue 1).
@@ -262,6 +263,34 @@ def compute_view_cos(verts: torch.Tensor, faces: torch.Tensor,
     v2c = verts - camera_pos[:, None]
     v2c = v2c / torch.linalg.norm(v2c, dim=-1, keepdim=True).clamp(min=1e-12)
     return torch.einsum("bnd,bnd->bn", vn, v2c)
+
+
+def xyz2normals(xyz: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """[B, 3, H, W] XYZ image -> normals by central differences."""
+    pad = torch.nn.functional.pad(xyz, (1, 1, 1, 1))
+    U = (pad[:, :, 2:, 1:-1] - pad[:, :, :-2, 1:-1]) / -2
+    V = (pad[:, :, 1:-1, 2:] - pad[:, :, 1:-1, :-2]) / -2
+    n = torch.linalg.cross(U, V, dim=1)
+    return n / torch.linalg.norm(n, dim=1, keepdim=True).clamp(min=eps)
+
+
+def depth2xyz(depth: torch.Tensor, focal: torch.Tensor,
+              princpt: torch.Tensor) -> torch.Tensor:
+    """[B, 1, H, W] depth and intrinsics (focal [B, 2, 2], princpt [B, 2])
+    -> camera-space XYZ [B, 3, H, W]."""
+    _b, _, h, w = depth.shape
+    ix = (torch.arange(w, dtype=depth.dtype, device=depth.device)[None, None]
+          - princpt[:, None, None, 0]) / focal[:, None, None, 0, 0]
+    iy = (torch.arange(h, dtype=depth.dtype, device=depth.device)[None, :,
+                                                                  None]
+          - princpt[:, None, None, 1]) / focal[:, None, None, 1, 1]
+    return torch.stack([depth[:, 0] * ix, depth[:, 0] * iy, depth[:, 0]],
+                       dim=1)
+
+
+def depth2normals(depth: torch.Tensor, focal: torch.Tensor,
+                  princpt: torch.Tensor) -> torch.Tensor:
+    return xyz2normals(depth2xyz(depth, focal, princpt))
 
 
 def depth_discontinuity_mask(depth: torch.Tensor, threshold: float = 40.0,

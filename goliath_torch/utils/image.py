@@ -1,8 +1,9 @@
 """Image utilities (port of the JAX package's utils/image.py, the part the
-ported losses, summaries and models call: mask morphology, the sRGB curve,
+ported losses, summaries and models call: the color pipeline (linear <->
+sRGB, the mugsy color correction, the display mapping), mask morphology,
 the difference-image remap and the host-side gaussian blur of mesh_vae's
-texture mean). The rest of the color pipeline comes with the paths that
-use it.
+texture mean). The labeled image grids of the visualization scripts come
+with those scripts.
 """
 
 from __future__ import annotations
@@ -11,11 +12,50 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+DEFAULT_WB_SCALE = np.array([1.05, 0.95, 1.45], dtype=np.float32)
+
 
 def linear2srgb(img: torch.Tensor, gamma: float = 2.4) -> torch.Tensor:
     linear_part = img * 12.92
     exp_part = 1.055 * torch.pow(img.clamp(min=0.0031308), 1.0 / gamma) - 0.055
     return torch.where(img <= 0.0031308, linear_part, exp_part)
+
+
+def srgb2linear(img: torch.Tensor, gamma: float = 2.4) -> torch.Tensor:
+    linear_part = img / 12.92
+    exp_part = torch.pow((img.clamp(min=0.04045) + 0.055) / 1.055, gamma)
+    return torch.where(img <= 0.04045, linear_part, exp_part)
+
+
+def linear2color_corr(img: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Ad-hoc mugsy color correction and gamma; ``dim`` is the channel
+    axis."""
+    gamma = 2.0
+    black = 3.0 / 255.0
+    scale_shape = [1] * img.dim()
+    scale_shape[dim] = 3
+    scale = torch.tensor([1.4, 1.1, 1.6], dtype=img.dtype,
+                         device=img.device).reshape(scale_shape)
+    img = img * scale / 1.1
+    return torch.clamp(
+        torch.pow((1.0 / (1 - black)) * 0.95
+                  * torch.clamp(img - black, 0, 2), 1.0 / gamma)
+        - 15.0 / 255.0, 0, 2)
+
+
+def linear2display(val: torch.Tensor, gamma: float = 1.5,
+                   wbscale: np.ndarray = DEFAULT_WB_SCALE,
+                   black: float = 5.0 / 255.0, mode: str = "srgb"
+                   ) -> torch.Tensor:
+    """[B, 3, H, W] raw-linear [0, 255] -> display [0, 255]."""
+    scaling = torch.as_tensor(np.asarray(wbscale, np.float32),
+                              device=val.device)[None, :, None, None]
+    val = val.float() / 255.0 * scaling - black
+    if mode == "srgb":
+        val = linear2srgb(val, gamma=gamma)
+    else:
+        val = torch.pow(val.clamp(min=0.0), 1.0 / gamma)
+    return torch.clamp(val, 0, 1) * 255.0
 
 
 def scale_diff_image(diff_img: torch.Tensor) -> torch.Tensor:

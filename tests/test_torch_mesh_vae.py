@@ -143,15 +143,26 @@ def test_mesh_vae_forward_matches_jax(both):
     assert float(np.abs(np.asarray(ref["learn_blur_weights"])).max()) > 0
 
 
-def test_mesh_vae_rejects_train_and_keeps_flax_names(both):
+def test_mesh_vae_trains_and_keeps_flax_names(both):
+    """train=True runs (the step's parity with JAX is
+    tests/test_torch_mesh_vae_train.py); the config's class names, the
+    device default and the flax parameter names."""
     from goliath_torch.config import load_class
+    from goliath_torch.models.mesh_vae import MeshVAESummary
 
-    ds, batch, jm, tm, _ref, _got = both
-    # configs/mesh_vae.yml names the JAX class; it loads the port's
+    ds, batch, jm, tm, _ref, got = both
+    # configs/mesh_vae.yml names the JAX classes; they load the port's
     assert load_class("goliath_tpu.models.mesh_vae.AutoEncoder") \
         is TAutoEncoder
-    with pytest.raises(NotImplementedError, match="mesh_vae training"):
-        tm.apply(to_device(batch, torch.device("cpu")), train=True)
+    assert load_class("goliath_tpu.models.mesh_vae.MeshVAESummary") \
+        is MeshVAESummary
+    with torch.no_grad():
+        train = tm.apply(to_device(batch, torch.device("cpu")), train=True)
+    assert set(train) == set(got) | {"pose_shadow_map"}
+    assert torch.isfinite(train["rgb"]).all()
+    # noise_std 1: the training latent is drawn around the eval one
+    assert not torch.equal(train["embs"], got["embs"])
+    torch.testing.assert_close(train["embs_mu"], got["embs_mu"])
     if not torch.cuda.is_available():  # the card is the default device
         topo = ds.static_assets.topology
         with pytest.raises(RuntimeError, match="device='cpu'"):
