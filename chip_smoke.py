@@ -81,10 +81,21 @@ the final result line:
      busiest backward nodes; then K5 against its plain version on the
      first step's first sample, bit for bit, and the edge-gradient
      backward of that sample on the card against the CPU;
- 16. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
-     path and one mesh training step at a small size, on the card against
-     the CPU (plain versions) as the small-input reference;
- 17. per kernel (and per mode of a kernel): check result, launches on each
+ 16. the URHand eval path: goliath_torch.scripts.run_test.main on
+     configs/urhand.yml at full width (the same sphere and renderer, uv
+     1024, texture stacks to 2048, 5 lights: 2 x 5 shadow-map light views
+     at 1024x1024 and 3 renders a frame), 3 test frames, counts set to 0
+     just before and read just after (K5 13 and K4 26 a frame): finite
+     losses, every light view and render covered, shadow maps graded,
+     rendered_phys_rgb non-zero, frame times, peak memory and one profiled
+     frame; then K5 against its plain version, bit for bit, on the first
+     light view and on the first render of the run, and K4 against
+     torch.cumsum on the first frame's 26 scans, exactly;
+ 17. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+     path and one mesh training step, and the URHand eval path, at a small
+     size, on the card against the CPU (plain versions) as the small-input
+     reference;
+ 18. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -1081,7 +1092,8 @@ def small_reference(torch):
     two training steps (the losses of the second depend on the first one's
     update) with the gradients of the first; then the mesh eval path and
     one mesh training step (its losses and gradients) at the size of
-    tests/test_torch_mesh_vae_run_test.py."""
+    tests/test_torch_mesh_vae_run_test.py; then the URHand eval path at the
+    size of tests/test_torch_urhand_run_test.py."""
     import numpy as np
 
     from goliath_torch import train as train_lib
@@ -1170,6 +1182,21 @@ def small_reference(torch):
             and set(got) == set(ref) and set(g_got) == set(g_ref)):
         raise AssertionError("the card's mesh training step disagrees with "
                              "the CPU's")
+
+    cfg = urhand_config(URHAND_SMALL, URHAND_SMALL_DATA)
+    run_test.build_dataset = jittered
+    try:
+        got = run_test.main(cfg, device=DEVICE)
+        ref = run_test.main(cfg, device="cpu")
+    finally:
+        run_test.build_dataset = build
+    worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
+    log(f"small-input URHand eval reference (card vs CPU plain): means "
+        f"{json.dumps(got)}; max rel diff {worst:.3e} (tolerance "
+        f"{SMALL_RTOL})")
+    if not (worst <= SMALL_RTOL and set(got) == set(ref)):
+        raise AssertionError("the card's URHand eval disagrees with the "
+                             "CPU's")
 
 
 MESH_DATA = {"synthetic": True, "img_h": 2048, "img_w": 1334,
@@ -1427,21 +1454,22 @@ def check_edge_grads(torch, captured):
     return dict(max_abs_err=float((run_out - ref).abs().max()), ms=ms)
 
 
-def k4_mesh_check(gc, torch, inputs):
-    """K4 on the mesh path's own scans (per frame: the [faces] tile counts
-    and the [budget] slot marks) against torch.cumsum, exactly."""
+def k4_mesh_check(gc, torch, inputs, expected=6, label="mesh"):
+    """K4 on a mesh path's own scans (per render: the [faces] tile counts
+    and the [budget] slot marks; the mesh eval path's 3 frames, or the
+    URHand path's first frame) against torch.cumsum, exactly."""
     worst = 0
     for i, x in enumerate(inputs):
         x = x.to(DEVICE)
         err = int((gc.cumsum1d(x).long()
                    - torch.cumsum(x, 0, dtype=torch.int32).long())
                   .abs().max())
-        log(f"K4 mesh scan {i}: M={x.numel()} total={int(x.long().sum())} "
-            f"max_abs_err={err} (tolerance: none, exact)")
+        log(f"K4 {label} scan {i}: M={x.numel()} total={int(x.long().sum())}"
+            f" max_abs_err={err} (tolerance: none, exact)")
         worst = max(worst, err)
-    if len(inputs) != 6 or worst:
-        raise AssertionError("K4 differs from torch.cumsum on the mesh "
-                             "path's scans")
+    if len(inputs) != expected or worst:
+        raise AssertionError(f"K4 differs from torch.cumsum on the {label} "
+                             f"path's scans (or not {expected} of them)")
     return worst
 
 
@@ -1550,6 +1578,171 @@ def check_k5(gc, torch, args, label="K5"):
         raise AssertionError("K5's counts disagree on the window")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+# URHand (configs/urhand.yml) on the mesh paths' synthetic sphere
+# (MESH_DATA: 65,536 faces, 2048x1334, uv 1024, 5 lights). Cuts, each
+# forced by the synthetic data or the repo: global_scaling 1 (the default
+# 10 puts the sphere's radius of 1,000 around ring cameras at distance
+# 400); pose_enc_dims 12 (the synthetic skeleton's 4 joint triplets; the
+# config's 60 needs the Goliath hand skeleton); effnet and effnet_phys
+# dropped (EfficientNet weights are not in the repo); cal is dropped by
+# run_test itself.
+URHAND_DROPPED_LOSSES = ("effnet", "effnet_phys")
+URHAND_CUTS = ["model.global_scaling=1.0", "model.relight.pose_enc_dims=12"]
+# the small URHand config of tests/test_torch_urhand_run_test.py
+URHAND_SMALL_DATA = {"synthetic": True, "img_h": 48, "img_w": 48,
+                     "uv_size": 32, "n_cams": 2, "n_frames": 2,
+                     "n_lights": 2, "seed": 4}
+URHAND_SMALL = [
+    'model.renderer={"image_height": 48, "image_width": 48, '
+    '"max_faces_per_tile": 128, "chunk": 16}',
+    "model.relight.uv_size=32", "model.relight.init_uv_size=8",
+    "model.relight.disp_enc_dims=[8, 8, 8]", "model.relight.disp_scale=0.3",
+    "model.relight.init_channels=16", "model.shadow_size=32"]
+# URHand renders 2 passes of B x L light views (shadow-map depths, B = 1)
+# and 3 images (rgb, phys, normals) a frame
+URHAND_LIGHTS = 5
+URHAND_K5_PER_FRAME = 2 * URHAND_LIGHTS + 3
+# the share of each light view's shadow map strictly between that map's
+# smallest and largest value: a view whose maps are one value (all lit, all
+# culled) fails
+URHAND_MIN_GRADED = 0.1
+
+
+def urhand_config(overrides=(), data=MESH_DATA):
+    """configs/urhand.yml for run_test on synthetic ``data`` (MESH_DATA
+    unless given), with URHAND_CUTS and the config's losses but
+    URHAND_DROPPED_LOSSES (rgb_l1_focus, rgb_l1_phys, list_l1_reg)."""
+    from goliath_torch.config import Config, load_config
+
+    cfg = load_config(str(ROOT / "configs" / "urhand.yml"), overrides=[
+        f"data={yaml_flow(data)}", f"test.data={yaml_flow(data)}",
+        "test.ckpt=null", "test.n_test_frames=3", "test.vis_path=null",
+        *URHAND_CUTS, *overrides])
+    cfg.loss.losses = Config.wrap({
+        k: v for k, v in cfg.loss.losses.to_dict().items()
+        if k not in URHAND_DROPPED_LOSSES})
+    return cfg
+
+
+def urhand_eval_path(gc, torch, card_line, captured):
+    """run_test.main on configs/urhand.yml at full width (urhand_config),
+    counts reset just before: 3 frames with finite losses; every z-buffer
+    output (10 light views and 3 renders a frame) covering at least
+    MESH_MIN_COVERED of its image (the renders' alpha > 0 is their index
+    image's coverage); rendered_phys_rgb non-zero; each light view's shadow
+    map graded (URHAND_MIN_GRADED); K5 13 and K4 26 times a frame, no
+    splat kernel. Keeps in ``captured`` the run's own K5 arguments of the
+    first light view and of the first render, and the first frame's 26 K4
+    scans (pinned host copies, no synchronise), then profiles the last
+    frame again on the run's model. The checks add a few reductions a
+    frame to the timed frames."""
+    from goliath_torch.models import urhand
+    from goliath_torch.ops import binning, rasterizer
+    from goliath_torch.scripts import run_test
+
+    cfg = urhand_config()
+    n_k5 = URHAND_K5_PER_FRAME
+    frames, covered, graded, phys, k4_inputs, built = [], [], [], [], [], {}
+    orig_zb, orig_cs = rasterizer.zbuffer, binning.cumsum1d
+    orig_sm, orig_build = urhand.get_shadow_map, run_test.load_from_config
+
+    def to_host(x):   # pinned memory, no synchronise
+        return x.to("cpu", non_blocking=True) \
+            if isinstance(x, torch.Tensor) else x
+
+    def zb(*args):
+        if len(covered) == 0:
+            captured["k5_shadow"] = tuple(to_host(a) for a in args)
+        elif len(covered) == 2 * URHAND_LIGHTS:
+            captured["k5_render"] = tuple(to_host(a) for a in args)
+        index_img, z_img = orig_zb(*args)
+        covered.append(((index_img >= 0).sum(), index_img.numel()))
+        return index_img, z_img
+
+    def cs(x):
+        if len(k4_inputs) < 2 * n_k5:
+            k4_inputs.append(to_host(x))
+        return orig_cs(x)
+
+    def shadow_map(*args):
+        sm = orig_sm(*args)
+        v = torch.exp(-sm / 8.0).flatten(1)
+        lo, hi = v.amin(1, keepdim=True), v.amax(1, keepdim=True)
+        graded.append(((v > lo) & (v < hi)).float().mean(1))
+        return sm
+
+    def build(*a, **kw):
+        model = built["model"] = orig_build(*a, **kw)
+        orig_apply = model.apply
+
+        def apply(batch, **akw):
+            built["batch"] = batch   # the frame the loop holds anyway
+            preds = orig_apply(batch, **akw)
+            phys.append(preds["rendered_phys_rgb"].abs().amax())
+            return preds
+
+        model.apply = apply
+        built["orig_apply"] = orig_apply
+        return model
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rasterizer.zbuffer, binning.cumsum1d = zb, cs
+    urhand.get_shadow_map = shadow_map
+    run_test.load_from_config = build
+    gc.reset_launch_counts()
+    try:
+        means = run_test.main(cfg, device=DEVICE, frame_seconds=frames)
+        torch.cuda.synchronize()
+        launches = dict(gc.LAUNCHES)
+    finally:
+        rasterizer.zbuffer, binning.cumsum1d = orig_zb, orig_cs
+        urhand.get_shadow_map = orig_sm
+        run_test.load_from_config = orig_build
+    peak = torch.cuda.max_memory_allocated()
+    captured["k4"] = k4_inputs
+    covered = [int(n) / size for n, size in covered]
+    graded = torch.cat(graded).tolist() if graded else []
+    phys = [float(p) for p in phys]
+    log(f"URHand path launches: {launches}")
+    log(f"URHand eval means: {json.dumps(means)}")
+    for i, sec in enumerate(frames):
+        log(f"URHand frame {i}: wall {sec:.4f} s on {card_line}")
+    log(f"peak device memory (URHand eval): {peak / 2**30:.3f} GiB on "
+        f"{card_line}")
+    for i in range(len(covered) // n_k5):
+        c = covered[i * n_k5:(i + 1) * n_k5]
+        log(f"URHand frame {i}: covered share of the light views "
+            f"{[round(x, 4) for x in c[:-3]]}, of the renders "
+            f"{[round(x, 4) for x in c[-3:]]} (floor {MESH_MIN_COVERED})")
+    log(f"URHand shadow maps: share strictly between each light view's "
+        f"extremes {[round(g, 4) for g in graded]} (floor "
+        f"{URHAND_MIN_GRADED}); largest |rendered_phys_rgb| per frame {phys}")
+    if len(frames) != 3 or not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError("URHand eval losses are not finite")
+    if len(covered) != 3 * n_k5 or not all(c >= MESH_MIN_COVERED
+                                           for c in covered):
+        raise AssertionError("a URHand light view or render covered too "
+                             "little of its image")
+    if len(graded) != 3 * 2 * URHAND_LIGHTS or not all(
+            g >= URHAND_MIN_GRADED for g in graded):
+        raise AssertionError("a URHand light view's shadow map is not graded")
+    if len(phys) != 3 or not all(p > 0 for p in phys):
+        raise AssertionError("rendered_phys_rgb is zero")
+    expected = {name: 0 for name in gc.LAUNCHES}
+    expected.update(zbuffer=3 * n_k5, cumsum1d=3 * 2 * n_k5)
+    if launches != expected:
+        raise AssertionError(f"URHand path launch counts {launches} != "
+                             f"{expected}")
+    model = built.pop("model")
+    model.apply = built.pop("orig_apply")
+    profile_forward(torch, model, built.pop("batch"), card_line,
+                    "profiled URHand frame (forward of the last frame, run "
+                    "again)", train=False)
+    return launches
 
 
 def check_k6(gc, torch, steps):
@@ -2236,6 +2429,22 @@ def main() -> int:
               mesh_train_inputs["edge"])
     del mesh_train_inputs
     torch.cuda.empty_cache()
+    urhand_inputs = {}
+    phase("urhand_eval_path", urhand_eval_path, gc, torch, card_line,
+          urhand_inputs)
+    if "k5_shadow" in urhand_inputs:
+        phase("k5_urhand_shadow", check_k5, gc, torch,
+              urhand_inputs["k5_shadow"],
+              "K5 (URHand frame 0, first light view of the first shadow "
+              "pass)")
+    if "k5_render" in urhand_inputs:
+        phase("k5_urhand_render", check_k5, gc, torch,
+              urhand_inputs["k5_render"], "K5 (URHand frame 0, rgb render)")
+    if "k4" in urhand_inputs:
+        phase("k4_urhand", k4_mesh_check, gc, torch, urhand_inputs["k4"],
+              2 * URHAND_K5_PER_FRAME, "URHand frame 0")
+    del urhand_inputs
+    torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
 
     # the phases that return (launches, measurements) of several kernels
@@ -2254,6 +2463,7 @@ def main() -> int:
              "xla_train": xla_train,
              "mesh": phases.get("mesh_eval_path", {}),
              "mesh_train": phases.get("mesh_train_path", {}),
+             "urhand": phases.get("urhand_eval_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check"]),
@@ -2263,8 +2473,10 @@ def main() -> int:
               "pair_grads_xla": ("K2 xla", [
                   "xla_window_check:pair_grads_xla"]),
               "cumsum_cols": ("K3", ["k3_check", "backward_check"]),
-              "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh"]),
-              "zbuffer": ("K5", ["k5_check", "k5_train_check"]),
+              "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh",
+                                  "k4_urhand"]),
+              "zbuffer": ("K5", ["k5_check", "k5_train_check",
+                                 "k5_urhand_shadow", "k5_urhand_render"]),
               "compositor_fwd_fold": ("K6 fwd", [
                   "k6_check:compositor_fwd_fold", "fold_train_path"]),
               "pair_grads_fold": ("K6 bwd", [

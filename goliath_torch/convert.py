@@ -4,7 +4,12 @@
 Modules here carry the flax names (``encoder.tex0.weight_v``) and layouts:
 linear weights (out, in), conv weights (out, in, kh, kw), transposed-conv
 weights (in, out, kh, kw) and untied biases (C, H, W) are stored alike in
-both packages. So the conversion only flattens the tree.
+both packages. So the conversion only flattens the tree: RGCA's,
+mesh_vae's and URHand's (``decoder_relight`` with its ``geo_refiner``,
+``featenc`` with bias-free ``Conv2dWN``s, which carry no ``bias`` entry in
+either package, ``joint_conv_block_tex``, ``texmod0_*`` / ``texmod1_*`` and
+the two scalars ``global_albedo_scale`` / ``global_scale``; ``cal`` when
+present).
 """
 
 from __future__ import annotations

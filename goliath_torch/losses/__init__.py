@@ -7,10 +7,10 @@ of a config's ``loss.losses`` section with fixed weights or schedules.
 Ported: every loss the RGCA configs name, for eval and training (rgb_l1,
 rgb_l2, rgb_ssim, psnr, mask_l1, geom_l2, the Laplacian and region geometry
 losses, kl, face_kl, learn_blur, backlit_reg, l2_reg, list_l1_reg,
-bound_primscale, negcolor, primvolsum, alphaprior), and mesh_vae's
-pose_shadow_l2. The losses of paths not ported yet (region_rgb_l1,
-rgb_l1_focus, rgb_l1_phys, the perceptual losses) are not registered
-(ROADMAP queue 1); a config naming one raises. ``.detach()`` stands where
+bound_primscale, negcolor, primvolsum, alphaprior), mesh_vae's
+pose_shadow_l2, and URHand's rgb_l1_focus and rgb_l1_phys. The losses of
+paths not ported yet (region_rgb_l1, the perceptual losses) are not
+registered (ROADMAP queue 1); a config naming one raises. ``.detach()`` stands where
 the JAX package has ``stop_gradient``.
 """
 
@@ -380,6 +380,38 @@ def rgb_ssim(preds, targets, src_key="rendered_rgb", tgt_key="image",
     if normalize_mask:
         return 1.0 - ssim(targets[tgt_key], preds[src_key], mask=mask)
     return 1.0 - ssim(mask * targets[tgt_key], mask * preds[src_key])
+
+
+def _focus_loss(prediction, targets, preds, mask_erode, self_mask):
+    """Mean |error| weighted by exp(|error| / 255), the weights taking no
+    gradient; the mask is the model's own (detached) rendered mask with
+    ``self_mask``, else the target's."""
+    if self_mask:
+        mask = preds["rendered_mask"].detach()
+    else:
+        mask = targets["image_mask"]
+    mask = mask.to(prediction.dtype)
+    if mask_erode is not None:
+        mask = erode(mask, mask_erode)
+    if "depth_disc_mask" in preds:
+        mask = mask * (1.0 - preds["depth_disc_mask"].to(prediction.dtype))
+    abs_error = _abs((prediction - targets["image"]) * mask)
+    error_weights = torch.exp(abs_error / 255.0).detach()
+    return torch.mean(abs_error * error_weights)
+
+
+@register_loss_by_fn()
+def rgb_l1_focus(preds, targets, mask_erode=None, img_blur=False,
+                 self_mask=False):
+    pred = preds["rendered_rgb_blur"] if img_blur else preds["rendered_rgb"]
+    return _focus_loss(pred, targets, preds, mask_erode, self_mask)
+
+
+@register_loss_by_fn()
+def rgb_l1_phys(preds, targets, mask_erode=None, img_blur=False,
+                self_mask=False):
+    return _focus_loss(preds["rendered_phys_rgb"], targets, preds, mask_erode,
+                       self_mask)
 
 
 @register_loss_by_fn("learn_blur")

@@ -2,7 +2,9 @@
 
 Injects a ``psnr`` metric, strips train-only losses, samples
 ``n_test_frames`` random frames at batch size 1, and drops the per-camera
-color calibration and blur. Runs on the card unless ``device="cpu"``.
+color calibration and blur (``learn_blur=False`` goes to every model; URHand
+takes the argument and has no blur). Runs on the card unless
+``device="cpu"``.
 
     python -m goliath_torch.scripts.run_test configs/rgca.yml [a.b=value ...]
 """

@@ -12,8 +12,11 @@ the RGCA and mesh_vae paths use).
   view cosines, the depth-discontinuity mask, depth -> camera-space XYZ ->
   normals.
 
-TBN frames, projections and view-texture unprojection come with the paths
-that use them (ROADMAP queue 1).
+* Pinhole projections (``project_points``, ``project_points_multi``) for
+  URHand's shadow maps.
+
+View-texture unprojection comes with the path that uses it (ROADMAP
+queue 1).
 """
 
 from __future__ import annotations
@@ -272,6 +275,41 @@ def xyz2normals(xyz: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     V = (pad[:, :, 1:-1, 2:] - pad[:, :, 1:-1, :-2]) / -2
     n = torch.linalg.cross(U, V, dim=1)
     return n / torch.linalg.norm(n, dim=1, keepdim=True).clamp(min=eps)
+
+
+def project_points(p: torch.Tensor, Rt: torch.Tensor, K: torch.Tensor,
+                   normalize: bool = False,
+                   size: Optional[Tuple[int, int]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pinhole projection of p [B, N, 3] by Rt [B, 3, 4] and K [B, 3, 3]:
+    (pixels [B, N, 2], depth [B, N]). Points behind the camera keep the
+    sign of their depth in the division, as in the JAX package."""
+    p_cam = torch.einsum("bij,bnj->bni", Rt[:, :3, :3], p) \
+        + Rt[:, None, :3, 3]
+    p_pix = torch.einsum("bij,bnj->bni", K, p_cam)
+    depth = p_pix[..., 2:]
+    pix = p_pix[..., :2] / depth.abs().clamp(min=1e-8) * torch.sign(depth)
+    if normalize:
+        h, w = size
+        pix = 2.0 * pix / pix.new_tensor([w, h]) - 1.0
+    return pix, depth[..., 0]
+
+
+def project_points_multi(p: torch.Tensor, Rt: torch.Tensor, K: torch.Tensor,
+                         normalize: bool = False,
+                         size: Optional[Tuple[int, int]] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-camera projection: p [B, N, 3], Rt [B, NC, 3, 4], K
+    [B, NC, 3, 3] -> (pixels [B, NC, N, 2], depth [B, NC, N])."""
+    p_cam = torch.einsum("bcij,bnj->bcni", Rt[..., :3, :3], p) \
+        + Rt[:, :, None, :3, 3]
+    p_pix = torch.einsum("bcij,bcnj->bcni", K, p_cam)
+    depth = p_pix[..., 2:]
+    pix = p_pix[..., :2] / depth.abs().clamp(min=1e-8) * torch.sign(depth)
+    if normalize:
+        h, w = size
+        pix = 2.0 * pix / pix.new_tensor([w, h]) - 1.0
+    return pix, depth[..., 0]
 
 
 def depth2xyz(depth: torch.Tensor, focal: torch.Tensor,

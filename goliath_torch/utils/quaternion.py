@@ -1,10 +1,10 @@
 """Quaternion algebra (port of the JAX package's utils/quaternion.py).
 
 Quaternions are stored (x, y, z, w), matching the reference. Only what the
-ported paths use is here so far (the products, rotation and Euler angles of
-the skeleton solve, ``utils/lbs.py``); the rest of the JAX module
-(matrix -> quaternion, Rodrigues, rigid alignment) comes with the paths
-that use it.
+ported paths use is here so far: the products, rotation and Euler angles of
+the skeleton solve (``utils/lbs.py``), and matrix -> quaternion and the
+Rodrigues maps of URHand's pose conditioning (``models/urhand.py``). Rigid
+alignment comes with the path that uses it.
 """
 
 from __future__ import annotations
@@ -77,3 +77,72 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12
+              ) -> torch.Tensor:
+    return v / torch.linalg.norm(v, dim=dim, keepdim=True).clamp(min=eps)
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix [..., 3, 3] -> unit quaternion (x,y,z,w).
+
+    Branch-free: all four classic cases are evaluated and selected per
+    matrix, as in the JAX package."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(x.clamp(min=1e-12))
+
+    # case 0: trace positive
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0,
+                      0.25 * s0], -1)
+    # case 1: m00 largest
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1,
+                      (m21 - m12) / s1], -1)
+    # case 2: m11 largest
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2,
+                      (m02 - m20) / s2], -1)
+    # case 3: m22 largest
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3,
+                      (m10 - m01) / s3], -1)
+
+    c1 = (m00 > m11) & (m00 > m22)
+    c2 = m11 > m22
+    q_rest = torch.where(c1[..., None], q1,
+                         torch.where(c2[..., None], q2, q3))
+    q = torch.where((tr > 0.0)[..., None], q0, q_rest)
+    return normalize(q)
+
+
+def axisangle_to_matrix(rvec: torch.Tensor, eps: float = 1e-10
+                        ) -> torch.Tensor:
+    """Rodrigues: axis-angle [..., 3] -> rotation matrix [..., 3, 3]. eps
+    goes inside the sqrt, so the gradient at a zero rvec is finite."""
+    theta = torch.sqrt(torch.sum(rvec * rvec, dim=-1, keepdim=True) + eps)
+    axis = rvec / theta
+    x, y, z = axis.unbind(-1)
+    zero = torch.zeros_like(x)
+    K = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], -1)
+    K = K.reshape(K.shape[:-1] + (3, 3))
+    th_ = theta[..., None]
+    eye = torch.eye(3, dtype=rvec.dtype, device=rvec.device).expand(K.shape)
+    return eye + torch.sin(th_) * K + (1.0 - torch.cos(th_)) * (K @ K)
+
+
+def matrix_to_axisangle(R: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Inverse Rodrigues through the quaternion (stable near theta = pi)."""
+    q = matrix_to_quat(R)
+    qvec = q[..., :3]
+    qw = q[..., 3]
+    n = torch.linalg.norm(qvec, dim=-1)
+    theta = 2.0 * torch.atan2(n, qw)
+    axis = qvec / n.clamp(min=eps)[..., None]
+    return axis * theta[..., None]

@@ -172,7 +172,7 @@ def test_ssim_and_image_losses_match_jax():
             _close(td[k], jd[k], atol=1e-4)
     # a loss of a path that is not ported yet
     with pytest.raises(ValueError, match="not registered"):
-        tlosses.ModularLoss({"rgb_l1_focus": 0.002})
+        tlosses.ModularLoss({"region_rgb_l1": 0.002})
 
 
 def test_config_remaps_class_names_onto_the_port():
