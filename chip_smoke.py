@@ -91,11 +91,25 @@ the final result line:
      frame; then K5 against its plain version, bit for bit, on the first
      light view and on the first render of the run, and K4 against
      torch.cumsum on the first frame's 26 scans, exactly;
- 17. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
-     path and one mesh training step, and the URHand eval path, at a small
-     size, on the card against the CPU (plain versions) as the small-input
-     reference;
- 18. per kernel (and per mode of a kernel): check result, launches on each
+ 17. the URHand training path: goliath_torch.scripts.run_train.main on
+     configs/urhand.yml at full width (the eval path's data and cuts, cal
+     kept), the config's batch size 1, its five losses (effnet and
+     effnet_phys on fixed-seed random features, asked for in their loss
+     config) and 3 steps, counts set to 0 just before and read just after
+     (K5 13 and K4 26 a forward, for the 3 training forwards and the
+     summary's forward at iteration 0): finite losses that move, a finite
+     gradient in both parameter groups (cal's non-zero unless every step
+     drew its identity camera), a checkpoint, step times, peak memory and
+     one profiled step with its busiest backward nodes; then K5 against its
+     plain version, bit for bit, on the first step's first light view and
+     rgb render, K4 against torch.cumsum on its 26 scans, and the
+     edge-gradient backward of its rgb and phys renders on the card against
+     the CPU;
+ 18. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+     path and one mesh training step, and the URHand eval path and one
+     URHand training step, at a small size, on the card against the CPU
+     (plain versions) as the small-input reference;
+ 19. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -808,14 +822,16 @@ class StepProbe:
     """Wraps goliath_torch.train.make_train_step for one run of
     run_train.main: per step, the wall time (ending in a synchronise), the
     total loss and, per parameter group, whether the gradient that reached
-    the optimizer was finite and non-zero. ``profile_step`` names one step
-    to run under torch.profiler."""
+    the optimizer was finite and non-zero, and the batch's ``camera_idx``
+    where it has one (and the model's CalV5 identity camera). ``profile_step``
+    names one step to run under torch.profiler."""
 
     def __init__(self, torch, train_lib, profile_step=None, keep_grads=False):
         self.torch, self.train_lib = torch, train_lib
         self.profile_step = profile_step
         self.keep_grads = keep_grads
         self.seconds, self.totals, self.groups, self.grads = [], [], {}, {}
+        self.cameras, self.identity_camera = [], None
         self.profile = None
         self._orig = train_lib.make_train_step
 
@@ -830,12 +846,21 @@ class StepProbe:
         torch = self.torch
         inner_step = optimizer.step
 
+        names = {id(p): n for n, p in model.module.named_parameters()}
+        cal = getattr(model.module, "cal", None)
+        self.identity_camera = getattr(cal, "identity_idx", None)
+
         def probed_optimizer_step():
             for group in optimizer.inner.param_groups:
-                gs = [p.grad for p in group["params"] if p.grad is not None]
+                gs = [p for p in group["params"] if p.grad is not None]
+                bad = [names[id(p)] for p in gs
+                       if not bool(torch.isfinite(p.grad).all())]
                 seen = self.groups.setdefault(group["name"], [True, False])
-                seen[0] &= all(bool(torch.isfinite(g).all()) for g in gs)
-                seen[1] |= any(bool(g.abs().sum() > 0) for g in gs)
+                seen[0] &= not bad
+                seen[1] |= any(bool(p.grad.abs().sum() > 0) for p in gs)
+                if bad:
+                    log(f"step {len(self.seconds)}: non-finite gradient "
+                        f"entries in {bad[:8]}{' ...' if len(bad) > 8 else ''}")
             if self.keep_grads and not self.grads:   # the first step's
                 self.grads.update(
                     (name, p.grad.detach().cpu().clone())
@@ -851,6 +876,8 @@ class StepProbe:
                 raise AssertionError(
                     f"{len(self.seconds)} steps taken for {TRAIN_STEPS}: the "
                     f"loop's explosion check rolled training back")
+            if "camera_idx" in batch:
+                self.cameras.append(batch["camera_idx"].tolist())
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if len(self.seconds) == self.profile_step:
@@ -881,14 +908,17 @@ def rgca_config(overrides=()):
 
 
 def run_training(gc, torch, card_line, label, expected, record,
-                 patch=None, make_config=rgca_config):
+                 patch=None, make_config=rgca_config, batch=TRAIN_BATCH,
+                 zero_grad_ok=None):
     """run_train.main at full width (``make_config``: configs/rgca.yml on
     synthetic data at 2048x1334 and uv 1024 unless another is given), the
-    config's batch 4, 3 steps, no resume, counts reset just before and read
-    just after: finite losses that move, a finite, non-zero gradient in
-    every parameter group, a checkpoint, and exactly the launch counts
-    ``expected`` lists (every other kernel 0). ``patch`` (a context
-    manager) wraps the run. Leaves the step totals in ``record[label]``."""
+    config's batch ``batch`` (4 unless given), 3 steps, no resume, counts
+    reset just before and read just after: finite losses that move, a
+    finite, non-zero gradient in every parameter group (but those that
+    ``zero_grad_ok(probe)`` names, which must still be finite), a
+    checkpoint, and exactly the launch counts ``expected`` lists (every
+    other kernel 0). ``patch`` (a context manager) wraps the run. Leaves the
+    step totals in ``record[label]``."""
     import contextlib
 
     from torch.autograd import DeviceType
@@ -900,9 +930,9 @@ def run_training(gc, torch, card_line, label, expected, record,
         cfg = make_config([
             f"train.run_dir={run_dir}", f"train.n_max_iters={TRAIN_STEPS}",
             "train.resume=false", "train.log_every_n_steps=1"])
-        if cfg.dataloader.batch_size != TRAIN_BATCH:
+        if cfg.dataloader.batch_size != batch:
             raise AssertionError(f"{label}: the config no longer trains at "
-                                 f"batch {TRAIN_BATCH}")
+                                 f"batch {batch}")
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -928,11 +958,13 @@ def run_training(gc, torch, card_line, label, expected, record,
     for i, sec in enumerate(probe.seconds):
         note = " (under torch.profiler)" if i == probe.profile_step else ""
         log(f"{label} step {i}: wall {sec:.4f} s{note}, total loss "
-            f"{probe.totals[i]:.6f}, batch {TRAIN_BATCH} on {card_line}")
-    log(f"{label} peak device memory (training, batch {TRAIN_BATCH}): "
+            f"{probe.totals[i]:.6f}, batch {batch} on {card_line}")
+    log(f"{label} peak device memory (training, batch {batch}): "
         f"{peak / 2**30:.3f} GiB on {card_line}")
     log(f"{label} gradients per parameter group [all finite, some non-zero]:"
         f" {probe.groups}; checkpoints written: {written}")
+    if probe.cameras:
+        log(f"{label} cameras drawn (camera_idx per step): {probe.cameras}")
     rows = [(e.self_device_time_total / 1e3, e.count, e.key)
             for e in probe.profile.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total]
@@ -976,10 +1008,13 @@ def run_training(gc, torch, card_line, label, expected, record,
     if probe.totals[-1] == probe.totals[0]:
         raise AssertionError("the total loss did not move in 3 steps")
     expected_groups = set(cfg.optimizer.per_module)
+    may_be_zero = zero_grad_ok(probe) if zero_grad_ok else set()
     if set(probe.groups) != expected_groups or not all(
-            finite and nonzero for finite, nonzero in probe.groups.values()):
+            finite and (nonzero or name in may_be_zero)
+            for name, (finite, nonzero) in probe.groups.items()):
         raise AssertionError(f"parameter groups without a finite, non-zero "
-                             f"gradient: {probe.groups}")
+                             f"gradient: {probe.groups} (may be zero: "
+                             f"{sorted(may_be_zero)})")
     want = {name: 0 for name in gc.LAUNCHES}
     want.update(expected)
     if launches != want:
@@ -1092,8 +1127,9 @@ def small_reference(torch):
     two training steps (the losses of the second depend on the first one's
     update) with the gradients of the first; then the mesh eval path and
     one mesh training step (its losses and gradients) at the size of
-    tests/test_torch_mesh_vae_run_test.py; then the URHand eval path at the
-    size of tests/test_torch_urhand_run_test.py."""
+    tests/test_torch_mesh_vae_run_test.py; then the URHand eval path and
+    one URHand training step (urhand_small_train_reference) at the size of
+    tests/test_torch_urhand_run_test.py."""
     import numpy as np
 
     from goliath_torch import train as train_lib
@@ -1197,6 +1233,98 @@ def small_reference(torch):
     if not (worst <= SMALL_RTOL and set(got) == set(ref)):
         raise AssertionError("the card's URHand eval disagrees with the "
                              "CPU's")
+
+    urhand_small_train_reference(torch, jittered)
+
+
+# URHand's gradients in a training step move by up to a few percent of
+# their largest entry when the parameters move by one ulp, in either
+# package (tests/test_torch_urhand_train.py: the view conditioning of
+# texmod0_* is resampled from the displaced geometry's TBN frame, whose
+# normals are ill-conditioned at the UV border). So the card's gradients
+# are held to SMALL_RTOL of the entry and of the parameter's largest entry
+# plus URHAND_SPREAD_MULT times the parameter's spread: the largest move of
+# its gradient on the card when every parameter is scaled by
+# (1 + 1e-7 N(0, 1)), over URHAND_SPREAD_SEEDS; at most
+# URHAND_MAX_SPREAD_PARAMS parameters may need the spread.
+URHAND_SPREAD_MULT = 4.0
+URHAND_SPREAD_SEEDS = (1, 2, 3)
+URHAND_MAX_SPREAD_PARAMS = 5
+
+
+def urhand_small_train_reference(torch, jittered):
+    """One URHand training step (run_train.main, configs/urhand.yml with
+    every loss, the perceptual ones on random features) at the size of
+    tests/test_torch_urhand_run_test.py on the jittered template, on the
+    card against the CPU: its losses at SMALL_RTOL, its gradients by the
+    sensitivity rule above."""
+    from goliath_torch import train as train_lib
+    from goliath_torch.scripts import run_train
+
+    build_data, build_model = run_train.build_dataset, run_train.load_from_config
+
+    def step(device, seed=None):
+        def model(*a, **kw):
+            obj = build_model(*a, **kw)
+            if seed is not None and hasattr(obj, "module"):
+                gen = torch.Generator().manual_seed(seed)
+                with torch.no_grad():
+                    for p in obj.module.parameters():
+                        p.mul_(1 + 1e-7 * torch.randn(
+                            p.shape, generator=gen).to(p.device))
+            return obj
+
+        run_train.build_dataset, run_train.load_from_config = jittered, model
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_small_") as d:
+                cfg = urhand_train_config([
+                    *URHAND_SMALL, f"train.run_dir={d}",
+                    "train.n_max_iters=1", "train.resume=false"],
+                    URHAND_SMALL_DATA)
+                with StepProbe(torch, train_lib, keep_grads=True) as probe:
+                    _it, last = run_train.main(cfg, device=device)
+        finally:
+            run_train.build_dataset = build_data
+            run_train.load_from_config = build_model
+        return last, probe.grads
+
+    got, g_got = step(DEVICE)
+    ref, g_ref = step("cpu")
+    spread = {name: 0.0 for name in g_got}
+    for seed in URHAND_SPREAD_SEEDS:
+        _, g_seed = step(DEVICE, seed)
+        for name, g in g_seed.items():
+            spread[name] = max(spread[name],
+                               float((g - g_got[name]).abs().max()))
+    worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
+    worst_g, worst_name = grad_error(g_got, g_ref)
+    need, over = [], []
+    for name, r in g_ref.items():
+        scale = float(r.abs().max())
+        diff = (g_got[name] - r).abs()
+        usual = SMALL_RTOL * r.abs() + SMALL_RTOL * scale
+        if bool((diff <= usual).all()):
+            continue
+        note = (f"{name} (error {float(diff.max()) / max(scale, 1e-30):.3e}, "
+                f"spread {spread[name] / max(scale, 1e-30):.3e} of its "
+                f"largest entry)")
+        need.append(note)
+        if not bool((diff <= usual + URHAND_SPREAD_MULT * spread[name])
+                    .all()):
+            over.append(note)
+    log(f"small-input URHand training reference (card vs CPU plain), one "
+        f"step with {sorted(k for k in ref if k != 'loss_total')}: losses "
+        f"{json.dumps(got)}, max rel diff {worst:.3e} (tolerance "
+        f"{SMALL_RTOL}); gradients over {len(g_ref)} parameters: largest "
+        f"error as a fraction of the parameter's largest gradient "
+        f"{worst_g:.3e} ({worst_name}); beyond {SMALL_RTOL} of the entry and "
+        f"of that largest gradient, held to {URHAND_SPREAD_MULT} x their "
+        f"one-ulp perturbation spread on the card: {need}")
+    if not (worst <= SMALL_RTOL and set(got) == set(ref)
+            and set(g_got) == set(g_ref) and not over
+            and len(need) <= URHAND_MAX_SPREAD_PARAMS):
+        raise AssertionError(f"the card's URHand training step disagrees "
+                             f"with the CPU's: over the rule {over}")
 
 
 MESH_DATA = {"synthetic": True, "img_h": 2048, "img_w": 1334,
@@ -1411,11 +1539,12 @@ def mesh_train_path(gc, torch, card_line, record, captured):
 EDGE_RTOL, EDGE_ATOL_OF_TYPICAL = 1e-4, 1e-3
 
 
-def check_edge_grads(torch, captured):
-    """``rasterizer.edge_grads`` of the mesh training path's first sample:
-    the run's own output on the card, and a second call on the card from
-    host copies of its inputs, each against the same function on the CPU
-    (plain PyTorch on both; ``index_add_`` atomic on the card)."""
+def check_edge_grads(torch, captured, label="edge-gradient backward"):
+    """``rasterizer.edge_grads`` of a training path's first sample (the mesh
+    path's render, or one of URHand's renders): the run's own output on the
+    card, and a second call on the card from host copies of its inputs,
+    each against the same function on the CPU (plain PyTorch on both;
+    ``index_add_`` atomic on the card)."""
     from goliath_torch.ops import rasterizer
     from goliath_torch.utils.timing import cuda_ms
 
@@ -1435,7 +1564,7 @@ def check_edge_grads(torch, captured):
             err, big, typical, n_over, used = entries_over(
                 got[0, :, c], ref[0, :, c], carries, EDGE_RTOL,
                 EDGE_ATOL_OF_TYPICAL)
-            log(f"edge-gradient backward, {name} card output, {axis}: "
+            log(f"{label}, {name} card output, {axis}: "
                 f"max_abs_err {err:.3e} (largest |ref| {big:.3e}, typical "
                 f"{typical:.3e}, {int(carries.sum())} of {n_verts} vertices "
                 f"carry one; tolerance rtol {EDGE_RTOL} + "
@@ -1445,12 +1574,12 @@ def check_edge_grads(torch, captured):
         if float(got[0, :, 2].abs().max()) != 0.0:
             failed.append(f"{name} z is not 0")
     ms = cuda_ms(lambda: rasterizer.edge_grads(*on_card), reps=10)
-    log(f"edge-gradient backward at {tuple(idx.shape)}, one sample: "
+    log(f"{label} at {tuple(idx.shape)}, one sample: "
         f"{pairs} neighbour pairs on two faces or on the background; "
         f"{ms:.4f} ms on the card (index_add_ and its elementwise ops)")
     if failed or not float(ref.abs().max()) > 0:
-        raise AssertionError(f"the card's edge-gradient backward disagrees "
-                             f"with the CPU's: {failed}")
+        raise AssertionError(f"the card's {label} disagrees with the "
+                             f"CPU's: {failed}")
     return dict(max_abs_err=float((run_out - ref).abs().max()), ms=ms)
 
 
@@ -1585,9 +1714,10 @@ def check_k5(gc, torch, args, label="K5"):
 # forced by the synthetic data or the repo: global_scaling 1 (the default
 # 10 puts the sphere's radius of 1,000 around ring cameras at distance
 # 400); pose_enc_dims 12 (the synthetic skeleton's 4 joint triplets; the
-# config's 60 needs the Goliath hand skeleton); effnet and effnet_phys
-# dropped (EfficientNet weights are not in the repo); cal is dropped by
-# run_test itself.
+# config's 60 needs the Goliath hand skeleton); in the eval path effnet
+# and effnet_phys dropped (EfficientNet weights are not in the repo; the
+# training path runs them on random features) and cal dropped by run_test
+# itself.
 URHAND_DROPPED_LOSSES = ("effnet", "effnet_phys")
 URHAND_CUTS = ["model.global_scaling=1.0", "model.relight.pose_enc_dims=12"]
 # the small URHand config of tests/test_torch_urhand_run_test.py
@@ -1743,6 +1873,171 @@ def urhand_eval_path(gc, torch, card_line, captured):
                     "profiled URHand frame (forward of the last frame, run "
                     "again)", train=False)
     return launches
+
+
+# URHand training (run_train on configs/urhand.yml) at full width: the
+# eval cuts, cal kept, the config's batch 1 and all five of its losses;
+# effnet and effnet_phys on the fixed-seed random EfficientNet-B0 features
+# that their loss config asks for (no ImageNet weights are in the repo:
+# their cost is the real network's, their values are not)
+URHAND_TRAIN_BATCH = 1
+URHAND_PERCEPTUAL = ("effnet", "effnet_phys")
+
+
+def urhand_train_config(overrides=(), data=MESH_DATA):
+    """configs/urhand.yml for run_train on synthetic ``data`` (MESH_DATA
+    unless given) with URHAND_CUTS and every loss of the config, the
+    perceptual ones with ``allow_random_features: true``."""
+    from goliath_torch.config import load_config
+
+    return load_config(str(ROOT / "configs" / "urhand.yml"), overrides=[
+        f"data={yaml_flow(data)}", *URHAND_CUTS,
+        *(f"loss.losses.{k}.allow_random_features=true"
+          for k in URHAND_PERCEPTUAL), *overrides])
+
+
+class URHandTrainCapture(MeshTrainCapture):
+    """For the duration of a with-block: keeps in ``captured`` the K5
+    arguments of the run's first light view (``"k5_shadow"``) and of its
+    rgb render (``"k5_render"``, the launch after the two shadow passes),
+    the first step's K4 scans (``"k4"``), and the inputs and output of the
+    first step's edge-gradient backward of the rgb and of the phys render
+    (``"edge"``, by label), copied to pinned host memory without a
+    synchronise."""
+
+    def __init__(self, torch, captured):
+        from goliath_torch.ops import binning
+
+        super().__init__(torch, captured)
+        self.binning = binning
+        self.orig_more = binning.cumsum1d, self.rasterizer.edge_grad_estimator
+
+    def __enter__(self):
+        orig_zb, orig_eg = self.orig
+        orig_cs, orig_est = self.orig_more
+        captured, to_host = self.captured, self.to_host
+        n_zb, k4, labels = [0], captured.setdefault("k4", []), {}
+        edge = captured.setdefault("edge", {})
+
+        def zb(*args):
+            if n_zb[0] == 0:
+                captured["k5_shadow"] = tuple(to_host(a) for a in args)
+            elif n_zb[0] == 2 * URHAND_LIGHTS:
+                captured["k5_render"] = tuple(to_host(a) for a in args)
+            n_zb[0] += 1
+            return orig_zb(*args)
+
+        def cs(x):
+            if len(k4) < 2 * URHAND_K5_PER_FRAME:
+                k4.append(to_host(x))
+            return orig_cs(x)
+
+        def est(v_pix, vi, bary_img, img, index_img, depth_img):
+            # the first step's two estimators: the rgb render, then phys
+            if len(labels) < 2:
+                labels[img.data_ptr()] = ("rgb", "phys")[len(labels)]
+            return orig_est(v_pix, vi, bary_img, img, index_img, depth_img)
+
+        def eg(g, img, vi, bary_img, index_img, depth_img, n_verts):
+            out = orig_eg(g, img, vi, bary_img, index_img, depth_img,
+                          n_verts)
+            label = labels.get(img.data_ptr())
+            if label is not None and label not in edge:
+                edge[label] = (tuple(to_host(a) for a in (
+                    g, img, bary_img, index_img, depth_img)), to_host(vi),
+                    n_verts, to_host(out))
+            return out
+
+        self.rasterizer.zbuffer, self.rasterizer.edge_grads = zb, eg
+        self.rasterizer.edge_grad_estimator = est
+        self.binning.cumsum1d = cs
+        return self
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        self.binning.cumsum1d, self.rasterizer.edge_grad_estimator = \
+            self.orig_more
+
+
+def urhand_train_path(gc, torch, card_line, record, captured):
+    """run_train.main on configs/urhand.yml at full width
+    (urhand_train_config), batch 1, 3 steps: K5 13 and K4 26 times a forward
+    (2 x L = 10 light views and 3 renders, two binning scans each) for the
+    3 training forwards and the summary's train=False forward at iteration
+    0, no splat kernel. The cal group's gradient may be zero only if every
+    step drew cal's identity camera, which passes the image through. Keeps
+    URHandTrainCapture's inputs in ``captured``."""
+    n = URHAND_K5_PER_FRAME * URHAND_TRAIN_BATCH * (TRAIN_STEPS + 1)
+
+    def zero_grad_ok(probe):
+        # cal.identity_camera "400870" is not a synthetic camera, so CalV5
+        # falls back to the first one
+        drawn = {c for step in probe.cameras for c in step}
+        return {"cal"} if drawn <= {probe.identity_camera} else set()
+
+    launches = run_training(
+        gc, torch, card_line, "URHand train path",
+        dict(zbuffer=n, cumsum1d=2 * n), record,
+        patch=URHandTrainCapture(torch, captured),
+        make_config=urhand_train_config, batch=URHAND_TRAIN_BATCH,
+        zero_grad_ok=zero_grad_ok)
+    time_perceptual(torch, card_line)
+    return launches
+
+
+def time_perceptual(torch, card_line):
+    """The step's two perceptual losses alone at the render's shape
+    ([1, 3, 2048, 1334], a render's exact-0 background on half the image,
+    the mask rendered_mask): each one's forward, and its forward with the
+    backward to the rendered image, by CUDA events."""
+    from goliath_torch.losses import perceptual
+    from goliath_torch.utils.timing import cuda_ms
+
+    H, W = MESH_DATA["img_h"], MESH_DATA["img_w"]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    x = torch.rand((1, 3, H, W), generator=gen, device=DEVICE) * 255
+    x[..., : H // 2, :] = 0.0
+    x.requires_grad_()
+    y = torch.rand((1, 3, H, W), generator=gen, device=DEVICE) * 255
+    mask = (x[:, :1] > 0).float()
+    for name, cls in (("effnet", perceptual.EfficientNetLossImpl),
+                      ("effnet_phys", perceptual.EfficientNetLossImplPhys)):
+        loss = cls(None, tgt_key="image", mask_key="rendered_mask",
+                   allow_random_features=True)
+        preds = {"rendered_rgb": x, "rendered_phys_rgb": x,
+                 "rendered_mask": mask}
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: loss(preds, {"image": y}), reps=5)
+
+        def both():
+            loss(preds, {"image": y}).backward()
+
+        fwd_bwd = cuda_ms(both, reps=5)
+        log(f"{name} at [1, 3, {H}, {W}]: forward {fwd:.3f} ms, forward and "
+            f"backward to the image {fwd_bwd:.3f} ms (CUDA events, 5 calls) "
+            f"on {card_line}")
+
+
+def k5_urhand_train(gc, torch, captured):
+    """K5 bit for bit on the URHand training run's first light view and on
+    its first rgb render; returns the light view's measurements."""
+    view = check_k5(gc, torch, captured["k5_shadow"],
+                    "K5 (URHand training step 0, first light view)")
+    check_k5(gc, torch, captured["k5_render"],
+             "K5 (URHand training step 0, rgb render)")
+    return view
+
+
+def urhand_edge_grad_check(torch, captured):
+    """The edge-gradient backward of the URHand training run's first rgb
+    and phys renders, card against CPU (check_edge_grads)."""
+    if set(captured) != {"rgb", "phys"}:
+        raise AssertionError(f"edge-gradient backward captured for "
+                             f"{sorted(captured)}, not rgb and phys")
+    return {label: check_edge_grads(
+        torch, captured[label],
+        f"edge-gradient backward (URHand step 0, {label} render)")
+        for label in ("rgb", "phys")}
 
 
 def check_k6(gc, torch, steps):
@@ -2445,6 +2740,21 @@ def main() -> int:
               2 * URHAND_K5_PER_FRAME, "URHand frame 0")
     del urhand_inputs
     torch.cuda.empty_cache()
+    urhand_train_inputs = {}
+    phase("urhand_train_path", urhand_train_path, gc, torch, card_line,
+          totals, urhand_train_inputs)
+    if {"k5_shadow", "k5_render"} <= set(urhand_train_inputs):
+        phase("k5_urhand_train", k5_urhand_train, gc, torch,
+              urhand_train_inputs)
+    if urhand_train_inputs.get("k4"):
+        phase("k4_urhand_train", k4_mesh_check, gc, torch,
+              urhand_train_inputs["k4"], 2 * URHAND_K5_PER_FRAME,
+              "URHand training step 0")
+    if urhand_train_inputs.get("edge"):
+        phase("urhand_edge_grad_check", urhand_edge_grad_check, torch,
+              urhand_train_inputs["edge"])
+    del urhand_train_inputs
+    torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
 
     # the phases that return (launches, measurements) of several kernels
@@ -2464,6 +2774,7 @@ def main() -> int:
              "mesh": phases.get("mesh_eval_path", {}),
              "mesh_train": phases.get("mesh_train_path", {}),
              "urhand": phases.get("urhand_eval_path", {}),
+             "urhand_train": phases.get("urhand_train_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check"]),
@@ -2474,9 +2785,10 @@ def main() -> int:
                   "xla_window_check:pair_grads_xla"]),
               "cumsum_cols": ("K3", ["k3_check", "backward_check"]),
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh",
-                                  "k4_urhand"]),
+                                  "k4_urhand", "k4_urhand_train"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
-                                 "k5_urhand_shadow", "k5_urhand_render"]),
+                                 "k5_urhand_shadow", "k5_urhand_render",
+                                 "k5_urhand_train"]),
               "compositor_fwd_fold": ("K6 fwd", [
                   "k6_check:compositor_fwd_fold", "fold_train_path"]),
               "pair_grads_fold": ("K6 bwd", [

@@ -8,10 +8,11 @@ Ported: every loss the RGCA configs name, for eval and training (rgb_l1,
 rgb_l2, rgb_ssim, psnr, mask_l1, geom_l2, the Laplacian and region geometry
 losses, kl, face_kl, learn_blur, backlit_reg, l2_reg, list_l1_reg,
 bound_primscale, negcolor, primvolsum, alphaprior), mesh_vae's
-pose_shadow_l2, and URHand's rgb_l1_focus and rgb_l1_phys. The losses of
-paths not ported yet (region_rgb_l1, the perceptual losses) are not
-registered (ROADMAP queue 1); a config naming one raises. ``.detach()`` stands where
-the JAX package has ``stop_gradient``.
+pose_shadow_l2, URHand's rgb_l1_focus and rgb_l1_phys, and the perceptual
+losses vgg, effnet and effnet_phys (``losses/perceptual.py``, which
+registers itself on import). The loss of a path not ported yet
+(region_rgb_l1) is not registered (ROADMAP queue 1); a config naming it
+raises. ``.detach()`` stands where the JAX package has ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -487,3 +488,7 @@ def loss_alphaprior(preds, batch=None, key="alpha"):
     flat = alpha.reshape(alpha.shape[0], -1)
     return torch.mean(
         torch.log(0.1 + flat) + torch.log(0.1 + 1.0 - flat) - (-2.20727))
+
+
+# perceptual losses register themselves on import
+from goliath_torch.losses import perceptual  # noqa: E402,F401

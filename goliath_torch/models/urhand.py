@@ -43,6 +43,7 @@ from goliath_torch.utils.geom import (
     vert_normals,
     xyz2normals,
 )
+from goliath_torch.utils.image import clip
 from goliath_torch.utils.lbs import LBSModule
 from goliath_torch.utils.quaternion import (
     matrix_to_axisangle,
@@ -62,8 +63,17 @@ def _normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12
 
 
 def _norm_cf(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    return x / torch.sqrt(torch.sum(x * x, dim=1, keepdim=True)).clamp(
-        min=eps)
+    """x / max(|x|, eps) along dim 1, the JAX package's value bit for bit.
+    Its gradient is the JAX package's wherever that is finite, and that of
+    x / eps at a zero vector, where the JAX package's is NaN (the norm's
+    path adds 0 * inf: the sqrt's derivative at 0 times the clip's zero):
+    the sum of squares is clamped at float32's smallest normal before the
+    sqrt, which changes no value (its sqrt is far below eps). Such vectors
+    occur where a normal is exactly zero: the synthetic sphere's poles
+    repeat one point along a texel row."""
+    ss = torch.sum(x * x, dim=1, keepdim=True).clamp(
+        min=torch.finfo(x.dtype).tiny)
+    return x / torch.sqrt(ss).clamp(min=eps)
 
 
 def _cross_cf(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -542,7 +552,9 @@ class _URHandNet(nn.Module):
         tex_rec = tex_mean * gain + bias * self.tex_std
         if self.cal is not None and camera_idx is not None:
             tex_rec = self.cal(tex_rec, camera_idx)
-        tex_rec = tex_rec.clamp(0.0, 255.0)
+        # jnp.clip's gradient: texels where the clipped texture is 0 are
+        # exactly 0 here (0 * cal's gain + its bias at the identity init)
+        tex_rec = clip(tex_rec, 0.0, 255.0)
         preds["texrec_before_warp"] = tex_rec
         tex_rec = self.seam_sampler.resample(tex_rec)
 

@@ -1,6 +1,7 @@
 """Image utilities (port of the JAX package's utils/image.py, the part the
 ported losses, summaries and models call: the color pipeline (linear <->
-sRGB, the mugsy color correction, the display mapping), mask morphology,
+sRGB, the mugsy color correction, the display mapping), ``jnp.clip``'s
+ties, mask morphology,
 the difference-image remap and the host-side gaussian blur of mesh_vae's
 texture mean). The labeled image grids of the visualization scripts come
 with those scripts.
@@ -13,6 +14,14 @@ import torch
 import torch.nn.functional as F
 
 DEFAULT_WB_SCALE = np.array([1.05, 0.95, 1.45], dtype=np.float32)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``x`` clipped to [lo, hi] with ``jnp.clip``'s gradient: a maximum
+    then a minimum, each giving half the gradient to ``x`` where ``x``
+    equals the bound (``torch.clamp`` gives all of it there). It matters
+    where values sit exactly on a bound, as a render's background at 0."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 def linear2srgb(img: torch.Tensor, gamma: float = 2.4) -> torch.Tensor:
