@@ -105,11 +105,22 @@ the final result line:
      rgb render, K4 against torch.cumsum on its 26 scans, and the
      edge-gradient backward of its rgb and phys renders on the card against
      the CPU;
- 18. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
-     path and one mesh training step, and the URHand eval path and one
-     URHand training step, at a small size, on the card against the CPU
-     (plain versions) as the small-input reference;
- 19. per kernel (and per mode of a kernel): check result, launches on each
+ 18. the MVP hand eval path: goliath_torch.scripts.run_test.main on
+     configs/hand_mvp.yml at full width (uv 1024, 4,096 prims of 8x16x16
+     voxels, 2048x1334, window 16; the same sphere, n_pose_dims 6 and
+     global_scaling 1), 3 test frames, counts set to 0 just before and read
+     just after (K4 twice a frame, in the march's binning): finite losses,
+     images and prims, a render that is not empty, frame and march times,
+     peak memory and one profiled frame; then K4 against torch.cumsum on
+     frame 0's two scans, exactly; the march's drops on frame 0, the
+     card's march against the CPU's on the whole frame, and
+     march_reference against the tiled march on a 32x32 window with
+     nothing dropped;
+ 19. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+     path and one mesh training step, the URHand eval path and one URHand
+     training step, and the hand_mvp eval path, at a small size, on the
+     card against the CPU (plain versions) as the small-input reference;
+ 20. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -1129,7 +1140,8 @@ def small_reference(torch):
     one mesh training step (its losses and gradients) at the size of
     tests/test_torch_mesh_vae_run_test.py; then the URHand eval path and
     one URHand training step (urhand_small_train_reference) at the size of
-    tests/test_torch_urhand_run_test.py."""
+    tests/test_torch_urhand_run_test.py; then the hand_mvp eval path at the
+    size of tests/test_torch_hand_mvp.py."""
     import numpy as np
 
     from goliath_torch import train as train_lib
@@ -1235,6 +1247,21 @@ def small_reference(torch):
                              "CPU's")
 
     urhand_small_train_reference(torch, jittered)
+
+    cfg = hand_mvp_config(HAND_MVP_SMALL, HAND_MVP_SMALL_DATA)
+    run_test.build_dataset = jittered
+    try:
+        got = run_test.main(cfg, device=DEVICE)
+        ref = run_test.main(cfg, device="cpu")
+    finally:
+        run_test.build_dataset = build
+    worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
+    log(f"small-input hand_mvp eval reference (card vs CPU plain): means "
+        f"{json.dumps(got)}; max rel diff {worst:.3e} (tolerance "
+        f"{SMALL_RTOL})")
+    if not (worst <= SMALL_RTOL and set(got) == set(ref)):
+        raise AssertionError("the card's hand_mvp eval disagrees with the "
+                             "CPU's")
 
 
 # URHand's gradients in a training step move by up to a few percent of
@@ -2040,6 +2067,281 @@ def urhand_edge_grad_check(torch, captured):
         for label in ("rgb", "phys")}
 
 
+# MVP hands (run_test on configs/hand_mvp.yml) at full width: uv 1024,
+# primsize [16, 16, 8] (4,096 prims of 8x16x16 voxels), n_embs 64,
+# volradius 2000, prim_scale 512, 2048x1334 images in 84 x 128 tiles of 16,
+# the raymarcher's dt 1, max_steps 128, max_prims_per_tile 64, chunk 16 and
+# the config's window_steps 16, on the 65,536-face sphere of MESH_DATA.
+# Cuts: n_pose_dims 6 (the synthetic 3-joint skeleton's local pose; 54
+# needs the Goliath hand skeleton) and global_scaling 1 (at the default 10
+# the sphere's radius of 1,000 puts the cameras, at distance 400, inside
+# it). rgb_l2, vgg and mask_l1 read image_mask (synthetic data has no
+# segmentation_fgbg) and vgg takes fixed-seed random features (no ImageNet
+# weights are in the repo: the real network's cost, not its values).
+HAND_MVP_CUTS = ["model.n_pose_dims=6", "model.global_scaling=1.0",
+                 "loss.losses.rgb_l2.mask_key=image_mask",
+                 "loss.losses.vgg.mask_key=image_mask",
+                 "loss.losses.vgg.allow_random_features=true",
+                 "loss.losses.mask_l1.tgt_key=image_mask"]
+# the small config of tests/test_torch_hand_mvp.py
+HAND_MVP_SMALL_DATA = {"synthetic": True, "img_h": 48, "img_w": 48,
+                       "uv_size": 64, "n_cams": 2, "n_frames": 2, "seed": 1}
+HAND_MVP_SMALL = [
+    "model.image_height=48", "model.image_width=48", "model.uv_size=64",
+    "model.primsize=[8, 8, 4]", "model.n_embs=8", "model.volradius=400.0",
+    "model.prim_scale=12.0", "model.raymarcher.dt=4.0",
+    "model.raymarcher.max_steps=64", "model.raymarcher.max_prims_per_tile=32",
+    "model.raymarcher.chunk=8"]
+# a march makes one binning, whose two prefix sums run on K4
+HAND_MVP_K4_PER_FRAME = 2
+# the window of march_window_check: 2 x 2 tiles at the image centre
+MVP_WINDOW = 32
+
+
+def k4_mvp_check(gc, torch, inputs):
+    """K4 on the hand_mvp path's frame 0 scans (the [4,096] prims' tile
+    counts and the [32,768] slot marks) against torch.cumsum, exactly, and
+    timed there (time_k4)."""
+    k4_mesh_check(gc, torch, inputs, HAND_MVP_K4_PER_FRAME,
+                  "hand_mvp frame 0")
+    return time_k4(gc, torch, [x.to(DEVICE) for x in inputs])
+
+
+def hand_mvp_config(overrides=(), data=MESH_DATA):
+    """configs/hand_mvp.yml for run_test on synthetic ``data`` (MESH_DATA
+    unless given) with HAND_MVP_CUTS and the config's losses read as
+    synthetic data allows (rgb_l2, vgg, mask_l1, alphaprior, primvolsum;
+    run_test drops learn_blur)."""
+    from goliath_torch.config import load_config
+
+    return load_config(str(ROOT / "configs" / "hand_mvp.yml"), overrides=[
+        f"data={yaml_flow(data)}", f"test.data={yaml_flow(data)}",
+        "test.ckpt=null", "test.n_test_frames=3", "test.vis_path=null",
+        *HAND_MVP_CUTS, *overrides])
+
+
+def hand_mvp_eval_path(gc, torch, card_line, captured):
+    """run_test.main on configs/hand_mvp.yml at full width
+    (hand_mvp_config), counts reset just before: 3 frames with finite
+    losses, rgb, alpha and mvp_window_overflow and finite prim parameters;
+    a render that is not empty; K4 twice a frame (one march, one binning)
+    and no other kernel. Keeps in ``captured`` frame 0's march arguments
+    (on the card), its two K4 scans and its posed mesh; times each march
+    by CUDA events; then profiles the last frame again on the run's
+    model."""
+    from goliath_torch.ops import binning
+    from goliath_torch.scripts import run_test
+    from goliath_torch.utils import render_raymarcher
+
+    cfg = hand_mvp_config()
+    frames, marches, k4_inputs, stats, built = [], [], [], [], {}
+    orig_cs, orig_march = binning.cumsum1d, render_raymarcher.mvp_raymarch_tiled
+    orig_build = run_test.load_from_config
+
+    def cs(x):
+        if len(k4_inputs) < HAND_MVP_K4_PER_FRAME:
+            k4_inputs.append(x.to("cpu", non_blocking=True))
+        return orig_cs(x)
+
+    def march(*args, **kw):
+        captured.setdefault("march", (args, kw))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = orig_march(*args, **kw)
+        ev[1].record()
+        marches.append(ev)
+        return out
+
+    def build(*a, **kw):
+        model = built["model"] = orig_build(*a, **kw)
+        orig_apply = model.apply
+
+        def apply(batch, **akw):
+            built["batch"] = batch   # the frame the loop holds anyway
+            preds = orig_apply(batch, **akw)
+            captured.setdefault("geom_lbs", preds["geom_lbs"])
+            alpha = preds["alpha"]
+            prims = torch.cat([preds[k].flatten() for k in (
+                "primpos", "primrot", "primscale", "primrgb", "primalpha")])
+            stats.append(torch.stack([
+                alpha.amax(), (alpha > 0.5).float().mean(),
+                (alpha > 0).float().mean(),
+                torch.isfinite(preds["rgb"]).all().float(),
+                torch.isfinite(alpha).all().float(),
+                (~torch.isfinite(prims)).sum().float(),
+                preds["mvp_window_overflow"].float()]))
+            return preds
+
+        model.apply = apply
+        built["orig_apply"] = orig_apply
+        return model
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    binning.cumsum1d = cs
+    render_raymarcher.mvp_raymarch_tiled = march
+    run_test.load_from_config = build
+    gc.reset_launch_counts()
+    try:
+        means = run_test.main(cfg, device=DEVICE, frame_seconds=frames)
+        torch.cuda.synchronize()
+        launches = dict(gc.LAUNCHES)
+    finally:
+        binning.cumsum1d = orig_cs
+        render_raymarcher.mvp_raymarch_tiled = orig_march
+        run_test.load_from_config = orig_build
+    peak = torch.cuda.max_memory_allocated()
+    captured["k4"] = k4_inputs
+    march_ms = [a.elapsed_time(b) for a, b in marches]
+    stats = torch.stack(stats).tolist() if stats else []
+    log(f"hand_mvp path launches: {launches}")
+    log(f"hand_mvp eval means: {json.dumps(means)}")
+    for i, sec in enumerate(frames):
+        share = march_ms[i] / (sec * 1e3) if i < len(march_ms) else math.nan
+        log(f"hand_mvp frame {i}: wall {sec:.4f} s, march {march_ms[i]:.3f} "
+            f"ms (CUDA events; {share:.3f} of the frame) on {card_line}")
+    log(f"peak device memory (hand_mvp eval): {peak / 2**30:.3f} GiB on "
+        f"{card_line}")
+    for i, (amax, over_half, covered, rgb_ok, alpha_ok, bad_prims,
+            overflow) in enumerate(stats):
+        log(f"hand_mvp frame {i}: alpha max {amax:.6g}, share of pixels "
+            f"with alpha > 0.5 {over_half:.6f}, > 0 {covered:.6f}; "
+            f"non-finite prim parameters {int(bad_prims)}; "
+            f"mvp_window_overflow {overflow:.6f}")
+    if len(frames) != 3 or not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError("hand_mvp eval losses are not finite")
+    if len(stats) != 3 or not all(s[3] == 1 and s[4] == 1
+                                  and math.isfinite(s[6]) for s in stats):
+        raise AssertionError("hand_mvp rgb, alpha or mvp_window_overflow is "
+                             "not finite")
+    if not all(s[0] > 0 for s in stats):
+        raise AssertionError("a hand_mvp frame rendered nothing (alpha 0)")
+    expected = {name: 0 for name in gc.LAUNCHES}
+    expected.update(cumsum1d=3 * HAND_MVP_K4_PER_FRAME)
+    if launches != expected:
+        raise AssertionError(f"hand_mvp path launch counts {launches} != "
+                             f"{expected}")
+    model = built.pop("model")
+    model.apply = built.pop("orig_apply")
+    captured["model"] = model
+    profile_forward(torch, model, built.pop("batch"), card_line,
+                    "profiled hand_mvp frame (forward of the last frame, "
+                    "run again)", train=False)
+    return launches
+
+
+def mvp_march_check(torch, captured, card_line):
+    """On frame 0 of hand_mvp_eval_path: the march's drops (its ``drops``
+    counts, and the prims whose base frame fell back to the identity);
+    the card's mvp_raymarch_tiled against the same function on the CPU
+    (plain PyTorch, the whole frame), rgba at rtol 1e-4 plus 1e-6 of the
+    largest |value| (the deposit's atomics and the reductions sum in other
+    orders); then march_window_check."""
+    import numpy as np
+
+    from goliath_torch.models.hand_mvp import prim_bases
+    from goliath_torch.ops import mvp
+    from goliath_torch.utils.timing import cuda_call_ms
+
+    args, kw = captured["march"]
+    gd = captured["model"].module.geomdecoder
+    _, rot, fallback = prim_bases(captured["geom_lbs"], gd.geo_fn.vt,
+                                  gd.vidx, gd.vtidx, gd.bary)
+    log(f"hand_mvp frame 0: {int(fallback.sum())} of {fallback.numel()} "
+        f"prim base frames fell back to the identity, "
+        f"{int((~torch.isfinite(rot)).any(-1).any(-1).sum())} are not finite")
+    drops = {}
+    got, ms = cuda_call_ms(lambda: mvp.mvp_raymarch_tiled(
+        *args, drops=drops, **kw))
+    drops = {k: int(v) for k, v in drops.items()}
+    log(f"hand_mvp frame 0 march drops: {json.dumps(drops)}")
+    log(f"hand_mvp frame 0 march with the drop counts: {ms:.3f} ms on "
+        f"{card_line}")
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    t0 = time.perf_counter()
+    ref = mvp.mvp_raymarch_tiled(*cpu, **kw)
+    cpu_s = time.perf_counter() - t0
+    got, ref = got.cpu().numpy(), ref.numpy()
+    err = np.abs(got - ref)
+    allowed = 1e-4 * np.abs(ref) + 1e-6 * float(np.abs(ref).max())
+    n_over = int((err > allowed).sum())
+    log(f"hand_mvp frame 0 march, card vs CPU plain ({cpu_s:.1f} s on "
+        f"{torch.get_num_threads()} threads): max abs err "
+        f"{float(err.max()):.3e} of largest |rgba| "
+        f"{float(np.abs(ref).max()):.6g}, {n_over} entries over rtol 1e-4 "
+        f"+ 1e-6 of the largest")
+    if n_over or got.shape != ref.shape:
+        raise AssertionError("the card's march disagrees with the CPU's")
+    march_window_check(torch, args, kw)
+    return {"march_ms": ms, "drops": drops}
+
+
+def march_window_check(torch, args, kw):
+    """march_reference (every prim, every step) against the tiled march on
+    the card, on frame 0's MVP_WINDOW x MVP_WINDOW pixels at the image
+    centre, with nothing dropped: max_prims_per_ray = max_prims_per_tile =
+    the window's largest tile list (rounded up to the chunk), no window
+    (window_steps None), and both marching from a common tmin in front of
+    the sphere for as many steps as reach past it. rgba at rtol 1e-3 plus
+    1e-4 of the largest |value| (the two sample on grids from tmin and
+    from each ray's aligned first step, equal up to rounding)."""
+    import numpy as np
+
+    from goliath_torch.ops import mvp
+
+    raypos, raydir, stepsize, tminmax, pos, rot, scale, tpl, K_cam, Rt = args
+    H, W = raypos.shape[:2]
+    ts = kw.get("tile_size", 16)
+    n = MVP_WINDOW
+    y0, x0 = (H // 2) // ts * ts, (W // 2) // ts * ts
+    win = (slice(y0, y0 + n), slice(x0, x0 + n))
+    rp, rd = raypos[win].contiguous(), raydir[win].contiguous()
+    K_w = K_cam.clone()
+    K_w[:2, 2] -= K_w.new_tensor([x0, y0])
+    # the sphere lies within |p| <= the prims' reach around the origin of
+    # the normalized frame; the rays start at the camera
+    reach = float((pos.norm(dim=-1) + 2.0 / scale.amin(-1)).amax())
+    dist = float(rp[0, 0].norm())
+    t_lo, t_hi = max(dist - reach, 0.0), dist + reach
+    steps = int(math.ceil((t_hi - t_lo) / stepsize)) + 2
+    tm = torch.stack([torch.full_like(tminmax[win][..., 0], t_lo),
+                      tminmax[win][..., 1]], -1)
+    # the window's longest tile list, from a march of one slot a ray
+    drops = {}
+    march_kw = dict(kw, max_steps=steps, window_steps=None,
+                    max_prims_per_tile=pos.shape[0], max_prims_per_ray=1,
+                    chunk=1)
+    mvp.mvp_raymarch_tiled(rp, rd, stepsize, tm, pos, rot, scale, tpl, K_w,
+                           Rt, drops=drops, **march_kw)
+    chunk = kw.get("chunk", 16)
+    m = -(-int(max(1, drops["max_tile_list"])) // chunk) * chunk
+    march_kw.update(max_prims_per_tile=m, max_prims_per_ray=m, chunk=chunk)
+    drops = {}
+    tiled = mvp.mvp_raymarch_tiled(rp, rd, stepsize, tm, pos, rot, scale,
+                                   tpl, K_w, Rt, drops=drops, **march_kw)
+    ref = mvp.march_reference(rp.reshape(-1, 3), rd.reshape(-1, 3),
+                              stepsize, tm.reshape(-1, 2), pos, rot, scale,
+                              tpl, steps).reshape(n, n, 4).permute(2, 0, 1)
+    drops = {k: int(v) for k, v in drops.items()}
+    dropped = {k: drops[k] for k in (
+        "prims_dropped", "prims_cut", "prims_clipped", "tiles_full",
+        "rays_over_r", "window_cut_pairs", "rays_step_capped")}
+    got, ref = tiled.cpu().numpy(), ref.cpu().numpy()
+    err = np.abs(got - ref)
+    allowed = 1e-3 * np.abs(ref) + 1e-4 * float(np.abs(ref).max())
+    n_over = int((err > allowed).sum())
+    log(f"hand_mvp frame 0, {n}x{n} window at ({x0}, {y0}): every prim on "
+        f"{steps} steps from t {t_lo:.6f}, tile lists and rays of {m} "
+        f"prims; drops {dropped}; "
+        f"largest |rgba| {float(np.abs(ref).max()):.6g}, alpha max "
+        f"{float(ref[3].max()):.6g}; max abs err {float(err.max()):.3e}, "
+        f"{n_over} entries over rtol 1e-3 + 1e-4 of the largest")
+    if any(dropped.values()) or n_over:
+        raise AssertionError("march_reference and the tiled march disagree "
+                             "on the window (or a drop separated them)")
+
+
 def check_k6(gc, torch, steps):
     """K6 forward and backward against their plain versions on the own
     inputs of every fold training step (the rows, global tile bounds, cnt,
@@ -2755,6 +3057,16 @@ def main() -> int:
               urhand_train_inputs["edge"])
     del urhand_train_inputs
     torch.cuda.empty_cache()
+    hand_mvp_inputs = {}
+    phase("hand_mvp_eval_path", hand_mvp_eval_path, gc, torch, card_line,
+          hand_mvp_inputs)
+    if hand_mvp_inputs.get("k4"):
+        phase("k4_mvp", k4_mvp_check, gc, torch, hand_mvp_inputs["k4"])
+    if {"march", "model", "geom_lbs"} <= set(hand_mvp_inputs):
+        phase("mvp_march_check", mvp_march_check, torch, hand_mvp_inputs,
+              card_line)
+    del hand_mvp_inputs
+    torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
 
     # the phases that return (launches, measurements) of several kernels
@@ -2775,6 +3087,7 @@ def main() -> int:
              "mesh_train": phases.get("mesh_train_path", {}),
              "urhand": phases.get("urhand_eval_path", {}),
              "urhand_train": phases.get("urhand_train_path", {}),
+             "hand_mvp_eval": phases.get("hand_mvp_eval_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check"]),
@@ -2785,7 +3098,7 @@ def main() -> int:
                   "xla_window_check:pair_grads_xla"]),
               "cumsum_cols": ("K3", ["k3_check", "backward_check"]),
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh",
-                                  "k4_urhand", "k4_urhand_train"]),
+                                  "k4_urhand", "k4_urhand_train", "k4_mvp"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
                                  "k5_urhand_shadow", "k5_urhand_render",
                                  "k5_urhand_train"]),

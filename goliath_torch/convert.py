@@ -9,7 +9,12 @@ mesh_vae's and URHand's (``decoder_relight`` with its ``geo_refiner``,
 ``featenc`` with bias-free ``Conv2dWN``s, which carry no ``bias`` entry in
 either package, ``joint_conv_block_tex``, ``texmod0_*`` / ``texmod1_*`` and
 the two scalars ``global_albedo_scale`` / ``global_scale``; ``cal`` when
-present).
+present) and the MVP hand's (``poseencoder``, ``geomdecoder`` with its
+``transdecoder`` and the ``alphadecoder`` slab, ``rgbdecoder.texdecoder``;
+``cal`` and ``learn_blur`` when present). Flax's ``nn.remat`` wrappers of
+the two slab decoders add no level to the tree: their parameters sit under
+``geomdecoder.alphadecoder`` and ``rgbdecoder.texdecoder`` as the port's
+do.
 """
 
 from __future__ import annotations

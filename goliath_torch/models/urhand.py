@@ -39,6 +39,7 @@ from goliath_torch.ops.backend import resolve_device
 from goliath_torch.ops.rasterizer import RenderLayer
 from goliath_torch.utils.geom import (
     GeometryModule,
+    _normalize,
     make_uv_vert_index,
     vert_normals,
     xyz2normals,
@@ -55,11 +56,6 @@ from goliath_torch.utils.seams import SeamSampler
 from goliath_torch.utils.shadowmap import get_shadow_map
 
 logger = logging.getLogger(__name__)
-
-
-def _normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12
-               ) -> torch.Tensor:
-    return v / torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True) + eps)
 
 
 def _norm_cf(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -8,8 +8,9 @@ groups the pairs per tile in depth order; ``searchsorted`` gives each tile's
 replace dynamic allocation; overflow drops the farthest primitives.
 
 The two prefix sums (per-prim pair ends and slot owners) run as kernel K4
-on CUDA tensors (``gsplat_cuda.cumsum1d``). The 3-D ``CellBinning`` of the
-MVP path is not ported yet (ROADMAP queue 1, MVP path).
+on CUDA tensors (``gsplat_cuda.cumsum1d``). The MVP march bins its prims'
+projected boxes here too (``ops/mvp.py``); the 3-D ``CellBinning`` of the
+OLAT teacher's deep shadows is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -32,6 +33,34 @@ class TileBinning(NamedTuple):
                                 # (== num_tiles for unused slots)
     num_tiles_x: int
     num_tiles_y: int
+
+
+def clip_spans(tile_min: torch.Tensor, tile_max: torch.Tensor, ntx: int,
+               nty: int, K: int):
+    """Each primitive's tile rect clipped to the ``ntx`` x ``nty`` grid,
+    and, where its area exceeds ``K`` tiles, center-cropped to fit while
+    keeping its aspect: (x0, y0, w, h), int32 [N] each."""
+    x0 = tile_min[:, 0].clamp(0, ntx)
+    y0 = tile_min[:, 1].clamp(0, nty)
+    x1 = tile_max[:, 0].clamp(0, ntx)
+    y1 = tile_max[:, 1].clamp(0, nty)
+
+    w = (x1 - x0).clamp(min=0)
+    h = (y1 - y0).clamp(min=0)
+    # center-crop spans whose AREA exceeds the per-prim budget, preserving
+    # aspect: w' = w*sqrt(K/area) rounded down, h' = min(h, K // w')
+    area = w * h
+    over = area > K
+    ratio = torch.sqrt(K / area.float().clamp(min=1.0))
+    w_c = (w.float() * ratio).to(torch.int32).clamp(1, K)
+    w_new = torch.where(over, torch.minimum(w_c, w), w)
+    h_new = torch.minimum(h, K // w_new.clamp(min=1))
+    cx = (x0 + x1) // 2
+    cy = (y0 + y1) // 2
+    x0 = torch.where(w_new < w, (cx - w_new // 2).clamp(0, ntx), x0)
+    y0 = torch.where(h_new < h, (cy - h_new // 2).clamp(0, nty), y0)
+    w, h = w_new, h_new
+    return x0, y0, w, h
 
 
 def bin_to_tiles(
@@ -58,26 +87,8 @@ def bin_to_tiles(
     num_tiles = num_tiles_x * num_tiles_y
     K = max_tiles_per_prim
 
-    x0 = tile_min[:, 0].clamp(0, num_tiles_x)
-    y0 = tile_min[:, 1].clamp(0, num_tiles_y)
-    x1 = tile_max[:, 0].clamp(0, num_tiles_x)
-    y1 = tile_max[:, 1].clamp(0, num_tiles_y)
-
-    w = (x1 - x0).clamp(min=0)
-    h = (y1 - y0).clamp(min=0)
-    # center-crop spans whose AREA exceeds the per-prim budget, preserving
-    # aspect: w' = w*sqrt(K/area) rounded down, h' = min(h, K // w')
-    area = w * h
-    over = area > K
-    ratio = torch.sqrt(K / area.float().clamp(min=1.0))
-    w_c = (w.float() * ratio).to(torch.int32).clamp(1, K)
-    w_new = torch.where(over, torch.minimum(w_c, w), w)
-    h_new = torch.minimum(h, K // w_new.clamp(min=1))
-    cx = (x0 + x1) // 2
-    cy = (y0 + y1) // 2
-    x0 = torch.where(w_new < w, (cx - w_new // 2).clamp(0, num_tiles_x), x0)
-    y0 = torch.where(h_new < h, (cy - h_new // 2).clamp(0, num_tiles_y), y0)
-    w, h = w_new, h_new
+    x0, y0, w, h = clip_spans(tile_min, tile_max, num_tiles_x, num_tiles_y,
+                              K)
 
     counts = torch.where(valid, w * h, 0).to(torch.int32)   # [N]
     ends = cumsum1d(counts)                                  # inclusive (K4)

@@ -1,0 +1,519 @@
+"""Mixture-of-Volumetric-Primitives raymarcher (port of the march half of
+the JAX package's ops/mvp.py; the reference is the CUDA extension
+extensions/mvpraymarch).
+
+Semantics:
+  * K rigid box primitives, each an RGBA voxel grid ``template[K, 4, TD, TH,
+    TW]`` with an SRT transform (primpos, primrot, primscale); a sample at
+    x lies at y = primscale * (primrot^T (x - primpos)) in prim coords and
+    counts iff |y|_inf < 1;
+  * trilinear template samples (grid_sample, align_corners=False, zeros
+    padding), alpha faded at the borders by exp(-fadescale * sum |y_i|^
+    fadeexp);
+  * additive accumulation with saturation: A += alpha * stepsize, each
+    sample adds (min(A_new, 1) - A_old) * (rgb, 1), as a cumsum and clamp.
+
+The tiled march culls prims to screen tiles by projecting their world
+AABBs (``ops/binning.bin_to_tiles``, whose two prefix sums run as kernel K4
+on CUDA tensors) and marches each tile's rays on a fixed step grid aligned
+to the ray's tmin. It keeps the JAX march's drops exactly: a prim's tiles
+are clipped to ``max_tiles_per_prim``; the pair budget is
+``pair_budget_mult`` * K and slots past it are lost; each tile keeps its
+first ``max_prims_per_tile`` pairs; each ray marches its nearest
+``max_prims_per_ray`` hit prims; each (prim, ray) pair takes
+``window_steps`` steps from its span's entry; the march takes
+``max_steps`` steps. How tiles are grouped is the port's own: empty tiles
+are skipped, and a group holds as many tiles as ``GROUP_TAPS`` samples
+allow. Window samples land on the step grid by one ``scatter_add_`` (the
+JAX package's one-hot einsum deposit, a TPU device for avoiding scatters,
+computes the same sums).
+
+``march_reference`` is the exact oracle over every prim and every ray.
+The deep-shadow half of the JAX module comes with the OLAT teacher
+(ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from goliath_torch.ops.binning import bin_to_tiles, clip_spans
+
+# samples (taps) a tile group of the tiled march computes at once: its
+# temporaries, a few hundred bytes a tap, stay within a few GiB
+GROUP_TAPS = 1 << 24
+
+
+def _sat_int(x: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
+    """Float -> int as XLA converts: saturating, NaN to 0 (a plain
+    ``.to(int)`` gives INT_MIN for inf and NaN on the CPU)."""
+    return torch.nan_to_num(x, nan=0.0).clamp(
+        -2.0 ** 31, 2.0 ** 31 - 128).to(dtype)
+
+
+def prim_world_aabb(primpos: torch.Tensor, primrot: torch.Tensor,
+                    primscale: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """AABB of each prim's [-1, 1]^3 box in world space. primscale is the
+    inverse half-extent, so the half-extent along world axis i is
+    sum_j |R[i, j]| / scale_j."""
+    half = (primrot.abs() * (1.0 / primscale)[:, None, :]).sum(-1)  # [K, 3]
+    return primpos - half, primpos + half
+
+
+class PackedVolume(NamedTuple):
+    """Voxel rows packed for trilinear taps: row ((k*D + z)*H + y)*W + x
+    holds vol[k, :, z, y, x] then vol[k, :, z, y, min(x+1, W-1)], so one
+    gather of a 2C-float row fetches both x corners of every channel (the
+    JAX package keeps the same table channel-first for the TPU's lanes)."""
+
+    rows: torch.Tensor                     # [K*D*H*W, 2C]
+    shape: Tuple[int, int, int, int, int]  # (K, C, D, H, W)
+
+
+def pack_volume(vol: torch.Tensor) -> PackedVolume:
+    """[K, C, D, H, W] -> PackedVolume (2x the memory)."""
+    K, C, D, H, W = vol.shape
+    nxt = torch.cat([vol[..., 1:], vol[..., -1:]], dim=-1)
+    rows = torch.cat([vol, nxt], dim=1)              # [K, 2C, D, H, W]
+    rows = rows.permute(0, 2, 3, 4, 1).reshape(-1, 2 * C)
+    return PackedVolume(rows, (K, C, D, H, W))
+
+
+def _packed(v) -> PackedVolume:
+    return v if isinstance(v, PackedVolume) else pack_volume(v)
+
+
+def sample_packed_cf(pv: PackedVolume, prim_ids: torch.Tensor,
+                     yx: torch.Tensor, yy: torch.Tensor, yz: torch.Tensor
+                     ) -> torch.Tensor:
+    """Trilinear samples of packed per-prim volumes at the coordinates yx,
+    yy, yz [...] (in [-1, 1]; zeros outside): [C, ...]. prim_ids
+    broadcasts against the leading axes. At x in [-1, -1 + 1/W) the second
+    x corner is the packed row's vol[1], as in the JAX package."""
+    K, C, D, H, W = pv.shape
+    x = (yx + 1.0) * (W / 2.0) - 0.5
+    v = (yy + 1.0) * (H / 2.0) - 0.5
+    z = (yz + 1.0) * (D / 2.0) - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(v)
+    z0 = torch.floor(z)
+    wx = x - x0
+    wy = v - y0
+    wz = z - z0
+    x0i, y0i, z0i = _sat_int(x0), _sat_int(y0), _sat_int(z0)
+    xin0 = (x0i >= 0) & (x0i < W)
+    xin1 = (x0i + 1 >= 0) & (x0i + 1 < W)
+    xc = x0i.clamp(0, W - 1)
+    base = prim_ids.reshape(
+        prim_ids.shape + (1,) * (yx.dim() - prim_ids.dim())).long()
+    w0 = ((1 - wx) * xin0).reshape(-1, 1)
+    w1 = (wx * xin1).reshape(-1, 1)
+    out = None
+    for dz in (0, 1):
+        zi = z0i + dz
+        zv = (zi >= 0) & (zi < D)
+        zc = zi.clamp(0, D - 1)
+        wzz = wz if dz else 1 - wz
+        for dy in (0, 1):
+            yi = y0i + dy
+            yv = (yi >= 0) & (yi < H)
+            yc = yi.clamp(0, H - 1)
+            ridx = ((base * D + zc) * H + yc) * W + xc
+            r = pv.rows[ridx.reshape(-1)]                  # [n, 2C]
+            wyy = ((wy if dy else 1 - wy) * wzz * (zv & yv)).reshape(-1, 1)
+            term = (r[:, :C] * w0 + r[:, C:] * w1) * wyy
+            out = term if out is None else out + term
+    return out.reshape(x.shape + (C,)).movedim(-1, 0)
+
+
+def sample_packed(pv: PackedVolume, prim_ids: torch.Tensor, y: torch.Tensor
+                  ) -> torch.Tensor:
+    """Channel-last ``sample_packed_cf``: y [..., 3] -> [..., C]."""
+    return sample_packed_cf(pv, prim_ids, y[..., 0], y[..., 1],
+                            y[..., 2]).movedim(0, -1)
+
+
+def _pow_abs(y: torch.Tensor, fadeexp: float) -> torch.Tensor:
+    """|y|^fadeexp, by repeated squaring for an integer exponent (the
+    rounding of the JAX package's, which ``torch.pow`` does not share)."""
+    fe = float(fadeexp)
+    if fe == int(fe) and int(fe) >= 1:
+        n = int(fe)
+        acc = None
+        bit = y.abs()
+        while n:
+            if n & 1:
+                acc = bit if acc is None else acc * bit
+            n >>= 1
+            if n:
+                bit = bit * bit
+        return acc
+    return y.abs() ** fadeexp
+
+
+def sample_prims_cf(template, prim_ids: torch.Tensor, yx: torch.Tensor,
+                    yy: torch.Tensor, yz: torch.Tensor, fadescale: float,
+                    fadeexp: float, warp=None) -> torch.Tensor:
+    """RGBA samples with the border fade, channel-first: [4, ...] (alpha
+    faded and zero outside the box). With a warp field [K, 3, WD, WH, WW]
+    the template is sampled at the warped coordinate while the fade and
+    the validity use the coordinate before the warp (reference
+    primsampler.h:44-67). ``template`` and ``warp`` may come packed."""
+    fade = torch.exp(-fadescale * (_pow_abs(yx, fadeexp)
+                                   + _pow_abs(yy, fadeexp)
+                                   + _pow_abs(yz, fadeexp)))
+    valid = (yx.abs() < 1.0) & (yy.abs() < 1.0) & (yz.abs() < 1.0)
+    if warp is not None:
+        w3 = sample_packed_cf(_packed(warp), prim_ids, yx, yy, yz)
+        yx, yy, yz = w3[0], w3[1], w3[2]
+    rgba = sample_packed_cf(_packed(template), prim_ids, yx, yy, yz)
+    alpha = rgba[3] * fade * valid
+    return torch.cat([rgba[:3], alpha[None]], dim=0)
+
+
+def sample_prims(template, prim_ids: torch.Tensor, y: torch.Tensor,
+                 fadescale: float, fadeexp: float, warp=None
+                 ) -> torch.Tensor:
+    """Channel-last ``sample_prims_cf``: y [CH, S, 3] -> [CH, S, 4]."""
+    return sample_prims_cf(template, prim_ids, y[..., 0], y[..., 1],
+                           y[..., 2], fadescale, fadeexp,
+                           warp=warp).movedim(0, -1)
+
+
+def accumulate_additive(rgb: torch.Tensor, alpha: torch.Tensor,
+                        stepsize: float) -> torch.Tensor:
+    """Additive compositing with saturation of the samples of rays along
+    the step axis (dim -1 of ``alpha`` [..., S], dim -2 of ``rgb``
+    [..., S, 3]): [..., 4]."""
+    A = torch.cumsum(alpha * stepsize, dim=-1)
+    A_clip = A.clamp(max=1.0)
+    contrib = torch.diff(A_clip, dim=-1,
+                         prepend=torch.zeros_like(A_clip[..., :1]))
+    rgb_out = (rgb * contrib[..., None]).sum(-2)
+    a_out = A_clip[..., -1] if A_clip.shape[-1] else alpha.new_zeros(
+        alpha.shape[:-1])
+    return torch.cat([rgb_out, a_out[..., None]], dim=-1)
+
+
+def march_reference(
+    raypos: torch.Tensor,     # [R, 3]
+    raydir: torch.Tensor,     # [R, 3]
+    stepsize: float,
+    tminmax: torch.Tensor,    # [R, 2]
+    primpos: torch.Tensor,    # [K, 3]
+    primrot: torch.Tensor,    # [K, 3, 3]
+    primscale: torch.Tensor,  # [K, 3]
+    template: torch.Tensor,   # [K, 4, TD, TH, TW]
+    max_steps: int,
+    fadescale: float = 8.0,
+    fadeexp: float = 8.0,
+    warp: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Exact oracle: every prim on ``max_steps`` steps from each ray's
+    tmin. Returns [R, 4]. Prims are sampled in blocks of at most
+    GROUP_TAPS / 4 samples, whose sums are added in block order."""
+    Rn, K, S = raypos.shape[0], primpos.shape[0], max_steps
+    t = tminmax[:, 0:1] + stepsize * torch.arange(
+        S, dtype=raypos.dtype, device=raypos.device)[None]      # [R, S]
+    live = t <= tminmax[:, 1:2]
+    pos = raypos[:, None] + raydir[:, None] * t[..., None]       # [R, S, 3]
+    tpv = _packed(template)
+    wpv = None if warp is None else _packed(warp)
+    kb = max(1, (GROUP_TAPS // 4) // max(Rn * S, 1))
+    alpha = rgb_w = 0.0
+    for k0 in range(0, K, kb):
+        ks = torch.arange(k0, min(k0 + kb, K), device=raypos.device)
+        rel = pos[None] - primpos[ks][:, None, None]              # [k,R,S,3]
+        y = torch.einsum("kij,krsi->krsj", primrot[ks], rel) \
+            * primscale[ks][:, None, None]
+        smp = sample_prims(tpv, ks, y.reshape(len(ks), -1, 3), fadescale,
+                           fadeexp, warp=wpv).reshape(len(ks), Rn, S, 4)
+        # several prims at one sample point: below saturation their
+        # contributions sum, at saturation the clamp takes the partial
+        # step, so summed alphas with the alpha-weighted mean rgb match
+        # the reference's per-prim events
+        alpha = alpha + smp[..., 3].sum(0)
+        rgb_w = rgb_w + (smp[..., :3] * smp[..., 3:4]).sum(0)
+    alpha = alpha * live
+    safe_a = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
+    return accumulate_additive(rgb_w / safe_a[..., None], alpha, stepsize)
+
+
+def _ray_box_span_g(raypos, raydir, pmin, pmax):
+    """Spans of rays [g, P, 3] through boxes [g, M, 3]: ([g,M,P], [g,M,P])."""
+    inv = 1.0 / torch.where(raydir.abs() < 1e-12,
+                            torch.full_like(raydir, 1e-12), raydir)
+    t1 = (pmin[:, :, None] - raypos[:, None]) * inv[:, None]
+    t2 = (pmax[:, :, None] - raypos[:, None]) * inv[:, None]
+    tmin = torch.minimum(t1, t2).amax(dim=-1)
+    tmax = torch.maximum(t1, t2).amin(dim=-1)
+    return tmin, tmax
+
+
+def _ray_box_span(raypos, raydir, pmin, pmax):
+    """Spans of rays [P, 3] through boxes [CH, 3]: ([CH, P], [CH, P])."""
+    tmin, tmax = _ray_box_span_g(raypos[None], raydir[None], pmin[None],
+                                 pmax[None])
+    return tmin[0], tmax[0]
+
+
+def _to_tiles(img_hw: torch.Tensor, ntx: int, nty: int, ts: int
+              ) -> torch.Tensor:
+    """[H, W, C] -> [T, P, C], the image's last row and column repeated to
+    whole tiles."""
+    H, W, C = img_hw.shape
+    rows = torch.arange(nty * ts, device=img_hw.device).clamp(max=H - 1)
+    cols = torch.arange(ntx * ts, device=img_hw.device).clamp(max=W - 1)
+    x = img_hw[rows][:, cols]
+    x = x.reshape(nty, ts, ntx, ts, C).permute(0, 2, 1, 3, 4)
+    return x.reshape(nty * ntx, ts * ts, C)
+
+
+def _count(drops: Optional[Dict[str, torch.Tensor]], key: str,
+           n: torch.Tensor) -> None:
+    if drops is not None:
+        drops[key] = drops.get(key, 0) + n.sum()
+
+
+def mvp_raymarch_tiled(
+    raypos: torch.Tensor,      # [H, W, 3]
+    raydir: torch.Tensor,      # [H, W, 3]
+    stepsize: float,
+    tminmax: torch.Tensor,     # [H, W, 2]
+    primpos: torch.Tensor,     # [K, 3]
+    primrot: torch.Tensor,     # [K, 3, 3]
+    primscale: torch.Tensor,   # [K, 3]
+    template: torch.Tensor,    # [K, 4, TD, TH, TW]
+    K_cam: torch.Tensor,       # [3, 3] camera intrinsics (tile culling)
+    Rt_cam: torch.Tensor,      # [3, 4]
+    max_steps: int = 128,
+    tile_size: int = 16,
+    max_prims_per_tile: int = 64,
+    chunk: int = 16,
+    max_tiles_per_prim: int = 64,
+    pair_budget_mult: int = 8,
+    fadescale: float = 8.0,
+    fadeexp: float = 8.0,
+    warp: Optional[torch.Tensor] = None,  # [K, 3, WD, WH, WW]
+    window_steps: Optional[int] = None,
+    max_prims_per_ray: int = 16,
+    drops: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Tile-culled fixed-step MVP march. Returns the rgba image [4, H, W].
+
+    Rays and prims are in the normalized volume frame (the Raymarcher
+    divides by volradius); K_cam / Rt_cam only cull prims to tiles and
+    must match the rays.
+
+    ``window_steps`` (Sp): each (prim, ray) pair samples Sp grid steps from
+    the first step inside the prim's oriented box, exact while the box's
+    span fits Sp steps (the tail is dropped otherwise; None = max_steps).
+    ``max_prims_per_ray`` (R): each ray marches the R tile prims it enters
+    first, in chunks of ``chunk`` slots; farther hits are dropped. R must
+    be a multiple of the chunk (ValueError otherwise): the JAX package's
+    last chunk would then start at R - chunk and march again the slots it
+    shares with the chunk before, in whichever of its tile groups some ray
+    needs that chunk. Tiles are marched in groups of as many as
+    GROUP_TAPS samples allow (the JAX package's ``tile_group``).
+
+    With ``drops`` given (a dict), the march adds to it what each drop
+    removed, as tensors: ``pairs_wanted`` (tile pairs after the per-prim
+    clip) against ``pair_budget``, ``prims_clipped``, ``prims_dropped``
+    (not one tile binned) and ``prims_cut`` (some tiles binned),
+    ``tiles_full`` (lists that hit max_prims_per_tile),
+    ``pairs_past_list`` and ``max_tile_list`` (the longest list before the
+    cut), ``rays_over_r`` (image rays with more than R hit
+    prims in their tile's list), ``window_cut_pairs`` and
+    ``window_cut_prims`` ((prim, ray) pairs and prims whose span went past
+    the window), ``rays_step_capped`` (hits past max_steps), and
+    ``tiles_marched`` and ``group_tiles``.
+    """
+    H, W = raypos.shape[:2]
+    dev = raypos.device
+    ts = tile_size
+    ntx = -(-W // ts)
+    nty = -(-H // ts)
+    K = primpos.shape[0]
+
+    pmin, pmax = prim_world_aabb(primpos, primrot, primscale)
+    # the 8 AABB corners, projected to the screen for the tile rects
+    corners = torch.stack([
+        torch.stack([(pmax if cx else pmin)[:, 0], (pmax if cy else pmin)[:, 1],
+                     (pmax if cz else pmin)[:, 2]], -1)
+        for cz in (0, 1) for cy in (0, 1) for cx in (0, 1)], 1)  # [K, 8, 3]
+    cam = torch.einsum("ij,knj->kni", Rt_cam[:3, :3], corners) + Rt_cam[:3, 3]
+    z = cam[..., 2].clamp(min=1e-4)
+    pix = torch.einsum("ij,knj->kni", K_cam[:2, :2],
+                       cam[..., :2] / z[..., None]) + K_cam[:2, 2]
+    behind = (cam[..., 2] <= 1e-4).any(dim=1)
+    xy_min = pix.amin(dim=1)
+    xy_max = pix.amax(dim=1)
+    # prims partly behind the camera get full-screen rects
+    xy_min = torch.where(behind[:, None], torch.zeros_like(xy_min), xy_min)
+    xy_max = torch.where(behind[:, None], xy_max.new_tensor([[W, H]]), xy_max)
+    t_min = _sat_int(torch.floor(xy_min / ts), torch.int32)
+    t_max = _sat_int(torch.floor(xy_max / ts) + 1, torch.int32)
+    budget = pair_budget_mult * K
+    binning = bin_to_tiles(t_min, t_max, torch.ones(K, dtype=torch.bool,
+                                                    device=dev),
+                           ntx, nty, max_tiles_per_prim, budget)
+
+    P = ts * ts
+    M = max_prims_per_tile
+    R = min(max_prims_per_ray, M)
+    rchunk = min(chunk, R)
+    if R % rchunk:
+        raise ValueError(
+            f"max_prims_per_ray {R} is not a multiple of chunk {rchunk}")
+    nchunks = R // rchunk
+    S = max_steps
+    Sp = S if window_steps is None else min(window_steps, S)
+    counts = binning.tile_end - binning.tile_start              # [T]
+    T = counts.shape[0]
+
+    if drops is not None:
+        for key in ("rays_over_r", "rays_step_capped", "window_cut_pairs"):
+            drops.setdefault(key, torch.zeros((), dtype=torch.int64,
+                                               device=dev))
+        _, _, w, h = clip_spans(t_min, t_max, ntx, nty, max_tiles_per_prim)
+        n = w * h
+        area = ((t_max[:, 0].clamp(0, ntx) - t_min[:, 0].clamp(0, ntx))
+                .clamp(min=0) * (t_max[:, 1].clamp(0, nty)
+                                 - t_min[:, 1].clamp(0, nty)).clamp(min=0))
+        off = torch.cumsum(n, 0) - n
+        drops["pair_budget"] = torch.tensor(budget)
+        _count(drops, "pairs_wanted", n)
+        _count(drops, "prims_clipped", area > max_tiles_per_prim)
+        _count(drops, "prims_dropped", (n > 0) & (off >= budget))
+        _count(drops, "prims_cut", (off < budget) & (off + n > budget))
+        _count(drops, "tiles_full", counts >= M)
+        drops["max_tile_list"] = counts.max()
+        _count(drops, "pairs_past_list", (counts - M).clamp(min=0))
+        inside = torch.zeros(nty * ts, ntx * ts, dtype=torch.bool,
+                             device=dev)
+        inside[:H, :W] = True                                   # image rays
+        inside = inside.reshape(nty, ts, ntx, ts).permute(0, 2, 1, 3) \
+            .reshape(T, P)
+        cut_prims = torch.zeros(K, dtype=torch.bool, device=dev)
+
+    rp_t = _to_tiles(raypos, ntx, nty, ts)                      # [T, P, 3]
+    rd_t = _to_tiles(raydir, ntx, nty, ts)
+    tm_t = _to_tiles(tminmax, ntx, nty, ts)                     # [T, P, 2]
+    tpv = _packed(template)
+    wpv = None if warp is None else _packed(warp)
+    iota_Sp = torch.arange(Sp, device=dev, dtype=torch.int64)
+    iota_S = torch.arange(S, device=dev, dtype=raypos.dtype)
+
+    # empty tiles march nothing: their rgba is 0 (one host sync a call)
+    live = torch.nonzero(counts > 0).squeeze(1)
+    g = max(1, GROUP_TAPS // (rchunk * Sp * P))
+    if drops is not None:
+        drops["tiles_marched"] = torch.tensor(live.numel())
+        drops["group_tiles"] = torch.tensor(g)
+    out = raypos.new_zeros(T, 4, P)
+    for i0 in range(0, live.numel(), g):
+        idx = live[i0:i0 + g]
+        gs = idx.numel()
+        rp_g, rd_g, tm_g = rp_t[idx], rd_t[idx], tm_t[idx]
+        idxs = binning.tile_start[idx][:, None] + torch.arange(
+            M, device=dev, dtype=torch.int32)                   # [g, M]
+        pm = idxs < binning.tile_end[idx][:, None]
+        pids = binning.sorted_prim[idxs.clamp(0, budget - 1).long()].long()
+
+        # each ray's span across its tile's prims
+        tmin_pk, tmax_pk = _ray_box_span_g(rp_g, rd_g, pmin[pids],
+                                           pmax[pids])          # [g, M, P]
+        hit = (tmax_pk > tmin_pk) & pm[..., None]
+        inf = torch.full_like(tmin_pk, float("inf"))
+        t_enter = torch.where(hit, tmin_pk, inf).amin(dim=1)     # [g, P]
+        t_exit = torch.where(hit, tmax_pk, -inf).amax(dim=1)
+        t_enter = torch.maximum(t_enter, tm_g[..., 0])
+        t_exit = torch.minimum(t_exit, tm_g[..., 1])
+        any_hit = torch.isfinite(t_enter) & (t_exit > t_enter)
+        t_enter = torch.where(any_hit, t_enter, torch.zeros_like(t_enter))
+        t_exit = torch.where(any_hit, t_exit, torch.full_like(t_exit, -1.0))
+
+        # each ray's R nearest hit prims by entry depth (a stable sort:
+        # the JAX package's is unstable, which only orders equal depths)
+        keyT = torch.where(hit, tmin_pk, inf).transpose(1, 2)    # [g, P, M]
+        key_s, slot_s = torch.sort(keyT, dim=2, stable=True)
+        slotR = slot_s[..., :R]                                 # [g, P, R]
+        hitR = torch.isfinite(key_s[..., :R])
+
+        # steps on the grid of the ray's tmin, as the CUDA kernel aligns
+        # them (mvpraymarch_subset_kernel.h:76-79)
+        t0 = tm_g[..., 0] + torch.floor(
+            (t_enter - tm_g[..., 0]).clamp(min=0.0) / stepsize) * stepsize
+        if drops is not None:
+            ins = inside[idx]
+            _count(drops, "rays_over_r", (hit.sum(1) > R) & ins)
+            _count(drops, "rays_step_capped", any_hit & ins & (
+                t0 + (S - 1) * stepsize + 1e-5 < t_exit))
+
+        # taps [g, P, rc, Sp]: each ray's slots, each slot's window steps
+        acc = raypos.new_zeros(gs, P, 4, S)
+        for ci in range(nchunks):
+            if ci and not bool((hitR.sum(2) > ci * rchunk).any()):
+                break   # hit slots are sorted first: no ray has more
+            c0 = ci * rchunk
+            sl = slotR[..., c0:c0 + rchunk]                     # [g, P, rc]
+            hm = hitR[..., c0:c0 + rchunk]
+            gp = pids.gather(1, sl.reshape(gs, -1)).reshape(sl.shape)
+            # prim coords along the ray: y_j(t) = A_j t + B_j
+            Rr = primrot[gp]                                    # [g,P,rc,3,3]
+            psc = primscale[gp]                                 # [g,P,rc,3]
+            Ac = torch.einsum("gpkij,gpi->gpkj", Rr, rd_g) * psc
+            rel0 = rp_g[:, :, None] - primpos[gp]               # [g,P,rc,3]
+            Bc = torch.einsum("gpkij,gpki->gpkj", Rr, rel0) * psc
+            # spans of the oriented slabs |y_j(t)| < 1, the exact support
+            # of the samples' validity
+            invA = 1.0 / torch.where(Ac.abs() < 1e-12,
+                                     torch.full_like(Ac, 1e-12), Ac)
+            t1 = (-1.0 - Bc) * invA
+            t2 = (1.0 - Bc) * invA
+            tmin_c = torch.minimum(t1, t2).amax(dim=-1)           # [g,P,rc]
+            tmax_c = torch.maximum(t1, t2).amin(dim=-1)
+            ok = (tmax_c > tmin_c) & hm
+            s_lo = _sat_int(torch.ceil(
+                (tmin_c - t0[..., None]) / stepsize - 1e-5)).clamp(0, S - 1)
+            sidx = s_lo[..., None] + iota_Sp                      # [g,P,rc,Sp]
+            tj = t0[..., None, None] + sidx * stepsize
+            msk = (ok[..., None] & (tj <= tmax_c[..., None] + 1e-5)
+                   & (sidx < S))
+            yx = Ac[..., 0, None] * tj + Bc[..., 0, None]
+            yy = Ac[..., 1, None] * tj + Bc[..., 1, None]
+            yz = Ac[..., 2, None] * tj + Bc[..., 2, None]
+            smp = sample_prims_cf(tpv, gp[..., None], yx, yy, yz,
+                                  fadescale, fadeexp, warp=wpv)  # [4,g,P,rc,Sp]
+            a = smp[3] * msk
+            vals = torch.stack([smp[0] * a, smp[1] * a, smp[2] * a, a], 2)
+            # deposit each window onto the step grid at s_lo + j
+            acc.scatter_add_(
+                3, sidx.clamp(max=S - 1).reshape(gs, P, 1, -1).expand(
+                    gs, P, 4, -1), vals.reshape(gs, P, 4, -1))
+            if drops is not None:
+                past = (ok & (s_lo + Sp < S) & (
+                    t0[..., None] + (s_lo + Sp) * stepsize
+                    <= tmax_c + 1e-5) & inside[idx][..., None])
+                _count(drops, "window_cut_pairs", past)
+                cut_prims[gp[past]] = True
+
+        steps_t = t0[..., None] + stepsize * iota_S               # [g, P, S]
+        live_s = (steps_t <= t_exit[..., None] + 1e-5) & any_hit[..., None]
+        alpha = acc[:, :, 3] * live_s
+        safe = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
+        rgb_mean = acc[:, :, :3] / safe[:, :, None]
+        A = torch.cumsum(alpha * stepsize, dim=-1)
+        A_clip = A.clamp(max=1.0)
+        contrib = torch.diff(A_clip, dim=-1,
+                             prepend=torch.zeros_like(A_clip[..., :1]))
+        rgb_out = (rgb_mean * contrib[:, :, None]).sum(-1)      # [g, P, 3]
+        out[idx] = torch.cat([rgb_out, A_clip[..., -1:]], -1).transpose(1, 2)
+
+    if drops is not None:
+        drops["window_cut_prims"] = cut_prims.sum()
+    img = out.reshape(nty, ntx, 4, ts, ts).permute(2, 0, 3, 1, 4)
+    return img.reshape(4, nty * ts, ntx * ts)[:, :H, :W]

@@ -14,6 +14,8 @@ the RGCA and mesh_vae paths use).
 
 * Pinhole projections (``project_points``, ``project_points_multi``) for
   URHand's shadow maps.
+* Per-face TBN frames (``compute_tbn``) and UV position maps
+  (``make_postex``) for the MVP hand's primitive bases.
 
 View-texture unprojection comes with the path that uses it (ROADMAP
 queue 1).
@@ -266,6 +268,44 @@ def compute_view_cos(verts: torch.Tensor, faces: torch.Tensor,
     v2c = verts - camera_pos[:, None]
     v2c = v2c / torch.linalg.norm(v2c, dim=-1, keepdim=True).clamp(min=1e-12)
     return torch.einsum("bnd,bnd->bn", vn, v2c)
+
+
+def _normalize(v: torch.Tensor, dim: int = -1, eps: float = 1e-12
+               ) -> torch.Tensor:
+    """v / sqrt(|v|^2 + eps) along ``dim`` (eps inside the root, as in the
+    JAX package)."""
+    return v / torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True) + eps)
+
+
+def compute_tbn(geom: torch.Tensor, vt: torch.Tensor, vi: torch.Tensor,
+                vti: torch.Tensor):
+    """Per-face tangent, bitangent and normal from the mesh ``geom``
+    [B, V, 3] and its texture coordinates, at the faces ``vi`` / ``vti``
+    [..., 3]: three [B, ..., 3] tensors. A face of zero UV area divides by
+    zero (inf, then NaN), as in the JAX package."""
+    v0, v1, v2 = geom[:, vi[..., 0]], geom[:, vi[..., 1]], geom[:, vi[..., 2]]
+    vt0, vt1, vt2 = vt[vti[..., 0]], vt[vti[..., 1]], vt[vti[..., 2]]
+    v01, v02 = v1 - v0, v2 - v0
+    vt01, vt02 = vt1 - vt0, vt2 - vt0
+    f = 1.0 / (vt01[None, ..., 0] * vt02[None, ..., 1]
+               - vt01[None, ..., 1] * vt02[None, ..., 0])
+    tangent = f[..., None] * (
+        v01 * vt02[None, ..., 1, None] - v02 * vt01[None, ..., 1, None])
+    tangent = _normalize(tangent)
+    normal = _normalize(torch.linalg.cross(v01, v02, dim=-1))
+    bitangent = _normalize(torch.linalg.cross(tangent, normal, dim=-1))
+    return tangent, bitangent, normal
+
+
+def make_postex(v: torch.Tensor, idxim: torch.Tensor, barim: torch.Tensor
+                ) -> torch.Tensor:
+    """Barycentric blend of the vertex positions ``v`` [B, V, 3] into a UV
+    position map [B, 3, H, W] (``idxim`` [H, W, 3] vertex indices,
+    ``barim`` [H, W, 3] weights)."""
+    out = (barim[None, :, :, 0, None] * v[:, idxim[:, :, 0]]
+           + barim[None, :, :, 1, None] * v[:, idxim[:, :, 1]]
+           + barim[None, :, :, 2, None] * v[:, idxim[:, :, 2]])
+    return out.permute(0, 3, 1, 2)
 
 
 def xyz2normals(xyz: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -828,3 +828,69 @@ def test_compositor_forward_cases(cuda, ts, C, window, n_imgs):
         full = gc.probe_fwd(rows, start, end, cnt, variant="full", **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(full, (img, T, cnt)))
+
+
+@pytest.mark.parametrize("n,budget", [(4096, 32_768), (64, 512)])
+def test_cumsum1d_at_the_mvp_binning_shapes(cuda, n, budget):
+    """K4 at the MVP march's two scans: the prims' tile counts [K] (0 to
+    64 tiles each) and the slot marks [8 K] of its pair budget (the full
+    width's 4,096 prims, and the CPU test's 64), exactly."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+    counts = torch.randint(0, 65, (n,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    marks = torch.zeros(budget, dtype=torch.int32, device=cuda)
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    marks.index_add_(0, ends.clamp(max=budget - 1).long(),
+                     (ends < budget).to(torch.int32))
+    for x in (counts, marks):
+        before = gc.LAUNCHES["cumsum1d"]
+        got = gc.cumsum1d(x)
+        assert gc.LAUNCHES["cumsum1d"] == before + 1
+        assert torch.equal(got, torch.cumsum(x, 0, dtype=torch.int32))
+
+
+def test_mvp_march_on_the_card_matches_the_cpu(cuda):
+    """The tiled MVP march (its binning on K4) on the card against the same
+    function on the CPU, on tests/test_torch_mvp.py's scene of 12 random
+    boxes at 32x32 rays with every drop occurring: rtol 1e-4 plus 1e-6 of
+    the largest |value| (the deposit's atomics sum in other orders), and
+    the same drop counts."""
+    from goliath_torch.ops import mvp, raygen
+
+    rng = np.random.RandomState(0)
+    K, TD, H, W = 12, 4, 32, 32
+    q = rng.randn(K, 4)
+    w, x, y, z = (q / np.linalg.norm(q, axis=-1, keepdims=True)).T
+    rot = np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], -1).reshape(K, 3, 3)
+    pos = (rng.rand(K, 3) - 0.5) * 1.2
+    scale = 2.0 + 3.0 * rng.rand(K, 3)
+    tpl = rng.rand(K, 4, TD, TD, TD)
+    tpl[:, 3] *= 30.0
+    rp, rd, tm = raygen.compute_raydirs(
+        torch.tensor([[0.0, 0.0, -3.0]]), torch.eye(3)[None],
+        torch.tensor([[30.0, 30.0]]), torch.tensor([[W / 2, H / 2]]),
+        raygen.make_pixelcoords(1, H, W), 1.0)
+    K_cam = torch.tensor([[30.0, 0, W / 2], [0, 30.0, H / 2], [0, 0, 1]])
+    Rt = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 3.0]])
+    args = [rp[0], rd[0], 0.05, tm[0]] + [
+        torch.from_numpy(a.astype(np.float32))
+        for a in (pos, rot, scale, tpl)] + [K_cam, Rt]
+    kw = dict(max_steps=100, max_prims_per_tile=4, chunk=2,
+              max_prims_per_ray=2, window_steps=6, max_tiles_per_prim=2,
+              pair_budget_mult=1)
+    d_cpu, d_card = {}, {}
+    ref = mvp.mvp_raymarch_tiled(*args, drops=d_cpu, **kw)
+    before = gc.LAUNCHES["cumsum1d"]
+    got = mvp.mvp_raymarch_tiled(
+        *[a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args],
+        drops=d_card, **kw)
+    assert gc.LAUNCHES["cumsum1d"] == before + 2
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4,
+                               atol=1e-6 * float(ref.abs().max()))
+    assert {k: int(v) for k, v in d_card.items()} == \
+        {k: int(v) for k, v in d_cpu.items()}
+    assert int(d_cpu["prims_dropped"]) and int(d_cpu["window_cut_pairs"])
