@@ -116,11 +116,28 @@ the final result line:
      card's march against the CPU's on the whole frame, and
      march_reference against the tiled march on a 32x32 window with
      nothing dropped;
- 19. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+ 19. the OLAT teacher's eval path: goliath_torch.scripts.run_test.main on
+     configs/hand_teacher_mvp.yml at full width (hand_mvp's widths and
+     cuts, 5 lights, the 64^3 deep-shadow density grid, 32 shadow steps,
+     the UNet at uv 1024 over 5 slabs; mask_l1 on image_mask), 3 test
+     frames, counts set to 0 just before and read just after (K4 twice a
+     frame, in the march's binning, and no other kernel): finite losses,
+     images, prim colours and shadows in [0, 1], a render that is not
+     empty, each frame's march, density grid, shadow integrals and UNet by
+     CUDA events, peak memory and one profiled frame; then K4 against
+     torch.cumsum on frame 0's two scans, exactly; the density grid and
+     its drops card vs CPU and the shadow integral of each light card vs
+     CPU on 131,072 points, on the run's grid (all 0 on the sphere: its
+     prims are an eighth of a cell) and on the frame's alpha-carrying
+     prims grown 32x (whose shadows must be neither all 0 nor all 1), the
+     march's drops, and the exact per-prim shadow against the grid path
+     on 1,024 points (logged);
+ 20. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
      path and one mesh training step, the URHand eval path and one URHand
      training step, and the hand_mvp eval path, at a small size, on the
      card against the CPU (plain versions) as the small-input reference;
- 20. per kernel (and per mode of a kernel): check result, launches on each
+     then the teacher's forward at its small size, card vs CPU;
+ 21. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -1132,6 +1149,21 @@ def grad_error(got, ref):
     return worst, worst_name
 
 
+def jitter_template(ds):
+    """``ds`` with its template moved by N(0, 0.5) per vertex (as in
+    tests/test_torch_mesh_vae.py): the sphere's pole fans are faces with
+    two equal corners, whose normals are 0/0 up to rounding, so the card's
+    and the CPU's roundings of the posed mesh turn them into other
+    numbers; jittered, every face has a well-defined normal."""
+    import numpy as np
+
+    v = ds.static_assets["template_mesh_unscaled"]
+    ds.static_assets["template_mesh_unscaled"] = (
+        v + np.random.RandomState(7).randn(*v.shape) * 0.5).astype(
+            np.float32)
+    return ds
+
+
 def small_reference(torch):
     """Both RGCA entry points at configs/rgca_synthetic.yml size on the
     card (kernels) against the CPU (plain versions): the eval means, and
@@ -1142,8 +1174,6 @@ def small_reference(torch):
     one URHand training step (urhand_small_train_reference) at the size of
     tests/test_torch_urhand_run_test.py; then the hand_mvp eval path at the
     size of tests/test_torch_hand_mvp.py."""
-    import numpy as np
-
     from goliath_torch import train as train_lib
     from goliath_torch.config import load_config
     from goliath_torch.scripts import run_test, run_train
@@ -1181,20 +1211,10 @@ def small_reference(torch):
         raise AssertionError("the card's training steps disagree with the "
                              "CPU's")
 
-    # the sphere's pole fans are faces with two equal corners: their
-    # normals are 0/0 up to rounding, so the card's and the CPU's roundings
-    # of the posed mesh turn them into other numbers; the template is moved
-    # by N(0, 0.5) per vertex (as in tests/test_torch_mesh_vae.py) so that
-    # every face has a well-defined normal
     build = run_test.build_dataset
 
     def jittered(data_cfg, **kw):
-        ds = build(data_cfg, **kw)
-        v = ds.static_assets["template_mesh_unscaled"]
-        ds.static_assets["template_mesh_unscaled"] = (
-            v + np.random.RandomState(7).randn(*v.shape) * 0.5).astype(
-                np.float32)
-        return ds
+        return jitter_template(build(data_cfg, **kw))
 
     cfg = mesh_config(MESH_SMALL, MESH_SMALL_DATA)
     run_test.build_dataset = run_train.build_dataset = jittered
@@ -2098,12 +2118,11 @@ HAND_MVP_K4_PER_FRAME = 2
 MVP_WINDOW = 32
 
 
-def k4_mvp_check(gc, torch, inputs):
-    """K4 on the hand_mvp path's frame 0 scans (the [4,096] prims' tile
-    counts and the [32,768] slot marks) against torch.cumsum, exactly, and
-    timed there (time_k4)."""
-    k4_mesh_check(gc, torch, inputs, HAND_MVP_K4_PER_FRAME,
-                  "hand_mvp frame 0")
+def k4_mvp_check(gc, torch, inputs, label="hand_mvp frame 0"):
+    """K4 on an MVP march's frame 0 scans (the [4,096] prims' tile counts
+    and the [32,768] slot marks; the hand_mvp or the teacher path's)
+    against torch.cumsum, exactly, and timed there (time_k4)."""
+    k4_mesh_check(gc, torch, inputs, HAND_MVP_K4_PER_FRAME, label)
     return time_k4(gc, torch, [x.to(DEVICE) for x in inputs])
 
 
@@ -2340,6 +2359,400 @@ def march_window_check(torch, args, kw):
     if any(dropped.values()) or n_over:
         raise AssertionError("march_reference and the tiled march disagree "
                              "on the window (or a drop separated them)")
+
+
+# Cuts of configs/hand_teacher_mvp.yml: n_pose_dims 6 and global_scaling 1,
+# as hand_mvp's (HAND_MVP_CUTS); mask_l1 reads image_mask (synthetic data
+# has no segmentation_fgbg; at eval its start_at / end_at of 0 keep it on).
+# run_test drops learn_blur and cal. rgb_l2 runs as written (no mask).
+TEACHER_CUTS = ["model.n_pose_dims=6", "model.global_scaling=1.0",
+                "loss.losses.mask_l1.tgt_key=image_mask"]
+# the small config of tests/test_torch_hand_teacher.py
+TEACHER_SMALL_DATA = {"synthetic": True, "img_h": 48, "img_w": 48,
+                      "uv_size": 32, "n_cams": 2, "n_frames": 2,
+                      "n_lights": 2, "seed": 5}
+TEACHER_SMALL = [
+    "model.image_height=48", "model.image_width=48", "model.uv_size=32",
+    "model.primsize=[8, 8, 4]", "model.n_embs=8", "model.volradius=400.0",
+    "model.prim_scale=12.0", "model.raymarcher.dt=4.0",
+    "model.raymarcher.max_steps=48", "model.raymarcher.max_prims_per_tile=16",
+    "model.raymarcher.chunk=8"]
+# the shadow checks: points a light held card against CPU, and points of
+# one light for the exact oracle
+TEACHER_SHADOW_POINTS = 131_072
+# the synthetic data's n_lights default, the reference's chunk of 5 lights
+TEACHER_LIGHTS = 5
+TEACHER_EXACT_POINTS = 1_024
+# the teacher's shadow steps (OLATRGBDecoder's shadow_steps)
+TEACHER_SHADOW_STEPS = 32
+# teacher_shadow_check's second grid: the frame's prims that carry alpha,
+# primscale divided by 32: their half-extent 1/16 of the volume, two grid
+# cells at G 64 (grown 16x, the first 64 pairs of a block still miss every
+# cell centre but ~11)
+TEACHER_GROW = 32.0
+# shadow_at_points card vs CPU on the card's density grid, absolute on
+# values in [0, 1]: 32 samples of densities of up to ~1e3 summed in other
+# orders (the accumulated alpha is clamped to 1, so only points under 1
+# carry the rounding, ~1e-7 of 1)
+TEACHER_SHADOW_ATOL = 1e-5
+
+
+def teacher_config(overrides=(), data=MESH_DATA):
+    """configs/hand_teacher_mvp.yml for run_test on synthetic ``data``
+    (MESH_DATA unless given, with the synthetic data's 5 lights) with
+    TEACHER_CUTS: its losses rgb_l2 and mask_l1 (run_test drops
+    learn_blur)."""
+    from goliath_torch.config import load_config
+
+    return load_config(
+        str(ROOT / "configs" / "hand_teacher_mvp.yml"), overrides=[
+            f"data={yaml_flow(data)}", f"test.data={yaml_flow(data)}",
+            "test.ckpt=null", "test.n_test_frames=3", "test.vis_path=null",
+            *TEACHER_CUTS, *overrides])
+
+
+def hand_teacher_eval_path(gc, torch, card_line, captured):
+    """run_test.main on configs/hand_teacher_mvp.yml at full width
+    (teacher_config), counts reset just before: 3 frames with finite
+    losses, rgb, alpha, primrgb, primshadow and mvp_window_overflow; a
+    render that is not empty and shadows in [0, 1] (their share above 0
+    logged: teacher_shadow_check says why they can be all 0); K4 twice a
+    frame (the march's binning) and no other kernel.
+    Times each frame's march, density grid, shadow integrals (one a light)
+    and UNet by CUDA events, logs the peak memory; keeps in ``captured``
+    frame 0's two K4 scans, the density grid's inputs and output, the
+    shadow integrals' points, lights and outputs, and the march's
+    arguments; then profiles the last frame again on the run's model."""
+    from goliath_torch.models import hand_teacher_mvp as teacher
+    from goliath_torch.ops import binning
+    from goliath_torch.scripts import run_test
+    from goliath_torch.utils import render_raymarcher
+
+    cfg = teacher_config()
+    frames, k4_inputs, stats, built = [], [], [], {}
+    events = {"march": [], "density grid": [], "shadow": [], "UNet": []}
+    orig = {"cs": binning.cumsum1d,
+            "march": render_raymarcher.mvp_raymarch_tiled,
+            "grid": teacher.splat_density_grid,
+            "shadow": teacher.shadow_at_points,
+            "build": run_test.load_from_config}
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            events[key].append(ev)
+            return out
+        return call
+
+    def cs(x):
+        if len(k4_inputs) < HAND_MVP_K4_PER_FRAME:
+            k4_inputs.append(x.to("cpu", non_blocking=True))
+        return orig["cs"](x)
+
+    def march(*args, **kw):
+        captured.setdefault("march", (args, kw))
+        return timed("march", orig["march"])(*args, **kw)
+
+    def grid(*args, **kw):
+        out = timed("density grid", orig["grid"])(*args, **kw)
+        captured.setdefault("grid", (args, kw, out))
+        return out
+
+    def shadow(density, pts, light, *args, **kw):
+        out = timed("shadow", orig["shadow"])(density, pts, light, *args,
+                                              **kw)
+        if len(captured.setdefault("shadow", [])) < built["L"]:
+            captured["shadow"].append((pts, light, args, kw, out))
+        return out
+
+    def build(*a, **kw):
+        model = built["model"] = orig["build"](*a, **kw)
+        unet = model.module.relightdecoder.unet
+        unet.forward = timed("UNet", unet.forward)
+        orig_apply = model.apply
+
+        def apply(batch, **akw):
+            built["batch"] = batch   # the frame the loop holds anyway
+            built["L"] = batch["light_pos"].shape[1]
+            preds = orig_apply(batch, **akw)
+            alpha = preds["alpha"]
+            shadow0 = preds["primshadow"]
+            stats.append(torch.stack([
+                alpha.amax(), (alpha > 0).float().mean(),
+                torch.isfinite(preds["rgb"]).all().float(),
+                torch.isfinite(alpha).all().float(),
+                torch.isfinite(preds["primrgb"]).all().float(),
+                torch.isfinite(shadow0).all().float(),
+                preds["mvp_window_overflow"].float(),
+                shadow0.amin(), shadow0.amax(), shadow0.mean(),
+                (shadow0 > 0).float().mean()]))
+            return preds
+
+        model.apply = apply
+        built["orig_apply"] = orig_apply
+        return model
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    binning.cumsum1d = cs
+    render_raymarcher.mvp_raymarch_tiled = march
+    teacher.splat_density_grid = grid
+    teacher.shadow_at_points = shadow
+    run_test.load_from_config = build
+    gc.reset_launch_counts()
+    try:
+        means = run_test.main(cfg, device=DEVICE, frame_seconds=frames)
+        torch.cuda.synchronize()
+        launches = dict(gc.LAUNCHES)
+    finally:
+        binning.cumsum1d = orig["cs"]
+        render_raymarcher.mvp_raymarch_tiled = orig["march"]
+        teacher.splat_density_grid = orig["grid"]
+        teacher.shadow_at_points = orig["shadow"]
+        run_test.load_from_config = orig["build"]
+    peak = torch.cuda.max_memory_allocated()
+    captured["k4"] = k4_inputs
+    L = built.get("L", 0)
+    ms = {k: [a.elapsed_time(b) for a, b in v] for k, v in events.items()}
+    # one shadow integral a light: a frame's is the sum of its L
+    ms["shadow"] = [sum(ms["shadow"][i:i + L])
+                    for i in range(0, len(ms["shadow"]), max(L, 1))]
+    stats = torch.stack(stats).tolist() if stats else []
+    log(f"hand_teacher path launches: {launches}")
+    log(f"hand_teacher eval means: {json.dumps(means)}")
+    for i, sec in enumerate(frames):
+        parts = ", ".join(
+            f"{k} {v[i]:.3f} ms ({v[i] / (sec * 1e3):.3f})"
+            for k, v in ms.items() if i < len(v))
+        log(f"hand_teacher frame {i}: wall {sec:.4f} s; {parts} (CUDA "
+            f"events; share of the frame) on {card_line}")
+    log(f"peak device memory (hand_teacher eval): {peak / 2**30:.3f} GiB "
+        f"on {card_line}")
+    for i, s in enumerate(stats):
+        log(f"hand_teacher frame {i}: alpha max {s[0]:.6g}, pixels with "
+            f"alpha > 0 {s[1]:.6f}; mvp_window_overflow {s[6]:.6f}; "
+            f"primshadow min {s[7]:.6g} max {s[8]:.6g} mean {s[9]:.6g}, "
+            f"share > 0 {s[10]:.6f}")
+    if len(frames) != 3 or not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError("hand_teacher eval losses are not finite")
+    if len(stats) != 3 or not all(all(v == 1 for v in s[2:6])
+                                  and math.isfinite(s[6]) for s in stats):
+        raise AssertionError("hand_teacher rgb, alpha, primrgb, primshadow "
+                             "or mvp_window_overflow is not finite")
+    if not all(s[0] > 0 for s in stats):
+        raise AssertionError("a hand_teacher frame rendered nothing")
+    if not all(0 <= s[7] and s[8] <= 1 for s in stats):
+        raise AssertionError("a hand_teacher shadow lies outside [0, 1]")
+    if L != TEACHER_LIGHTS or any(len(v) != 3 for v in ms.values()):
+        raise AssertionError(f"hand_teacher frames timed "
+                             f"{[len(v) for v in ms.values()]} of 3 "
+                             f"(lights {L})")
+    expected = {name: 0 for name in gc.LAUNCHES}
+    expected.update(cumsum1d=3 * HAND_MVP_K4_PER_FRAME)
+    if launches != expected:
+        raise AssertionError(f"hand_teacher path launch counts {launches} "
+                             f"!= {expected}")
+    model = built.pop("model")
+    model.apply = built.pop("orig_apply")
+    del model.module.relightdecoder.unet.forward
+    captured["model"] = model
+    profile_forward(torch, model, built.pop("batch"), card_line,
+                    "profiled hand_teacher frame (forward of the last "
+                    "frame, run again)", train=False)
+    return launches
+
+
+def hold_density_grid(torch, args, kw, card_grid, label):
+    """The card's density grid ``card_grid`` of ``args`` against
+    splat_density_grid on the CPU on the same inputs, rtol 1e-5 plus 1e-6
+    of its largest value, and the two drop counts equal. Returns (the
+    card's drops, the grid's largest value)."""
+    import numpy as np
+
+    from goliath_torch.ops import mvp
+
+    drops = {}
+    mvp.splat_density_grid(*args, drops=drops, **kw)
+    drops = {k: int(v) for k, v in drops.items()}
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    ref_drops = {}
+    t0 = time.perf_counter()
+    ref = mvp.splat_density_grid(*cpu, drops=ref_drops, **kw).numpy()
+    cpu_s = time.perf_counter() - t0
+    ref_drops = {k: int(v) for k, v in ref_drops.items()}
+    got = card_grid.cpu().numpy()
+    err = np.abs(got - ref)
+    scale = float(np.abs(ref).max())
+    n_over = int((err > 1e-5 * np.abs(ref) + 1e-6 * scale).sum())
+    log(f"{label} density grid drops: {json.dumps(drops)}")
+    log(f"{label} density grid {got.shape}, card vs CPU plain ({cpu_s:.2f} "
+        f"s): max abs err {float(err.max()):.3e} of largest {scale:.6g}, "
+        f"{n_over} cells over rtol 1e-5 + 1e-6 of the largest; non-zero "
+        f"cells {int((ref != 0).sum())}")
+    if n_over or drops != ref_drops:
+        raise AssertionError(f"the card's {label} density grid disagrees "
+                             f"with the CPU's (drops {drops} vs "
+                             f"{ref_drops})")
+    return drops, scale
+
+
+def hold_shadows(torch, grid, pts, lights, outs, label, gen):
+    """The card's shadow_at_points of each light (``outs``, over every
+    point of ``pts``, or None: computed here on the held points) against
+    the CPU's on the card's ``grid`` at TEACHER_SHADOW_POINTS fixed-seed
+    points, rtol 1e-5 plus TEACHER_SHADOW_ATOL. Returns (the largest
+    error, each light's mean shadow on the held points)."""
+    import numpy as np
+
+    from goliath_torch.ops import mvp
+
+    worst, means = 0.0, []
+    grid_cpu = grid.cpu()
+    for i, light in enumerate(lights):
+        sel = torch.randperm(pts.shape[0], generator=gen)[
+            :TEACHER_SHADOW_POINTS].to(pts.device)
+        sub = pts[sel]
+        got = (mvp.shadow_at_points(grid, sub, light, TEACHER_SHADOW_STEPS)
+               if outs is None else outs[i][sel]).cpu().numpy()
+        t0 = time.perf_counter()
+        ref = mvp.shadow_at_points(grid_cpu, sub.cpu(), light.cpu(),
+                                   TEACHER_SHADOW_STEPS).numpy()
+        cpu_s = time.perf_counter() - t0
+        err = np.abs(got - ref)
+        n_over = int((err > 1e-5 * np.abs(ref) + TEACHER_SHADOW_ATOL).sum())
+        worst = max(worst, float(err.max()))
+        means.append(float(ref.mean()))
+        log(f"{label} shadow, light {i}: {sub.shape[0]} of {pts.shape[0]} "
+            f"points held ({cpu_s:.2f} s on the CPU), card vs CPU max abs "
+            f"err {float(err.max()):.3e}; mean {float(ref.mean()):.6g}, "
+            f"share > 0 {float((ref > 0).mean()):.6f}, share at 1 "
+            f"{float((ref == 1).mean()):.6f}; {n_over} over rtol 1e-5 + "
+            f"{TEACHER_SHADOW_ATOL}")
+        if n_over:
+            raise AssertionError(f"the card's {label} shadow_at_points "
+                                 f"disagrees with the CPU's for light {i}")
+    return worst, means
+
+
+def teacher_shadow_check(torch, captured, card_line):
+    """On frame 0 of hand_teacher_eval_path: the density grid and its drops
+    card vs CPU (hold_density_grid) and each light's shadow integral card
+    vs CPU (hold_shadows) on the run's own grid and outputs; the march's
+    drops. The prims of the full-width sphere (half-extent 1/512 of the
+    volume) are an eighth of a grid cell (1/32) wide, and each block sums
+    only its first 64 pairs in prim-index order (the lowest, at the UV
+    pole, carry no alpha): the run's grid, sampled at cell centres, can be
+    all 0, and its shadows with it, in the JAX package as in the port. So
+    the same checks run again on the frame's prims that carry alpha, grown
+    TEACHER_GROW times (primscale / TEACHER_GROW), where the grid must not
+    be all 0 and the shadows neither all 0 nor all 1. Last,
+    the gap between shadow_at_points_exact (every prim's own field) and
+    the run's grid path on TEACHER_EXACT_POINTS points of the first light,
+    logged, not held to a limit (the grid's resampling and its drops)."""
+    from goliath_torch.ops import mvp
+    from goliath_torch.utils.timing import cuda_call_ms
+
+    args, kw, density = captured["grid"]
+    shadows = captured["shadow"]
+    pts = shadows[0][0]
+    lights = [s[1] for s in shadows]
+    if len(lights) != TEACHER_LIGHTS or any(
+            s[0] is not pts or s[2:4] != ((TEACHER_SHADOW_STEPS,), {})
+            for s in shadows):
+        raise AssertionError(f"frame 0's shadow calls differ from the "
+                             f"teacher's ({len(lights)} lights)")
+    gen = torch.Generator().manual_seed(0)
+    label = "hand_teacher frame 0"
+    drops, _ = hold_density_grid(torch, args, kw, density, label)
+    worst, means = hold_shadows(torch, density, pts, lights,
+                                [s[4] for s in shadows], label, gen)
+    _, ms = cuda_call_ms(lambda: mvp.splat_density_grid(*args, **kw))
+    log(f"{label} density grid again: {ms:.3f} ms on {card_line}")
+
+    keep = args[3].flatten(1).sum(1) > 0
+    grown = [a[keep] for a in args[:4]] + list(args[4:])
+    grown[2] = grown[2] / TEACHER_GROW
+    label_g = (f"{label}, the {int(keep.sum())} prims with alpha grown "
+               f"{TEACHER_GROW:g}x")
+    grid_g = mvp.splat_density_grid(*grown, **kw)
+    _, scale = hold_density_grid(torch, grown, kw, grid_g, label_g)
+    worst_g, means_g = hold_shadows(torch, grid_g, pts, lights, None,
+                                    label_g, gen)
+    if not (scale > 0 and 0 < min(means_g) and max(means_g) < 1):
+        raise AssertionError(f"the grown prims' shadows are all 0 or all 1 "
+                             f"(grid max {scale}, means {means_g})")
+
+    margs, mkw = captured["march"]
+    mdrops = {}
+    mvp.mvp_raymarch_tiled(*margs, drops=mdrops, **mkw)
+    log(f"{label} march drops: "
+        f"{json.dumps({k: int(v) for k, v in mdrops.items()})}")
+
+    pp, pr, ps, pa = args[:4]
+    sel = torch.randperm(pts.shape[0], generator=gen)[
+        :TEACHER_EXACT_POINTS].to(pts.device)
+    exact, exact_ms = cuda_call_ms(lambda: mvp.shadow_at_points_exact(
+        pp, pr, ps, pa, pts[sel], lights[0], TEACHER_SHADOW_STEPS))
+    grid_path = shadows[0][4][sel]
+    gap = (exact - grid_path).abs()
+    log(f"{label}, light 0: shadow_at_points_exact (every prim's field, "
+        f"{TEACHER_SHADOW_STEPS} steps) against the grid path on "
+        f"{sel.numel()} points: mean |gap| {float(gap.mean()):.6g}, q95 "
+        f"{float(gap.quantile(0.95)):.6g}, max {float(gap.max()):.6g}; "
+        f"means exact {float(exact.mean()):.6g} grid "
+        f"{float(grid_path.mean()):.6g}, exact > 0 on "
+        f"{float((exact > 0).float().mean()):.6f}; {exact_ms:.1f} ms on "
+        f"{card_line}")
+    return {"grid_ms": ms, "drops": drops,
+            "shadow_max_abs_err": max(worst, worst_g),
+            "grown_shadow_means": means_g}
+
+
+def teacher_small_reference(torch):
+    """The teacher forward at the size of tests/test_torch_hand_teacher.py
+    (uv 32, primsize [8, 8, 4], 48x48, 2 lights) on the card against the
+    CPU, on one frame of the jittered template with the same seed-0
+    weights: rgb, alpha, primrgb and primshadow at rtol SMALL_RTOL plus
+    SMALL_RTOL of each output's largest |value|."""
+    import numpy as np
+
+    from goliath_torch.config import Config, load_from_config
+    from goliath_torch.data.pipeline import collate
+    from goliath_torch.scripts import run_test
+    from goliath_torch.test import to_device
+
+    cfg = teacher_config(TEACHER_SMALL, TEACHER_SMALL_DATA)
+    ds = jitter_template(run_test.build_dataset(dict(cfg.test.data)))
+    batch = collate([ds[0]])
+    outs = {}
+    for device in (DEVICE, "cpu"):
+        model_cfg = Config.wrap(dict(cfg.model))
+        model_cfg.pop("cal", None)
+        model_cfg["learn_blur"] = False
+        model = load_from_config(model_cfg, assets=ds.static_assets,
+                                 device=device)
+        with torch.no_grad():
+            preds = model.apply(to_device(batch, model.device), train=False)
+        outs[device] = {k: preds[k].cpu().numpy() for k in (
+            "rgb", "alpha", "primrgb", "primshadow")}
+    worst = {}
+    for k, ref in outs["cpu"].items():
+        got = outs[DEVICE][k]
+        scale = float(np.abs(ref).max())
+        err = np.abs(got - ref)
+        n_over = int((err > SMALL_RTOL * (np.abs(ref) + scale)).sum())
+        worst[k] = float(err.max()) / max(scale, 1e-30)
+        if n_over or not np.isfinite(got).all() or not scale > 0:
+            raise AssertionError(f"the card's small teacher {k} disagrees "
+                                 f"with the CPU's ({n_over} entries)")
+    log(f"small-input hand_teacher forward (card vs CPU plain): max abs err "
+        f"as a fraction of the largest |value| {json.dumps(worst)} "
+        f"(tolerance rtol {SMALL_RTOL} + {SMALL_RTOL} of the largest)")
+    return worst
 
 
 def check_k6(gc, torch, steps):
@@ -3067,7 +3480,19 @@ def main() -> int:
               card_line)
     del hand_mvp_inputs
     torch.cuda.empty_cache()
+    teacher_inputs = {}
+    phase("hand_teacher_eval_path", hand_teacher_eval_path, gc, torch,
+          card_line, teacher_inputs)
+    if teacher_inputs.get("k4"):
+        phase("k4_teacher", k4_mvp_check, gc, torch, teacher_inputs["k4"],
+              "hand_teacher frame 0")
+    if {"grid", "shadow", "march"} <= set(teacher_inputs):
+        phase("teacher_shadow_check", teacher_shadow_check, torch,
+              teacher_inputs, card_line)
+    del teacher_inputs
+    torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
+    phase("teacher_small_reference", teacher_small_reference, torch)
 
     # the phases that return (launches, measurements) of several kernels
     split = {}
@@ -3088,6 +3513,7 @@ def main() -> int:
              "urhand": phases.get("urhand_eval_path", {}),
              "urhand_train": phases.get("urhand_train_path", {}),
              "hand_mvp_eval": phases.get("hand_mvp_eval_path", {}),
+             "hand_teacher_eval": phases.get("hand_teacher_eval_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check"]),
@@ -3098,7 +3524,8 @@ def main() -> int:
                   "xla_window_check:pair_grads_xla"]),
               "cumsum_cols": ("K3", ["k3_check", "backward_check"]),
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh",
-                                  "k4_urhand", "k4_urhand_train", "k4_mvp"]),
+                                  "k4_urhand", "k4_urhand_train", "k4_mvp",
+                                  "k4_teacher"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
                                  "k5_urhand_shadow", "k5_urhand_render",
                                  "k5_urhand_train"]),

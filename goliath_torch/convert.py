@@ -11,10 +11,13 @@ either package, ``joint_conv_block_tex``, ``texmod0_*`` / ``texmod1_*`` and
 the two scalars ``global_albedo_scale`` / ``global_scale``; ``cal`` when
 present) and the MVP hand's (``poseencoder``, ``geomdecoder`` with its
 ``transdecoder`` and the ``alphadecoder`` slab, ``rgbdecoder.texdecoder``;
-``cal`` and ``learn_blur`` when present). Flax's ``nn.remat`` wrappers of
-the two slab decoders add no level to the tree: their parameters sit under
-``geomdecoder.alphadecoder`` and ``rgbdecoder.texdecoder`` as the port's
-do.
+``cal`` and ``learn_blur`` when present), and the OLAT teacher's (the MVP
+hand's without ``rgbdecoder``, with ``poseencoder2`` and
+``relightdecoder.unet.enc0``-``enc4`` / ``dec0``-``dec4``, untied biases
+included). Flax's ``nn.remat`` wrappers of the two slab decoders and of the
+teacher's UNet add no level to the tree: their parameters sit under
+``geomdecoder.alphadecoder``, ``rgbdecoder.texdecoder`` and
+``relightdecoder.unet`` as the port's do.
 """
 
 from __future__ import annotations

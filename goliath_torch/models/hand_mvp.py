@@ -274,12 +274,19 @@ class _HandMVPNet(nn.Module):
         self.geomdecoder = GeomDecoder(
             n_embs, primsize[2], uv_size, lbs_fn, geo_fn, vidx, vtidx, bary,
             in_size=self.n_prim_x, prim_scale=prim_scale, generator=g)
-        self.rgbdecoder = RGBSlabDecoder(n_embs + 2, primsize[2], uv_size,
-                                         self.n_prim_x, generator=g)
+        self.build_appearance(n_pose_dims, n_embs, g)
         self.cal = (CalV5(cameras=camera_ids, **cal_cfg)
                     if cal_cfg is not None else None)
         self.learn_blur = (LearnableBlur(cameras=camera_ids)
                            if learn_blur_enabled else None)
+
+    def build_appearance(self, n_pose_dims: int, n_embs: int,
+                         generator: Optional[torch.Generator]) -> None:
+        """The decoders of the prims' colour (the OLAT teacher builds its
+        relight path here)."""
+        self.rgbdecoder = RGBSlabDecoder(n_embs + 2, self.primsize[2],
+                                         self.uv_size, self.n_prim_x,
+                                         generator=generator)
 
     def forward(
         self,
@@ -293,7 +300,6 @@ class _HandMVPNet(nn.Module):
         iteration: Optional[torch.Tensor] = None,
         train: bool = False,
     ) -> Dict[str, Any]:
-        B = pose.shape[0]
         joint = self.poseencoder(pose)
         geo_preds = self.geomdecoder(pose, joint, iteration, train)
         geom_lbs = geo_preds["geom_lbs"]
@@ -303,10 +309,21 @@ class _HandMVPNet(nn.Module):
                                    self.prim_bary)
         primrgb = self.rgbdecoder(view_cos_uv, joint, ambient_occlusion)
         preds: Dict[str, Any] = {"primrgb": primrgb, **geo_preds}
+        return self.render(preds, K, Rt, camera_idx, background, train)
 
+    def render(self, preds: Dict[str, Any], K: torch.Tensor,
+               Rt: torch.Tensor, camera_idx: Optional[torch.Tensor],
+               background: Optional[torch.Tensor], train: bool
+               ) -> Dict[str, Any]:
+        """March the RGBA boxes of ``preds`` (its primrgb slab and the
+        geometry) for the cameras K, Rt; then the colour calibration, the
+        background (in training) and the blur. Adds rgb, alpha,
+        mvp_window_overflow (and learn_blur_weights) to ``preds``."""
+        B = preds["primpos"].shape[0]
+        dev = preds["primpos"].device
         # slab -> [B, K, 4, z, py, px] channel-first voxel boxes
         pz, py_, px_ = self.primsize[2], self.primsize[1], self.primsize[0]
-        rgba = torch.cat([primrgb, geo_preds["primalpha"]], dim=2)
+        rgba = torch.cat([preds["primrgb"], preds["primalpha"]], dim=2)
         rgba = rgba.reshape(B, pz, 4, self.n_prim_y, py_, self.n_prim_x, px_)
         primrgba = rgba.permute(0, 3, 5, 2, 1, 4, 6).reshape(
             B, self.n_prim_x * self.n_prim_y, 4, pz, py_, px_)
@@ -317,14 +334,14 @@ class _HandMVPNet(nn.Module):
         camrot = Rt[:, :3, :3]
         campos_r = -torch.einsum("bji,bj->bi", camrot, Rt[:, :3, 3])
         pix = make_pixelcoords(B, self.image_height, self.image_width,
-                               device=pose.device)
+                               device=dev)
         raypos, raydir, tminmax = compute_raydirs(
             campos_r, camrot, focal, princpt, pix, self.volradius)
 
         decout = {
-            "primpos": geo_preds["primpos"],
-            "primrot": geo_preds["primrot"],
-            "primscale": geo_preds["primscale"],
+            "primpos": preds["primpos"],
+            "primrot": preds["primrot"],
+            "primscale": preds["primscale"],
             "primrgba": primrgba,
             "valid_prims": self.valid_prims,
         }
@@ -351,6 +368,8 @@ class AutoEncoder(ModelFacade):
     from ``generator`` (seed 0 when none is given). The raymarcher takes
     ``dt`` 1, ``max_steps`` 128, ``max_prims_per_tile`` 64 and ``chunk``
     16 unless ``raymarcher`` says otherwise, as in the JAX package."""
+
+    net_class = _HandMVPNet
 
     def __init__(
         self,
@@ -408,7 +427,7 @@ class AutoEncoder(ModelFacade):
                   "chunk": 16}
         rm_cfg.update(raymarcher or {})
 
-        self.module = _HandMVPNet(
+        self.module = self.net_class(
             geo_fn=self.geo_fn, lbs_fn=self.lbs_fn, prim_tables=prim_tables,
             valid_prims=valid_prims, camera_ids=tuple(self.cameras),
             cal_cfg=cal_cfg, learn_blur_enabled=self.learn_blur_enabled,

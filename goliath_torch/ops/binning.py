@@ -1,5 +1,5 @@
-"""Screen-tile binning for the splat renderer (port of
-the JAX package's ops/binning.py:40-199).
+"""Screen-tile and 3-D cell binning (port of the JAX package's
+ops/binning.py).
 
 Primitives' tile AABBs expand into (tile, prim) pairs in a fixed-size pair
 buffer; ONE stable sort on the int32 composite key ``tile << shift | qdepth``
@@ -9,13 +9,16 @@ replace dynamic allocation; overflow drops the farthest primitives.
 
 The two prefix sums (per-prim pair ends and slot owners) run as kernel K4
 on CUDA tensors (``gsplat_cuda.cumsum1d``). The MVP march bins its prims'
-projected boxes here too (``ops/mvp.py``); the 3-D ``CellBinning`` of the
-OLAT teacher's deep shadows is not ported yet (ROADMAP queue 1).
+projected boxes here too (``ops/mvp.py``). ``bin_boxes_to_cells`` is the
+3-D analogue that the OLAT teacher's deep-shadow density grid bins its
+prims' cell boxes with (``ops/mvp.splat_density_grid``); its prefix sum is
+a plain ``torch.cumsum``, as the JAX package's is ``jnp.cumsum``, so it
+launches no kernel.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -146,3 +149,83 @@ def bin_to_tiles(
     return TileBinning(vals_sorted, tile_start, tile_end, perm,
                        offsets_c.to(torch.int32), ends_c.to(torch.int32),
                        tile_of_pair, num_tiles_x, num_tiles_y)
+
+
+class CellBinning(NamedTuple):
+    sorted_prim: torch.Tensor   # [budget] prim index per (cell, prim) pair
+    cell_start: torch.Tensor    # [num_cells]
+    cell_end: torch.Tensor      # [num_cells]
+
+
+def cell_spans(cell_min: torch.Tensor, cell_max: torch.Tensor,
+               ncells: Tuple[int, int, int], max_cells_per_prim: int):
+    """Each primitive's cell box clipped to the grid and, along each axis
+    whose span exceeds kspan = round(cbrt(max_cells_per_prim)),
+    center-cropped to kspan: (lo [N, 3], span [N, 3])."""
+    kspan = max(int(round(max_cells_per_prim ** (1.0 / 3.0))), 1)
+    lim = torch.tensor(ncells, dtype=cell_min.dtype, device=cell_min.device)
+    lo = torch.minimum(cell_min.clamp(min=0), lim)
+    hi = torch.minimum(cell_max.clamp(min=0), lim)
+    span = (hi - lo).clamp(min=0)
+    center = (lo + hi) // 2
+    lo = torch.where(span > kspan,
+                     torch.minimum((center - kspan // 2).clamp(min=0), lim),
+                     lo)
+    return lo, span.clamp(max=kspan)
+
+
+def bin_boxes_to_cells(
+    cell_min: torch.Tensor,   # [N, 3] inclusive cell coords (x, y, z), int32
+    cell_max: torch.Tensor,   # [N, 3] exclusive
+    valid: torch.Tensor,      # [N] bool
+    ncells: Tuple[int, int, int],   # (ncx, ncy, ncz)
+    max_cells_per_prim: int = 64,
+    pair_budget: Optional[int] = None,
+) -> CellBinning:
+    """Expand each primitive's cell box into (cell, prim) pairs in a
+    ``pair_budget`` buffer (8 N when None) and group them per cell, prims
+    in index order (the JAX package's ``bin_boxes_to_cells``). Spans over
+    kspan = round(cbrt(max_cells_per_prim)) cells an axis are
+    center-cropped to kspan; slots past the budget are lost."""
+    N = cell_min.shape[0]
+    dev = cell_min.device
+    ncx, ncy, ncz = ncells
+    if pair_budget is None:
+        pair_budget = 8 * N
+    num_cells = ncx * ncy * ncz
+    lo, span = cell_spans(cell_min, cell_max, ncells, max_cells_per_prim)
+    w, h, d = span.unbind(1)
+
+    counts = torch.where(valid, w * h * d, 0)
+    ends = torch.cumsum(counts, 0, dtype=torch.int32)
+    offsets = ends - counts
+
+    slots = torch.arange(pair_budget, dtype=torch.int32, device=dev)
+    prim_of_slot = torch.searchsorted(ends, slots, right=True)
+    in_range = prim_of_slot < N
+    p = prim_of_slot.clamp(0, N - 1)
+    k = slots - offsets[p]
+    wk = w.clamp(min=1)[p]
+    hk = h.clamp(min=1)[p]
+    # the JAX package's float division in place of integer div/mod: k <
+    # kspan^3 <= max_cells_per_prim and wk, hk <= kspan keep it exact, and
+    # the port takes the same steps so that it gives the same cells
+    kf = k.float()
+    wf = wk.float()
+    kw = torch.floor(kf / wf).to(torch.int32)               # k // wk
+    kwh = torch.floor(kf / (wf * hk.float())).to(torch.int32)
+    cx = lo[p, 0] + (k - kw * wk)
+    cy = lo[p, 1] + (kw - kwh * hk)
+    cz = lo[p, 2] + kwh
+    keys = torch.where(in_range, (cz * ncy + cy) * ncx + cx,
+                       num_cells).to(torch.int32)
+    vals = torch.where(in_range, p, 0).to(torch.int32)
+
+    # the stable sort keeps slot (hence prim) order inside a cell
+    keys_sorted, perm = torch.sort(keys, stable=True)
+    vals_sorted = vals[perm]
+    cell_ids = torch.arange(num_cells, dtype=torch.int32, device=dev)
+    cell_start = torch.searchsorted(keys_sorted, cell_ids, out_int32=True)
+    cell_end = torch.searchsorted(keys_sorted, cell_ids, right=True,
+                                  out_int32=True)
+    return CellBinning(vals_sorted, cell_start, cell_end)

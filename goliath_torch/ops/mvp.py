@@ -29,8 +29,13 @@ JAX package's one-hot einsum deposit, a TPU device for avoiding scatters,
 computes the same sums).
 
 ``march_reference`` is the exact oracle over every prim and every ray.
-The deep-shadow half of the JAX module comes with the OLAT teacher
-(ROADMAP queue 1).
+
+The deep-shadow half (the OLAT teacher's) builds a global density grid of
+the prims' alphas by gather (``splat_density_grid``, binned by
+``ops/binning.bin_boxes_to_cells``, keeping the JAX package's per-block
+drop) and integrates it from each light to each query point
+(``shadow_at_points``); ``shadow_at_points_exact`` integrates the prims'
+own fields, the grid path's oracle.
 """
 
 from __future__ import annotations
@@ -39,18 +44,14 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from goliath_torch.ops.binning import bin_to_tiles, clip_spans
+from goliath_torch.ops.binning import (bin_boxes_to_cells, bin_to_tiles,
+                                       cell_spans, clip_spans)
+from goliath_torch.utils.sampling import grid_sample_3d
+from goliath_torch.utils.sampling import sat_int as _sat_int
 
 # samples (taps) a tile group of the tiled march computes at once: its
 # temporaries, a few hundred bytes a tap, stay within a few GiB
 GROUP_TAPS = 1 << 24
-
-
-def _sat_int(x: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
-    """Float -> int as XLA converts: saturating, NaN to 0 (a plain
-    ``.to(int)`` gives INT_MIN for inf and NaN on the CPU)."""
-    return torch.nan_to_num(x, nan=0.0).clamp(
-        -2.0 ** 31, 2.0 ** 31 - 128).to(dtype)
 
 
 def prim_world_aabb(primpos: torch.Tensor, primrot: torch.Tensor,
@@ -517,3 +518,206 @@ def mvp_raymarch_tiled(
         drops["window_cut_prims"] = cut_prims.sum()
     img = out.reshape(nty, ntx, 4, ts, ts).permute(2, 0, 3, 1, 4)
     return img.reshape(4, nty * ts, ntx * ts)[:, :H, :W]
+
+
+# ---------------------------------------------------------------------------
+# deep shadow volumes (the JAX package's replacement of mvpraymarch's
+# shadow splatting, reference extensions/mvpraymarch primsplatter.h:14-38)
+# ---------------------------------------------------------------------------
+
+
+def splat_density_grid(
+    primpos: torch.Tensor,     # [K, 3] (normalized volume frame)
+    primrot: torch.Tensor,     # [K, 3, 3]
+    primscale: torch.Tensor,   # [K, 3]
+    primalpha: torch.Tensor,   # [K, Z, Y, X] per-voxel alpha density
+    grid_res: int = 64,
+    block: int = 8,
+    max_prims_per_block: int = 64,
+    chunk: int = 16,
+    max_cells_per_prim: int = 512,
+    pair_budget_mult: int = 128,
+    fadescale: float = 8.0,
+    fadeexp: float = 8.0,
+    drops: Optional[Dict[str, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """The prims' alpha fields resampled onto a global [-1, 1]^3 grid
+    [G, G, G] (indexed z, y, x): D(x) = sum_k alpha_k(x) * fade_k(x), by
+    gather. Prims are binned to blocks of ``block``^3 cells by their world
+    AABBs (``bin_boxes_to_cells``), and each block sums the trilinear alpha
+    of its first nchunks * chunk pairs (nchunks = max_prims_per_block //
+    chunk) in prim-index order at its cell centres, chunk by chunk, as the
+    JAX package does: the block's later pairs are lost.
+
+    Only blocks with pairs are evaluated (one host sync); the others are 0.
+    With ``drops`` given (a dict), adds to it as tensors: ``pair_budget``,
+    ``pairs_wanted`` (cell pairs after the per-prim crop), ``pairs_binned``,
+    ``blocks_binned`` (blocks with pairs), ``blocks_full`` (blocks with
+    more pairs than they evaluate), ``pairs_past_block``,
+    ``max_block_list``, ``prims_binned`` (prims with a binned pair),
+    ``prims_kept`` (prims with an evaluated pair) and ``prims_dropped``
+    (binned, but in no evaluated pair).
+    """
+    K = primalpha.shape[0]
+    G = grid_res
+    if G % block:
+        raise ValueError(f"grid_res {G} is not a multiple of block {block}")
+    dev = primpos.device
+    NB = G // block
+    P3 = block ** 3
+
+    pmin, pmax = prim_world_aabb(primpos, primrot, primscale)
+
+    def to_cell(p):
+        return (p + 1.0) * 0.5 * G / block
+
+    bmin = _sat_int(torch.floor(to_cell(pmin)), torch.int32)
+    bmax = _sat_int(torch.floor(to_cell(pmax)), torch.int32) + 1
+    budget = pair_budget_mult * K
+    valid = torch.ones(K, dtype=torch.bool, device=dev)
+    binning = bin_boxes_to_cells(bmin, bmax, valid, (NB, NB, NB),
+                                 max_cells_per_prim, budget)
+    nchunks = max(max_prims_per_block // chunk, 1)
+    M = nchunks * chunk                       # pairs a block evaluates
+    counts = binning.cell_end - binning.cell_start            # [NB^3]
+
+    # cell centres per block, [NB^3, P3, 3] in (x, y, z) order
+    bi = torch.arange(NB, dtype=torch.int32, device=dev)
+    bz, by, bx = torch.meshgrid(bi, bi, bi, indexing="ij")
+    borig = torch.stack([bx, by, bz], -1).reshape(-1, 1, 3) * block
+    li = torch.arange(block, dtype=torch.int32, device=dev)
+    lz, ly, lx = torch.meshgrid(li, li, li, indexing="ij")
+    local = torch.stack([lx, ly, lz], -1).reshape(1, -1, 3)
+    pos = ((borig + local).float() + 0.5) / G * 2.0 - 1.0
+
+    alpha_pv = pack_volume(primalpha[:, None])
+    slots = torch.arange(M, dtype=torch.int32, device=dev)
+    live = torch.nonzero(counts > 0).squeeze(1)
+    dens = primpos.new_zeros(NB ** 3, P3)
+    g = max(1, GROUP_TAPS // (M * P3))
+    for i0 in range(0, live.numel(), g):
+        blk = live[i0:i0 + g]
+        idx = binning.cell_start[blk][:, None] + slots               # [b, M]
+        kept = idx < binning.cell_end[blk][:, None]
+        cp = binning.sorted_prim[idx.clamp(0, budget - 1).long()].long()
+        rel = pos[blk][:, None] - primpos[cp][:, :, None]            # [b,M,P3,3]
+        y = torch.einsum("bkij,bkpi->bkpj", primrot[cp], rel) \
+            * primscale[cp][:, :, None]
+        a = sample_packed(alpha_pv, cp, y)[..., 0]                   # [b,M,P3]
+        fade = torch.exp(-fadescale * (_pow_abs(y[..., 0], fadeexp)
+                                       + _pow_abs(y[..., 1], fadeexp)
+                                       + _pow_abs(y[..., 2], fadeexp)))
+        inside = (y.abs() < 1.0).all(-1)
+        a = a * fade * inside * kept[..., None]
+        sums = a.reshape(len(blk), nchunks, chunk, P3).sum(2)
+        acc = sums[:, 0]
+        for c in range(1, nchunks):
+            acc = acc + sums[:, c]
+        dens[blk] = acc
+
+    if drops is not None:
+        _, span = cell_spans(bmin, bmax, (NB, NB, NB), max_cells_per_prim)
+        pairs = binning.sorted_prim[:int(counts.sum())].long()
+        first = torch.repeat_interleave(binning.cell_start.long(), counts)
+        rank = torch.arange(pairs.numel(), device=dev) - first
+        binned = torch.zeros(K, dtype=torch.bool, device=dev)
+        binned[pairs] = True
+        in_grid = torch.zeros(K, dtype=torch.bool, device=dev)
+        in_grid[pairs[rank < M]] = True
+        drops["pair_budget"] = torch.tensor(budget)
+        _count(drops, "pairs_wanted", span.prod(1))
+        _count(drops, "pairs_binned", counts)
+        _count(drops, "blocks_binned", counts > 0)
+        _count(drops, "blocks_full", counts > M)
+        _count(drops, "pairs_past_block", (counts - M).clamp(min=0))
+        drops["max_block_list"] = counts.max()
+        _count(drops, "prims_binned", binned)
+        _count(drops, "prims_kept", in_grid)
+        _count(drops, "prims_dropped", binned & ~in_grid)
+
+    dens = dens.reshape(NB, NB, NB, block, block, block)  # bz,by,bx,lz,ly,lx
+    return dens.permute(0, 3, 1, 4, 2, 5).reshape(G, G, G)
+
+
+def shadow_at_points(
+    density: torch.Tensor,     # [G, G, G] (z, y, x)
+    points: torch.Tensor,      # [M, 3] (normalized frame)
+    light_pos: torch.Tensor,   # [3]
+    n_steps: int = 32,
+    point_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Accumulated alpha (clamped to 1) from the light to each point, [M]:
+    ``n_steps`` midpoint samples of ``density`` on the segment from where
+    the light's ray enters the [-1, 1] volume to the point. Points go in
+    chunks of ``point_chunk`` (GROUP_TAPS // n_steps when None; a bound of
+    the live set, not of the result: the teacher at full width queries 8.4M
+    points a light)."""
+    if point_chunk is None:
+        point_chunk = max(1, GROUP_TAPS // n_steps)
+    return torch.cat([
+        _shadow_at_points_impl(density, points[i:i + point_chunk],
+                               light_pos, n_steps)
+        for i in range(0, points.shape[0], point_chunk)]) \
+        if points.shape[0] else points.new_zeros(0)
+
+
+def _norm(d: torch.Tensor) -> torch.Tensor:
+    """|d| over the last axis, keepdim, as jnp.linalg.norm sums it."""
+    return torch.sqrt((d * d).sum(-1, keepdim=True))
+
+
+def _shadow_at_points_impl(density, points, light_pos, n_steps):
+    d = points - light_pos[None]
+    dist = _norm(d)
+    dirn = d / dist.clamp(min=1e-8)
+    # the segment clipped to the [-1, 1] volume; a component under 1e-12
+    # in magnitude becomes +1e-12, its sign dropped, as in the JAX package
+    inv = 1.0 / torch.where(dirn.abs() < 1e-12,
+                            torch.full_like(dirn, 1e-12), dirn)
+    t1 = (-1.0 - light_pos[None]) * inv
+    t2 = (1.0 - light_pos[None]) * inv
+    t_enter = torch.minimum(t1, t2).amax(-1, keepdim=True).clamp(min=0.0)
+    seg = (dist - t_enter).clamp(min=0.0)            # to the point, [M, 1]
+    frac = (torch.arange(n_steps, dtype=points.dtype, device=points.device)
+            + 0.5) / n_steps
+    ts = t_enter + seg * frac[None]                                  # [M, S]
+    pos = light_pos[None, None] + dirn[:, None] * ts[..., None]      # [M,S,3]
+    dens = grid_sample_3d(density[None], pos, padding_mode="zeros")[0]
+    acc = dens.sum(-1) * (seg[:, 0] / n_steps)
+    return acc.clamp(0.0, 1.0)
+
+
+def shadow_at_points_exact(
+    primpos: torch.Tensor,     # [K, 3] (normalized volume frame)
+    primrot: torch.Tensor,     # [K, 3, 3]
+    primscale: torch.Tensor,   # [K, 3]
+    primalpha: torch.Tensor,   # [K, Z, Y, X]
+    points: torch.Tensor,      # [M, 3] (normalized frame)
+    light_pos: torch.Tensor,   # [3]
+    n_steps: int = 64,
+    fadescale: float = 8.0,
+    fadeexp: float = 8.0,
+) -> torch.Tensor:
+    """The brute-force deep shadow, the grid path's oracle: the true
+    per-prim trilinear alpha fields (``grid_sample_3d``, zeros padding)
+    integrated on ``n_steps`` midpoint samples of the whole segment from
+    the light to each point, prims added in index order; accumulated alpha
+    clamped to 1, [M]. O(K * M * n_steps): for parity studies."""
+    d = points - light_pos[None]
+    dist = _norm(d)
+    dirn = d / dist.clamp(min=1e-8)
+    ts = dist * ((torch.arange(n_steps, dtype=points.dtype,
+                               device=points.device)[None] + 0.5) / n_steps)
+    pos = light_pos[None, None] + dirn[:, None] * ts[..., None]      # [M,S,3]
+    dens = torch.zeros(pos.shape[:2], dtype=points.dtype,
+                       device=points.device)
+    for k in range(primpos.shape[0]):
+        y = torch.einsum("ij,msi->msj", primrot[k], pos - primpos[k]) \
+            * primscale[k]
+        a = grid_sample_3d(primalpha[k][None], y)[0]
+        fade = torch.exp(-fadescale * (_pow_abs(y[..., 0], fadeexp)
+                                       + _pow_abs(y[..., 1], fadeexp)
+                                       + _pow_abs(y[..., 2], fadeexp)))
+        dens = dens + a * fade * (y.abs() < 1.0).all(-1)
+    acc = dens.sum(-1) * (dist[:, 0] / n_steps)
+    return acc.clamp(0.0, 1.0)

@@ -9,8 +9,9 @@ applies them as matrix products, so its weights are those of the JAX
 package to the bit; ``F.interpolate`` computes its weights in float32 from
 a float32 scale, which differs in the last bits wherever the ratio of the
 sizes is not a power of two (the pixel bias of mesh_vae, 166 -> 1334).
-``grid_sample_3d`` and ``avg_pool2d`` come with the paths that use them
-(ROADMAP queue 1).
+``grid_sample_3d`` (the OLAT teacher's deep shadows) takes the JAX
+package's eight gathers term for term too. ``avg_pool2d`` comes with the
+RGCA envmap branch (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -20,6 +21,13 @@ from typing import Literal
 
 import numpy as np
 import torch
+
+
+def sat_int(x: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
+    """Float -> int as XLA converts: saturating, NaN to 0 (a plain
+    ``.to(int)`` gives INT_MIN for inf and NaN on the CPU)."""
+    return torch.nan_to_num(x, nan=0.0).clamp(
+        -2.0 ** 31, 2.0 ** 31 - 128).to(dtype)
 
 
 def _unnormalize(coord: torch.Tensor, size: int, align_corners: bool
@@ -122,4 +130,52 @@ def interpolate_bilinear(image: torch.Tensor,
     if Wo != W:
         mx = _interp_matrix(W, Wo, align_corners, image.device, image.dtype)
         out = torch.einsum("pw,bchw->bchp", mx, out)
+    return out
+
+
+def _axis_taps(coord: torch.Tensor, size: int, align_corners: bool,
+               zero_pad: bool, dtype: torch.dtype):
+    """The two taps of trilinear sampling along one axis: clamped int64
+    indices (i0, i1) and weights (1 - w, w), each weight multiplied by its
+    tap's in-range mask under zero padding. The JAX package multiplies a
+    corner's weight product by the corner's mask; a product with 1 is
+    exact and with 0 is 0, so taking the masks per axis gives its values."""
+    c = _unnormalize(coord, size, align_corners)
+    c0 = torch.floor(c)
+    w = (c - c0).to(dtype)
+    i0 = sat_int(c0)
+    i1 = i0 + 1
+    w0, w1 = 1 - w, w
+    if zero_pad:
+        w0 = w0 * ((i0 >= 0) & (i0 < size)).to(dtype)
+        w1 = w1 * ((i1 >= 0) & (i1 < size)).to(dtype)
+    return (i0.clamp(0, size - 1), i1.clamp(0, size - 1)), (w0, w1)
+
+
+def grid_sample_3d(
+    vol: torch.Tensor,
+    coords: torch.Tensor,
+    padding_mode: Literal["zeros", "border"] = "zeros",
+    align_corners: bool = False,
+) -> torch.Tensor:
+    """Trilinear samples of ``vol`` [C, D, H, W] at ``coords`` [..., 3]
+    ((x, y, z) in [-1, 1]) -> [C, ...], the JAX package's
+    ``grid_sample_3d``: corner weights (x, y, z) multiplied in that order,
+    corners summed z-major; "border" clamps the corner indices."""
+    C, D, H, W = vol.shape
+    zero_pad = padding_mode == "zeros"
+    (x0, x1), (wx0, wx1) = _axis_taps(coords[..., 0], W, align_corners,
+                                      zero_pad, vol.dtype)
+    (y0, y1), (wy0, wy1) = _axis_taps(coords[..., 1], H, align_corners,
+                                      zero_pad, vol.dtype)
+    (z0, z1), (wz0, wz1) = _axis_taps(coords[..., 2], D, align_corners,
+                                      zero_pad, vol.dtype)
+    flat = vol.reshape(C, -1)
+    out = None
+    for zi, wz in ((z0, wz0), (z1, wz1)):
+        for yi, wy in ((y0, wy0), (y1, wy1)):
+            zy = (zi * H + yi) * W
+            for xi, wx in ((x0, wx0), (x1, wx1)):
+                term = flat[:, zy + xi] * (wx * wy * wz)
+                out = term if out is None else out + term
     return out

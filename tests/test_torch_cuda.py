@@ -24,7 +24,11 @@ bit for bit, the other variants as K1 against their plain versions. Gradients of
 the card against the CPU: rtol 1e-3 with atol 1e-3 of each gradient's
 largest entry. The mesh RenderLayer on the card
 against the CPU: the same coverage, the same face on >= 99.9% of the
-pixels, the image at atol/rtol 1e-4 where the face agrees.
+pixels, the image at atol/rtol 1e-4 where the face agrees. The OLAT
+teacher's deep shadows (plain PyTorch on both sides): the cell binning
+exact, the density grid at rtol 1e-5 plus 1e-6 of its largest value, the
+shadow integrals at rtol 1e-5 plus 1e-5, the small teacher forward at rtol
+1e-3 plus 1e-3 of each output's largest value.
 """
 
 import numpy as np
@@ -849,6 +853,17 @@ def test_cumsum1d_at_the_mvp_binning_shapes(cuda, n, budget):
         assert torch.equal(got, torch.cumsum(x, 0, dtype=torch.int32))
 
 
+def _rotations(rng, K):
+    """Random rotation matrices from normalized quaternions (w, x, y, z)."""
+    q = rng.randn(K, 4)
+    w, x, y, z = (q / np.linalg.norm(q, axis=-1, keepdims=True)).T
+    return np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], -1).reshape(K, 3, 3)
+
+
 def test_mvp_march_on_the_card_matches_the_cpu(cuda):
     """The tiled MVP march (its binning on K4) on the card against the same
     function on the CPU, on tests/test_torch_mvp.py's scene of 12 random
@@ -859,13 +874,7 @@ def test_mvp_march_on_the_card_matches_the_cpu(cuda):
 
     rng = np.random.RandomState(0)
     K, TD, H, W = 12, 4, 32, 32
-    q = rng.randn(K, 4)
-    w, x, y, z = (q / np.linalg.norm(q, axis=-1, keepdims=True)).T
-    rot = np.stack([
-        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
-        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
-        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
-    ], -1).reshape(K, 3, 3)
+    rot = _rotations(rng, K)
     pos = (rng.rand(K, 3) - 0.5) * 1.2
     scale = 2.0 + 3.0 * rng.rand(K, 3)
     tpl = rng.rand(K, 4, TD, TD, TD)
@@ -894,3 +903,128 @@ def test_mvp_march_on_the_card_matches_the_cpu(cuda):
     assert {k: int(v) for k, v in d_card.items()} == \
         {k: int(v) for k, v in d_cpu.items()}
     assert int(d_cpu["prims_dropped"]) and int(d_cpu["window_cut_pairs"])
+
+
+def _deep_shadow_scene(seed, K, spread, TD=4):
+    """Random prims of tests/test_torch_deep_shadow.py's kind, float32."""
+    rng = np.random.RandomState(seed)
+    rot = _rotations(rng, K)
+    pos = (rng.rand(K, 3) - 0.5) * spread
+    scale = 3.0 + 3.0 * rng.rand(K, 3)
+    alpha = rng.rand(K, TD, TD, TD) * 8.0
+    return [torch.from_numpy(a.astype(np.float32))
+            for a in (pos, rot, scale, alpha)]
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_grid_sample_3d_on_the_card_matches_the_cpu(cuda, padding_mode,
+                                                    align_corners):
+    """grid_sample_3d at coordinates reaching 0.4 outside [-1, 1], rtol
+    1e-6 plus 1e-6 of the largest |value| (the same operations; the card
+    may round a weight product another way only through its compiler)."""
+    from goliath_torch.utils.sampling import grid_sample_3d
+
+    g = torch.Generator().manual_seed(3)
+    vol = torch.randn(2, 9, 10, 11, generator=g)
+    coords = (torch.rand(64, 33, 3, generator=g) - 0.5) * 2.8
+    ref = grid_sample_3d(vol, coords, padding_mode, align_corners)
+    got = grid_sample_3d(vol.to(cuda), coords.to(cuda), padding_mode,
+                         align_corners)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-6,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("budget", [960, 60])
+def test_bin_boxes_to_cells_on_the_card_matches_the_cpu(cuda, budget):
+    """The 3-D cell binning with cropped spans and invalid prims, the
+    budget of 60 slots overflowing, exactly; it launches no kernel of
+    the port (its prefix sum is torch.cumsum, as the JAX package's)."""
+    from goliath_torch.ops.binning import bin_boxes_to_cells
+
+    rng = np.random.RandomState(5)
+    N, ncells = 120, (6, 5, 4)
+    lo = np.stack([rng.randint(-2, n + 1, N) for n in ncells], -1)
+    hi = lo + rng.randint(0, 7, (N, 3))
+    args = (torch.from_numpy(lo.astype(np.int32)),
+            torch.from_numpy(hi.astype(np.int32)),
+            torch.from_numpy(rng.rand(N) > 0.2))
+    ref = bin_boxes_to_cells(*args, ncells, 27, budget)
+    before = dict(gc.LAUNCHES)
+    got = bin_boxes_to_cells(*[a.to(cuda) for a in args], ncells, 27, budget)
+    assert gc.LAUNCHES == before
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("case", ["all_kept", "blocks_full"])
+def test_deep_shadow_on_the_card_matches_the_cpu(cuda, case):
+    """splat_density_grid (rtol 1e-5 plus 1e-6 of its largest value, the
+    same drop counts) and shadow_at_points on its grid (rtol 1e-5 plus
+    1e-5: 32 samples summed in other orders) on the card against the CPU,
+    with and without blocks over their pairs."""
+    from goliath_torch.ops import mvp
+
+    if case == "all_kept":
+        scene = _deep_shadow_scene(0, 24, 1.0)
+        kw = dict(grid_res=64)
+    else:
+        scene = _deep_shadow_scene(1, 160, 0.6)
+        kw = dict(grid_res=16, block=4, max_prims_per_block=8, chunk=4)
+    d_cpu, d_card = {}, {}
+    ref = mvp.splat_density_grid(*scene, drops=d_cpu, **kw)
+    got = mvp.splat_density_grid(*[a.to(cuda) for a in scene], drops=d_card,
+                                 **kw)
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-5,
+                               atol=1e-6 * float(ref.abs().max()))
+    assert {k: int(v) for k, v in d_card.items()} == \
+        {k: int(v) for k, v in d_cpu.items()}
+    assert (int(d_cpu["blocks_full"]) > 0) == (case == "blocks_full")
+    g = torch.Generator().manual_seed(4)
+    pts = (torch.rand(5000, 3, generator=g) - 0.5) * 1.2
+    for light in ([0.0, 0.0, -0.9], [0.3, -0.2, -2.5]):
+        lp = torch.tensor(light)
+        s_ref = mvp.shadow_at_points(ref, pts, lp, 32, point_chunk=777)
+        s_got = mvp.shadow_at_points(ref.to(cuda), pts.to(cuda),
+                                     lp.to(cuda), 32)
+        torch.testing.assert_close(s_got.cpu(), s_ref, rtol=1e-5, atol=1e-5)
+        assert 0.0 < float(s_ref.mean()) < 1.0
+
+
+def test_hand_teacher_on_the_card_matches_the_cpu(cuda):
+    """The teacher forward at tests/test_torch_hand_teacher.py's size (uv
+    32, 48x48, 2 lights) on the card against the CPU on the jittered
+    template, the same seed-0 weights: rgb, alpha, primrgb, primshadow at
+    rtol 1e-3 plus 1e-3 of each output's largest |value|; K4 twice a
+    frame on the card and no other kernel."""
+    from goliath_torch.data.pipeline import collate
+    from goliath_torch.data.synthetic import SyntheticDataset
+    from goliath_torch.models.hand_teacher_mvp import AutoEncoder
+    from goliath_torch.test import to_device
+
+    ds = SyntheticDataset(n_cams=2, n_frames=2, img_h=48, img_w=48,
+                          uv_size=32, n_lights=2, seed=5)
+    v = ds.static_assets["template_mesh_unscaled"]
+    ds.static_assets["template_mesh_unscaled"] = (
+        v + np.random.RandomState(7).randn(*v.shape) * 0.5).astype(
+            np.float32)
+    batch = collate([ds[0]])
+    outs = {}
+    for device in ("cpu", cuda):
+        model = AutoEncoder(
+            ds.static_assets, 48, 48, n_pose_dims=6, n_embs=8,
+            volradius=400.0, primsize=(8, 8, 4), learn_blur=False,
+            uv_size=32, prim_scale=12.0, global_scaling=1.0,
+            raymarcher={"dt": 4.0, "max_steps": 48,
+                        "max_prims_per_tile": 16, "chunk": 8},
+            device=device)
+        gc.reset_launch_counts()
+        with torch.no_grad():
+            outs[str(device)] = model.apply(to_device(batch, model.device))
+        launches = {k: n for k, n in gc.LAUNCHES.items() if n}
+        assert launches == ({} if device == "cpu" else {"cumsum1d": 2})
+    for k in ("rgb", "alpha", "primrgb", "primshadow"):
+        ref, got = outs["cpu"][k], outs[str(cuda)][k].cpu()
+        torch.testing.assert_close(got, ref, rtol=1e-3,
+                                   atol=1e-3 * float(ref.abs().max()))
+        assert float(ref.abs().max()) > 0
