@@ -132,12 +132,35 @@ the final result line:
      prims grown 32x (whose shadows must be neither all 0 nor all 1), the
      march's drops, and the exact per-prim shadow against the grid path
      on 1,024 points (logged);
- 20. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+ 20. the MVP hand training path: goliath_torch.scripts.run_train.main on
+     configs/hand_mvp.yml at full width (the eval path's widths and cuts,
+     cal kept), the config's batch 4, all six of its losses (vgg on
+     fixed-seed random features) and 3 steps, counts set to 0 just before
+     and read just after (K4 twice a sample a forward, in the march's
+     binning, which the backward does not run again: 32 launches with the
+     summary's forward at iteration 0; no other kernel): finite losses that
+     move, a finite, non-zero gradient in all five parameter groups, each
+     step's wall time and its marches' forward and backward (each tile
+     group marched again) by CUDA events, peak memory and one profiled
+     step with its busiest backward nodes and the row gathers' backward;
+     then K4 against torch.cumsum on step 0's first two scans, exactly;
+     the march's drops on step 0's first sample (no_grad), and the march's
+     gradients of the template, primpos, primrot and primscale on its
+     2 x 2-tile window, card against CPU;
+ 21. the OLAT teacher's training path: run_train.main on
+     configs/hand_teacher_mvp.yml at full width (its eval widths and cuts,
+     5 lights, cal kept), the config's batch 1, its three losses and 3
+     steps (K4 8 times, nothing else): its four groups' gradients finite
+     and non-zero, the default group of the detached geometry's zero and
+     its parameters moved by AdamW's decay alone, the same timings; then
+     K4 on step 0's two scans, exactly;
+ 22. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
      path and one mesh training step, the URHand eval path and one URHand
      training step, and the hand_mvp eval path, at a small size, on the
      card against the CPU (plain versions) as the small-input reference;
-     then the teacher's forward at its small size, card vs CPU;
- 21. per kernel (and per mode of a kernel): check result, launches on each
+     then the teacher's forward, and one training step of hand_mvp and of
+     the teacher, at their small sizes, card vs CPU;
+ 23. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -854,10 +877,15 @@ class StepProbe:
     where it has one (and the model's CalV5 identity camera). ``profile_step``
     names one step to run under torch.profiler."""
 
-    def __init__(self, torch, train_lib, profile_step=None, keep_grads=False):
+    def __init__(self, torch, train_lib, profile_step=None, keep_grads=False,
+                 watch=()):
         self.torch, self.train_lib = torch, train_lib
         self.profile_step = profile_step
         self.keep_grads = keep_grads
+        # the groups whose parameters are kept as they were before the
+        # first update: [(name, parameter, its value then, the group's lr
+        # and weight decay)]
+        self.watch, self.watched = set(watch), []
         self.seconds, self.totals, self.groups, self.grads = [], [], {}, {}
         self.cameras, self.identity_camera = [], None
         self.profile = None
@@ -889,6 +917,12 @@ class StepProbe:
                 if bad:
                     log(f"step {len(self.seconds)}: non-finite gradient "
                         f"entries in {bad[:8]}{' ...' if len(bad) > 8 else ''}")
+            if self.watch and not self.watched:
+                self.watched = [
+                    (names[id(p)], p, p.detach().clone(), group["lr"],
+                     group.get("weight_decay", 0.0))
+                    for group in optimizer.inner.param_groups
+                    if group["name"] in self.watch for p in group["params"]]
             if self.keep_grads and not self.grads:   # the first step's
                 self.grads.update(
                     (name, p.grad.detach().cpu().clone())
@@ -937,7 +971,7 @@ def rgca_config(overrides=()):
 
 def run_training(gc, torch, card_line, label, expected, record,
                  patch=None, make_config=rgca_config, batch=TRAIN_BATCH,
-                 zero_grad_ok=None):
+                 zero_grad_ok=None, default_group=False):
     """run_train.main at full width (``make_config``: configs/rgca.yml on
     synthetic data at 2048x1334 and uv 1024 unless another is given), the
     config's batch ``batch`` (4 unless given), 3 steps, no resume, counts
@@ -945,8 +979,11 @@ def run_training(gc, torch, card_line, label, expected, record,
     finite, non-zero gradient in every parameter group (but those that
     ``zero_grad_ok(probe)`` names, which must still be finite), a
     checkpoint, and exactly the launch counts ``expected`` lists (every
-    other kernel 0). ``patch`` (a context manager) wraps the run. Leaves the
-    step totals in ``record[label]``."""
+    other kernel 0). ``patch`` (a context manager) wraps the run. With
+    ``default_group`` the optimizer also has the group of the modules its
+    config leaves out (``__default__``), whose gradients may be zero but
+    whose parameters must move by AdamW's decay alone. Leaves the step
+    totals in ``record[label]``."""
     import contextlib
 
     from torch.autograd import DeviceType
@@ -966,8 +1003,9 @@ def run_training(gc, torch, card_line, label, expected, record,
         torch.cuda.reset_peak_memory_stats()
         with patch or contextlib.nullcontext():
             gc.reset_launch_counts()
-            with StepProbe(torch, train_lib,
-                           profile_step=TRAIN_STEPS - 1) as probe:
+            with StepProbe(torch, train_lib, profile_step=TRAIN_STEPS - 1,
+                           watch={"__default__"} if default_group else ()
+                           ) as probe:
                 iteration, last = run_train.main(cfg, device=DEVICE)
                 torch.cuda.synchronize()
                 launches = dict(gc.LAUNCHES)
@@ -977,6 +1015,7 @@ def run_training(gc, torch, card_line, label, expected, record,
         written = sorted(p.name for p in
                          (Path(run_dir) / "checkpoints").iterdir())
     record[label] = probe.totals
+    record[label + " seconds"] = probe.seconds
     log(f"{label} launches: {launches}")
     logged = {}
     for rec in scalars:
@@ -1035,7 +1074,8 @@ def run_training(gc, torch, card_line, label, expected, record,
         raise AssertionError("the step losses were not logged")
     if probe.totals[-1] == probe.totals[0]:
         raise AssertionError("the total loss did not move in 3 steps")
-    expected_groups = set(cfg.optimizer.per_module)
+    expected_groups = set(cfg.optimizer.per_module) | (
+        {"__default__"} if default_group else set())
     may_be_zero = zero_grad_ok(probe) if zero_grad_ok else set()
     if set(probe.groups) != expected_groups or not all(
             finite and (nonzero or name in may_be_zero)
@@ -1043,6 +1083,8 @@ def run_training(gc, torch, card_line, label, expected, record,
         raise AssertionError(f"parameter groups without a finite, non-zero "
                              f"gradient: {probe.groups} (may be zero: "
                              f"{sorted(may_be_zero)})")
+    if default_group:
+        check_decay(probe.watched, len(probe.totals), label)
     want = {name: 0 for name in gc.LAUNCHES}
     want.update(expected)
     if launches != want:
@@ -1050,6 +1092,27 @@ def run_training(gc, torch, card_line, label, expected, record,
     if "latest" not in written:
         raise AssertionError("no checkpoint was written")
     return launches
+
+
+def check_decay(watched, steps, label):
+    """The parameters of a group that took zero gradients after ``steps``
+    AdamW updates: each p0 (1 - lr wd)^steps (AdamW's decoupled decay, with
+    moments of 0) at rtol 1e-6 (float32 products, one a step), and moved."""
+    if not watched:
+        raise AssertionError(f"{label}: no parameter of the default group")
+    worst, moved, nonzero = 0.0, 0, 0
+    for name, p, p0, lr, wd in watched:
+        want = p0 * (1.0 - lr * wd) ** steps
+        worst = max(worst, float(((p.detach() - want).abs()
+                                  / want.abs().clamp(min=1e-30)).max()))
+        moved += int(not bool((p.detach() == p0).all()))
+        nonzero += int(bool(p0.any()))
+    log(f"{label}: the default group's {len(watched)} parameters after "
+        f"{steps} updates against p0 (1 - lr wd)^{steps}: largest relative "
+        f"error {worst:.3e}; {moved} of the {nonzero} not all 0 moved")
+    if not (worst <= 1e-6 and moved == nonzero > 0):
+        raise AssertionError(f"{label}: the default group did not decay as "
+                             f"AdamW decays parameters with zero gradients")
 
 
 def train_path(gc, torch, card_line, record):
@@ -1266,7 +1329,7 @@ def small_reference(torch):
         raise AssertionError("the card's URHand eval disagrees with the "
                              "CPU's")
 
-    urhand_small_train_reference(torch, jittered)
+    urhand_small_train_reference(torch)
 
     cfg = hand_mvp_config(HAND_MVP_SMALL, HAND_MVP_SMALL_DATA)
     run_test.build_dataset = jittered
@@ -1284,27 +1347,37 @@ def small_reference(torch):
                              "CPU's")
 
 
-# URHand's gradients in a training step move by up to a few percent of
-# their largest entry when the parameters move by one ulp, in either
-# package (tests/test_torch_urhand_train.py: the view conditioning of
-# texmod0_* is resampled from the displaced geometry's TBN frame, whose
-# normals are ill-conditioned at the UV border). So the card's gradients
-# are held to SMALL_RTOL of the entry and of the parameter's largest entry
-# plus URHAND_SPREAD_MULT times the parameter's spread: the largest move of
-# its gradient on the card when every parameter is scaled by
-# (1 + 1e-7 N(0, 1)), over URHAND_SPREAD_SEEDS; at most
-# URHAND_MAX_SPREAD_PARAMS parameters may need the spread.
-URHAND_SPREAD_MULT = 4.0
-URHAND_SPREAD_SEEDS = (1, 2, 3)
-URHAND_MAX_SPREAD_PARAMS = 5
+# The gradients of a training step through a render (URHand's, and the MVP
+# march's per-voxel ones) move by up to a few percent of their largest
+# entry when the parameters move by one ulp, in either package
+# (tests/test_torch_urhand_train.py: the view conditioning of texmod0_* is
+# resampled from the displaced geometry's TBN frame, whose normals are
+# ill-conditioned at the UV border; tests/test_torch_hand_mvp_train.py: the
+# untied biases of the slab decoders' last layers). So the card's
+# gradients are held to SMALL_RTOL of the entry and of the parameter's
+# largest entry, or else to that plus SPREAD_MULT times the
+# parameter's spread: the largest move of its gradient on the card when
+# every parameter is scaled by (1 + 1e-7 N(0, 1)), over
+# SPREAD_SEEDS, measured only when a gradient needs it; at most
+# MAX_SPREAD_PARAMS parameters may need the spread.
+SPREAD_MULT = 4.0
+SPREAD_SEEDS = (1, 2, 3)
+MAX_SPREAD_PARAMS = 5
 
 
-def urhand_small_train_reference(torch, jittered):
-    """One URHand training step (run_train.main, configs/urhand.yml with
-    every loss, the perceptual ones on random features) at the size of
-    tests/test_torch_urhand_run_test.py on the jittered template, on the
-    card against the CPU: its losses at SMALL_RTOL, its gradients by the
-    sensitivity rule above."""
+def urhand_small_train_reference(torch):
+    """One URHand training step (configs/urhand.yml with every loss, the
+    perceptual ones on random features) at the size of
+    tests/test_torch_urhand_run_test.py: small_train_step_reference."""
+    return small_train_step_reference(
+        torch, "URHand", lambda o: urhand_train_config(
+            [*URHAND_SMALL, *o], URHAND_SMALL_DATA))
+
+
+def small_train_step_reference(torch, label, make_config):
+    """One training step (run_train.main on ``make_config(overrides)``) on
+    the jittered template, on the card against the CPU: its losses at
+    SMALL_RTOL, its gradients by the sensitivity rule above."""
     from goliath_torch import train as train_lib
     from goliath_torch.scripts import run_train
 
@@ -1321,13 +1394,15 @@ def urhand_small_train_reference(torch, jittered):
                             p.shape, generator=gen).to(p.device))
             return obj
 
+        def jittered(data_cfg, **kw):
+            return jitter_template(build_data(data_cfg, **kw))
+
         run_train.build_dataset, run_train.load_from_config = jittered, model
         try:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_small_") as d:
-                cfg = urhand_train_config([
-                    *URHAND_SMALL, f"train.run_dir={d}",
-                    "train.n_max_iters=1", "train.resume=false"],
-                    URHAND_SMALL_DATA)
+                cfg = make_config([f"train.run_dir={d}",
+                                   "train.n_max_iters=1",
+                                   "train.resume=false"])
                 with StepProbe(torch, train_lib, keep_grads=True) as probe:
                     _it, last = run_train.main(cfg, device=device)
         finally:
@@ -1337,12 +1412,7 @@ def urhand_small_train_reference(torch, jittered):
 
     got, g_got = step(DEVICE)
     ref, g_ref = step("cpu")
-    spread = {name: 0.0 for name in g_got}
-    for seed in URHAND_SPREAD_SEEDS:
-        _, g_seed = step(DEVICE, seed)
-        for name, g in g_seed.items():
-            spread[name] = max(spread[name],
-                               float((g - g_got[name]).abs().max()))
+    spread = {}
     worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
     worst_g, worst_name = grad_error(g_got, g_ref)
     need, over = [], []
@@ -1352,26 +1422,35 @@ def urhand_small_train_reference(torch, jittered):
         usual = SMALL_RTOL * r.abs() + SMALL_RTOL * scale
         if bool((diff <= usual).all()):
             continue
+        if not spread:
+            spread = {name: 0.0 for name in g_got}
+            for seed in SPREAD_SEEDS:
+                _, g_seed = step(DEVICE, seed)
+                for n, g in g_seed.items():
+                    spread[n] = max(spread[n],
+                                    float((g - g_got[n]).abs().max()))
         note = (f"{name} (error {float(diff.max()) / max(scale, 1e-30):.3e}, "
                 f"spread {spread[name] / max(scale, 1e-30):.3e} of its "
                 f"largest entry)")
         need.append(note)
-        if not bool((diff <= usual + URHAND_SPREAD_MULT * spread[name])
+        if not bool((diff <= usual + SPREAD_MULT * spread[name])
                     .all()):
             over.append(note)
-    log(f"small-input URHand training reference (card vs CPU plain), one "
+    log(f"small-input {label} training reference (card vs CPU plain), one "
         f"step with {sorted(k for k in ref if k != 'loss_total')}: losses "
         f"{json.dumps(got)}, max rel diff {worst:.3e} (tolerance "
         f"{SMALL_RTOL}); gradients over {len(g_ref)} parameters: largest "
         f"error as a fraction of the parameter's largest gradient "
         f"{worst_g:.3e} ({worst_name}); beyond {SMALL_RTOL} of the entry and "
-        f"of that largest gradient, held to {URHAND_SPREAD_MULT} x their "
+        f"of that largest gradient, held to {SPREAD_MULT} x their "
         f"one-ulp perturbation spread on the card: {need}")
     if not (worst <= SMALL_RTOL and set(got) == set(ref)
             and set(g_got) == set(g_ref) and not over
-            and len(need) <= URHAND_MAX_SPREAD_PARAMS):
-        raise AssertionError(f"the card's URHand training step disagrees "
+            and len(need) <= MAX_SPREAD_PARAMS):
+        raise AssertionError(f"the card's {label} training step disagrees "
                              f"with the CPU's: over the rule {over}")
+    return {"losses_rel_err": worst, "grad_err_of_scale": worst_g,
+            "need_spread": need}
 
 
 MESH_DATA = {"synthetic": True, "img_h": 2048, "img_w": 1334,
@@ -2755,6 +2834,277 @@ def teacher_small_reference(torch):
     return worst
 
 
+# MVP training (run_train) at full width: configs/hand_mvp.yml at its batch
+# 4 with all six of its losses, and configs/hand_teacher_mvp.yml at its
+# batch 1 with its three, on MESH_DATA (the teacher's 5 lights), with the
+# eval paths' cuts. The march's binning runs twice a sample a forward (its
+# two scans on K4) and never in the backward, which marches each tile group
+# again: 2 x 4 x (3 steps + the summary's forward at iteration 0) = 32 and
+# 2 x 1 x 4 = 8 launches.
+HAND_MVP_TRAIN_BATCH = 4
+TEACHER_TRAIN_BATCH = 1
+# the march's gradients card vs CPU on a 2 x 2-tile window: rtol of the
+# entry plus a fraction of each gradient's largest entry (the deposit's and
+# the gathers' backward atomics add taps in other orders)
+MARCH_GRAD_RTOL = MARCH_GRAD_OF_SCALE = 1e-3
+
+
+def hand_mvp_train_config(overrides=(), data=MESH_DATA):
+    """configs/hand_mvp.yml for run_train on synthetic ``data`` (MESH_DATA
+    unless given) with HAND_MVP_CUTS: all six losses of the config."""
+    from goliath_torch.config import load_config
+
+    return load_config(str(ROOT / "configs" / "hand_mvp.yml"), overrides=[
+        f"data={yaml_flow(data)}", *HAND_MVP_CUTS, *overrides])
+
+
+def teacher_train_config(overrides=(), data=MESH_DATA):
+    """configs/hand_teacher_mvp.yml for run_train on synthetic ``data``
+    (MESH_DATA unless given: 5 lights) with TEACHER_CUTS: rgb_l2, mask_l1
+    (at iteration 0, its start_at and end_at) and learn_blur."""
+    from goliath_torch.config import load_config
+
+    return load_config(
+        str(ROOT / "configs" / "hand_teacher_mvp.yml"), overrides=[
+            f"data={yaml_flow(data)}", *TEACHER_CUTS, *overrides])
+
+
+class MVPTrainCapture:
+    """For the duration of a with-block: CUDA events around each march's
+    forward (``render_raymarcher.mvp_raymarch_tiled``) and its backward
+    (from its output's gradient to the last of its inputs' gradients:
+    the recomputed groups and their backward), kept in ``self.forward`` and
+    ``self.backward`` as event pairs in call order; and in ``captured`` the
+    first step's two K4 scans (``"k4"``) and its first march's arguments
+    (``"march"``, detached, on the host)."""
+
+    def __init__(self, torch, captured):
+        from goliath_torch.ops import binning
+        from goliath_torch.utils import render_raymarcher
+
+        self.torch, self.captured = torch, captured
+        self.binning, self.rm = binning, render_raymarcher
+        self.orig = binning.cumsum1d, render_raymarcher.mvp_raymarch_tiled
+        self.forward, self.backward = [], []
+
+    def __enter__(self):
+        torch = self.torch
+        orig_cs, orig_march = self.orig
+        captured, k4 = self.captured, self.captured.setdefault("k4", [])
+        fwd, bwd = self.forward, self.backward
+
+        def event():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+
+        def marker(on_backward):
+            class Mark(torch.autograd.Function):
+                @staticmethod
+                def forward(ctx, x):
+                    return x.view_as(x)
+
+                @staticmethod
+                def backward(ctx, g):
+                    on_backward()
+                    return g
+            return Mark.apply
+
+        def cs(x):
+            if len(k4) < HAND_MVP_K4_PER_FRAME:
+                k4.append(x.to("cpu", non_blocking=True))
+            return orig_cs(x)
+
+        def march(*args, **kw):
+            if "march" not in captured:
+                captured["march"] = (tuple(
+                    a.detach().to("cpu", non_blocking=True)
+                    if isinstance(a, torch.Tensor) else a for a in args),
+                    dict(kw))
+            pair = []
+            end = marker(lambda: pair.append(event()))
+            args = tuple(end(a) if isinstance(a, torch.Tensor)
+                         and a.requires_grad else a for a in args)
+            t0 = event()
+            out = orig_march(*args, **kw)
+            fwd.append((t0, event()))
+            if not out.requires_grad:
+                return out
+            bwd.append(pair)
+            return marker(lambda: pair.insert(0, event()))(out)
+
+        self.binning.cumsum1d, self.rm.mvp_raymarch_tiled = cs, march
+        return self
+
+    def __exit__(self, *exc):
+        self.binning.cumsum1d, self.rm.mvp_raymarch_tiled = self.orig
+
+    def march_ms(self):
+        """(forward ms, backward ms) of each march, in call order."""
+        return ([a.elapsed_time(b) for a, b in self.forward],
+                [p[0].elapsed_time(p[-1]) if len(p) > 1 else math.nan
+                 for p in self.backward])
+
+
+def mvp_train_path(gc, torch, card_line, record, captured, label,
+                   make_config, batch, default_group):
+    """run_training on an MVP config with MVPTrainCapture: K4 twice a
+    sample a forward and no other kernel; then each step's marches'
+    forward and backward ms beside the step's wall time."""
+    capture = MVPTrainCapture(torch, captured)
+    n = HAND_MVP_K4_PER_FRAME * batch * (TRAIN_STEPS + 1)
+
+    def zero_grad_ok(probe):
+        # cal.identity_camera "400870" is not a synthetic camera, so CalV5
+        # falls back to the first one, which passes the image through
+        drawn = {c for step in probe.cameras for c in step}
+        ok = {"cal"} if drawn <= {probe.identity_camera} else set()
+        return ok | ({"__default__"} if default_group else set())
+
+    launches = run_training(
+        gc, torch, card_line, label, dict(cumsum1d=n), record,
+        patch=capture, make_config=make_config, batch=batch,
+        zero_grad_ok=zero_grad_ok, default_group=default_group)
+    fwd, bwd = capture.march_ms()
+    # the training steps' marches: batch a step; then the summary's batch
+    # at iteration 0 (forward only) after step 0's
+    steps = [(fwd[:batch], bwd[:batch])]
+    rest_f, rest_b = fwd[2 * batch:], bwd[batch:]
+    for i in range(1, TRAIN_STEPS):
+        steps.append((rest_f[(i - 1) * batch:i * batch],
+                      rest_b[(i - 1) * batch:i * batch]))
+    if len(fwd) != batch * (TRAIN_STEPS + 1) or len(bwd) != batch \
+            * TRAIN_STEPS or not all(math.isfinite(v) for v in bwd):
+        raise AssertionError(f"{label}: {len(fwd)} march forwards and "
+                             f"{len(bwd)} backwards timed")
+    wall = record[label + " seconds"]
+    for i, (f, b) in enumerate(steps):
+        share = (sum(f) + sum(b)) / (wall[i] * 1e3)
+        log(f"{label} step {i}: march forward {sum(f):.3f} ms "
+            f"({', '.join(f'{v:.1f}' for v in f)}), backward {sum(b):.3f} "
+            f"ms ({', '.join(f'{v:.1f}' for v in b)}) (CUDA events; "
+            f"{share:.3f} of the step's wall {wall[i]:.4f} s) on {card_line}")
+    summary = fwd[batch:2 * batch]
+    log(f"{label} summary forward at iteration 0: march {sum(summary):.3f} "
+        f"ms over {batch} samples on {card_line}")
+    return launches
+
+
+def hand_mvp_train_path(gc, torch, card_line, record, captured):
+    """run_train.main on configs/hand_mvp.yml at full width
+    (hand_mvp_train_config), batch 4, 3 steps: every group's gradient
+    finite and non-zero (cal's may be 0 only if every sample drew cal's
+    identity camera), K4 32 times."""
+    return mvp_train_path(gc, torch, card_line, record, captured,
+                          "hand_mvp train path", hand_mvp_train_config,
+                          HAND_MVP_TRAIN_BATCH, default_group=False)
+
+
+def teacher_train_path(gc, torch, card_line, record, captured):
+    """run_train.main on configs/hand_teacher_mvp.yml at full width
+    (teacher_train_config), batch 1 with 5 lights, 3 steps: the four
+    groups' gradients finite and non-zero (cal's as hand_mvp's), the
+    default group of the detached geometry finite, zero and decaying
+    (check_decay), K4 8 times."""
+    return mvp_train_path(gc, torch, card_line, record, captured,
+                          "hand_teacher train path", teacher_train_config,
+                          TEACHER_TRAIN_BATCH, default_group=True)
+
+
+def mvp_train_march_check(torch, captured, card_line):
+    """On the first march of the hand_mvp training run (step 0, sample 0;
+    its arguments kept on the host): the march's drops on the whole frame,
+    counted once under no_grad on the card; then on its MVP_WINDOW x
+    MVP_WINDOW pixels at the image centre (2 x 2 tiles, the camera's
+    principal point moved with them), the march's gradients of the
+    template, primpos, primrot and primscale under a seeded upstream
+    gradient, each tile group recomputed in the backward, card against
+    CPU at MARCH_GRAD_RTOL of the entry plus MARCH_GRAD_OF_SCALE of each
+    gradient's largest |value|; K4 twice on the card (the binning once,
+    not in the backward)."""
+    import numpy as np
+
+    from goliath_torch.ops import gsplat_cuda as gc
+    from goliath_torch.ops import mvp
+    from goliath_torch.utils.timing import cuda_call_ms
+
+    args, kw = captured["march"]
+    raypos, raydir, stepsize, tminmax, pos, rot, scale, tpl, K_cam, Rt = args
+    drops = {}
+    with torch.no_grad():
+        _, ms = cuda_call_ms(lambda: mvp.mvp_raymarch_tiled(
+            *[a.to(DEVICE) if isinstance(a, torch.Tensor) else a
+              for a in args], drops=drops, **kw))
+    drops = {k: int(v) for k, v in drops.items()}
+    log(f"hand_mvp training step 0 sample 0 march drops: "
+        f"{json.dumps(drops)} ({ms:.3f} ms with the counts, no_grad, on "
+        f"{card_line})")
+    H, W = raypos.shape[:2]
+    ts = kw.get("tile_size", 16)
+    n = MVP_WINDOW
+    y0, x0 = (H // 2) // ts * ts, (W // 2) // ts * ts
+    win = (slice(y0, y0 + n), slice(x0, x0 + n))
+    K_w = K_cam.clone()
+    K_w[:2, 2] -= K_w.new_tensor([x0, y0])
+    gen = torch.Generator().manual_seed(11)
+    up = torch.randn((4, n, n), generator=gen)
+    grads, outs = {}, {}
+    for device in (DEVICE, "cpu"):
+        leaves = [a.to(device).requires_grad_() for a in (pos, rot, scale,
+                                                          tpl)]
+        before = gc.LAUNCHES["cumsum1d"]
+        out = mvp.mvp_raymarch_tiled(
+            raypos[win].contiguous().to(device),
+            raydir[win].contiguous().to(device), stepsize,
+            tminmax[win].contiguous().to(device), *leaves, K_w.to(device),
+            Rt.to(device), **kw)
+        (out * up.to(device)).sum().backward()
+        if device == DEVICE and gc.LAUNCHES["cumsum1d"] != before + 2:
+            raise AssertionError("the windowed march under autograd did not "
+                                 "launch K4 exactly twice")
+        outs[device] = out.detach().cpu()
+        grads[device] = [x.grad.cpu() for x in leaves]
+    worst = {}
+    for name, g, r in zip(("primpos", "primrot", "primscale", "template"),
+                          grads[DEVICE], grads["cpu"]):
+        scale_r = float(r.abs().max())
+        err = (g - r).abs()
+        allowed = MARCH_GRAD_RTOL * r.abs() + MARCH_GRAD_OF_SCALE * scale_r
+        worst[name] = (float(err.max()) / max(scale_r, 1e-30),
+                       int((err > allowed).sum()), scale_r,
+                       int((r != 0).sum()))
+    rgba_err = float((outs[DEVICE] - outs["cpu"]).abs().max())
+    log(f"hand_mvp training step 0 march gradients on the {n}x{n} window "
+        f"at ({x0}, {y0}), card vs CPU: rgba max abs err {rgba_err:.3e} "
+        f"(alpha max {float(outs['cpu'][3].max()):.6g}); per gradient "
+        f"(max abs err / largest |ref|, entries over rtol "
+        f"{MARCH_GRAD_RTOL} + {MARCH_GRAD_OF_SCALE} of the largest, "
+        f"largest |ref|, non-zero entries): {json.dumps(worst)}")
+    if any(w[1] for w in worst.values()) or not all(
+            w[2] > 0 for w in worst.values()):
+        raise AssertionError("the card's march gradients disagree with the "
+                             "CPU's (or are all zero) on the window")
+    return {"drops": drops, "gradients": worst}
+
+
+def hand_mvp_small_train_reference(torch):
+    """One hand_mvp training step (run_train.main, configs/hand_mvp.yml
+    with its six losses, vgg on random features) at HAND_MVP_SMALL on the
+    jittered template, card against CPU: small_train_step_reference."""
+    return small_train_step_reference(
+        torch, "hand_mvp", lambda o: hand_mvp_train_config(
+            [*HAND_MVP_SMALL, *o], HAND_MVP_SMALL_DATA))
+
+
+def teacher_small_train_reference(torch):
+    """One teacher training step (configs/hand_teacher_mvp.yml with its
+    three losses) at TEACHER_SMALL on the jittered template, card against
+    CPU: small_train_step_reference."""
+    return small_train_step_reference(
+        torch, "hand_teacher", lambda o: teacher_train_config(
+            [*TEACHER_SMALL, *o], TEACHER_SMALL_DATA))
+
+
 def check_k6(gc, torch, steps):
     """K6 forward and backward against their plain versions on the own
     inputs of every fold training step (the rows, global tile bounds, cnt,
@@ -3491,8 +3841,31 @@ def main() -> int:
               teacher_inputs, card_line)
     del teacher_inputs
     torch.cuda.empty_cache()
+    mvp_train_inputs = {}
+    phase("hand_mvp_train_path", hand_mvp_train_path, gc, torch, card_line,
+          totals, mvp_train_inputs)
+    if mvp_train_inputs.get("k4"):
+        phase("k4_mvp_train", k4_mvp_check, gc, torch,
+              mvp_train_inputs["k4"], "hand_mvp training step 0")
+    if "march" in mvp_train_inputs:
+        phase("mvp_train_march_check", mvp_train_march_check, torch,
+              mvp_train_inputs, card_line)
+    del mvp_train_inputs
+    torch.cuda.empty_cache()
+    teacher_train_inputs = {}
+    phase("teacher_train_path", teacher_train_path, gc, torch, card_line,
+          totals, teacher_train_inputs)
+    if teacher_train_inputs.get("k4"):
+        phase("k4_teacher_train", k4_mvp_check, gc, torch,
+              teacher_train_inputs["k4"], "hand_teacher training step 0")
+    del teacher_train_inputs
+    torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
     phase("teacher_small_reference", teacher_small_reference, torch)
+    phase("hand_mvp_small_train_reference", hand_mvp_small_train_reference,
+          torch)
+    phase("teacher_small_train_reference", teacher_small_train_reference,
+          torch)
 
     # the phases that return (launches, measurements) of several kernels
     split = {}
@@ -3514,6 +3887,8 @@ def main() -> int:
              "urhand_train": phases.get("urhand_train_path", {}),
              "hand_mvp_eval": phases.get("hand_mvp_eval_path", {}),
              "hand_teacher_eval": phases.get("hand_teacher_eval_path", {}),
+             "hand_mvp_train": phases.get("hand_mvp_train_path", {}),
+             "hand_teacher_train": phases.get("teacher_train_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check"]),
@@ -3525,7 +3900,8 @@ def main() -> int:
               "cumsum_cols": ("K3", ["k3_check", "backward_check"]),
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh",
                                   "k4_urhand", "k4_urhand_train", "k4_mvp",
-                                  "k4_teacher"]),
+                                  "k4_teacher", "k4_mvp_train",
+                                  "k4_teacher_train"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
                                  "k5_urhand_shadow", "k5_urhand_render",
                                  "k5_urhand_train"]),

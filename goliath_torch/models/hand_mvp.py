@@ -44,7 +44,7 @@ from goliath_torch.utils.geom import (
     make_uv_barys,
     values_to_uv,
 )
-from goliath_torch.utils.image import linear2display
+from goliath_torch.utils.image import linear2display, relu
 from goliath_torch.utils.lbs import LBSModule
 from goliath_torch.utils.quaternion import axisangle_to_matrix
 from goliath_torch.utils.render_raymarcher import Raymarcher
@@ -213,7 +213,7 @@ class GeomDecoder(nn.Module):
         alpha = self.alphadecoder(joint).reshape(
             B, self.primsize_z, 1, self.uv_size, self.uv_size)
         return {
-            "primalpha": alpha.clamp(min=0.0),
+            "primalpha": relu(alpha),
             "primpos": primpos,
             "primscale": primscale,
             "primrot": primrot,
@@ -240,7 +240,7 @@ class RGBSlabDecoder(nn.Module):
         view_cond = torch.cat([joint, view_cos_uv, ao_ds], dim=1)
         rgb = self.texdecoder(view_cond).reshape(
             B, self.primsize_z, 3, self.uv_size, self.uv_size)
-        return (25.0 * rgb + 100.0).clamp(min=0.0)
+        return relu(25.0 * rgb + 100.0)
 
 
 class _HandMVPNet(nn.Module):

@@ -30,6 +30,7 @@ from goliath_torch.models import hand_mvp as base
 from goliath_torch.nn.layers import Conv2dWNUB, leaky_relu
 from goliath_torch.ops.mvp import (shadow_at_points, shadow_at_points_exact,
                                    splat_density_grid)
+from goliath_torch.utils.image import relu
 from goliath_torch.utils.sampling import interpolate_bilinear
 
 SHADOW_MODES = ("grid", "exact")
@@ -239,7 +240,7 @@ class OLATRGBDecoder(nn.Module):
         texolat = 25.0 * tex[:, :, :, 1:] + 100.0
 
         li = light_intensity[:, :, None, :, None, None]
-        rgb = (shadowolat * texolat.clamp(min=0.0) * li).sum(1)
+        rgb = (shadowolat * relu(texolat) * li).sum(1)
         rgb = rgb.reshape(B, pz, 3, S, S)
 
         primshadow = shadow[:, :, None].expand(B * L, pz, 3, S, S).reshape(

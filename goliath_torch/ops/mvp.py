@@ -26,7 +26,9 @@ first ``max_prims_per_tile`` pairs; each ray marches its nearest
 are skipped, and a group holds as many tiles as ``GROUP_TAPS`` samples
 allow. Window samples land on the step grid by one ``scatter_add_`` (the
 JAX package's one-hot einsum deposit, a TPU device for avoiding scatters,
-computes the same sums).
+computes the same sums). Under autograd each tile group is recomputed in
+the backward (``torch.utils.checkpoint``, the JAX package's group remat):
+the binning and the tile order stay outside the recomputed part.
 
 ``march_reference`` is the exact oracle over every prim and every ray.
 
@@ -43,6 +45,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from goliath_torch.ops.binning import (bin_boxes_to_cells, bin_to_tiles,
                                        cell_spans, clip_spans)
@@ -85,6 +88,11 @@ def pack_volume(vol: torch.Tensor) -> PackedVolume:
 
 def _packed(v) -> PackedVolume:
     return v if isinstance(v, PackedVolume) else pack_volume(v)
+
+
+def _rows(v):
+    """The tensor behind a volume, packed or not (None stays None)."""
+    return v.rows if isinstance(v, PackedVolume) else v
 
 
 def sample_packed_cf(pv: PackedVolume, prim_ids: torch.Tensor,
@@ -184,15 +192,25 @@ def sample_prims(template, prim_ids: torch.Tensor, y: torch.Tensor,
                            warp=warp).movedim(0, -1)
 
 
+def saturate(alpha: torch.Tensor, stepsize: float
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The accumulated alpha along the last axis clipped to 1, and each
+    step's share of it: (A_clip, contrib), both [..., S]. The clip is
+    ``jnp.minimum``'s: where A equals 1 exactly it takes half the gradient
+    (``clamp`` would take all of it)."""
+    A = torch.cumsum(alpha * stepsize, dim=-1)
+    A_clip = torch.minimum(A, A.new_ones(()))
+    contrib = torch.diff(A_clip, dim=-1,
+                         prepend=torch.zeros_like(A_clip[..., :1]))
+    return A_clip, contrib
+
+
 def accumulate_additive(rgb: torch.Tensor, alpha: torch.Tensor,
                         stepsize: float) -> torch.Tensor:
     """Additive compositing with saturation of the samples of rays along
     the step axis (dim -1 of ``alpha`` [..., S], dim -2 of ``rgb``
     [..., S, 3]): [..., 4]."""
-    A = torch.cumsum(alpha * stepsize, dim=-1)
-    A_clip = A.clamp(max=1.0)
-    contrib = torch.diff(A_clip, dim=-1,
-                         prepend=torch.zeros_like(A_clip[..., :1]))
+    A_clip, contrib = saturate(alpha, stepsize)
     rgb_out = (rgb * contrib[..., None]).sum(-2)
     a_out = A_clip[..., -1] if A_clip.shape[-1] else alpha.new_zeros(
         alpha.shape[:-1])
@@ -330,7 +348,15 @@ def mvp_raymarch_tiled(
     prims in their tile's list), ``window_cut_pairs`` and
     ``window_cut_prims`` ((prim, ray) pairs and prims whose span went past
     the window), ``rays_step_capped`` (hits past max_steps), and
-    ``tiles_marched`` and ``group_tiles``.
+    ``tiles_marched`` and ``group_tiles``; with gradient enabled on an
+    input that needs one it raises ValueError instead (the recomputed
+    groups would count twice).
+
+    Under autograd (grad enabled, an input needing gradient) each group is
+    marched again in the backward (``torch.utils.checkpoint``), as the JAX
+    package rematerializes its groups: the forward keeps no tap's
+    temporaries. The prims' AABBs, which pick the tiles, each ray's prims
+    and its first step, carry no gradient.
     """
     H, W = raypos.shape[:2]
     dev = raypos.device
@@ -338,8 +364,17 @@ def mvp_raymarch_tiled(
     ntx = -(-W // ts)
     nty = -(-H // ts)
     K = primpos.shape[0]
+    recompute = torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in (
+            primpos, primrot, primscale, _rows(template), _rows(warp)))
+    if recompute and drops is not None:
+        raise ValueError("the march counts drops without gradient: call it "
+                         "under torch.no_grad()")
 
-    pmin, pmax = prim_world_aabb(primpos, primrot, primscale)
+    # the AABBs only choose each tile's and each ray's prims, their order
+    # and the first step: their derivative is 0 (in the JAX package too)
+    pmin, pmax = prim_world_aabb(primpos.detach(), primrot.detach(),
+                                 primscale.detach())
     # the 8 AABB corners, projected to the screen for the tile rects
     corners = torch.stack([
         torch.stack([(pmax if cx else pmin)[:, 0], (pmax if cy else pmin)[:, 1],
@@ -408,21 +443,14 @@ def mvp_raymarch_tiled(
     iota_Sp = torch.arange(Sp, device=dev, dtype=torch.int64)
     iota_S = torch.arange(S, device=dev, dtype=raypos.dtype)
 
-    # empty tiles march nothing: their rgba is 0 (one host sync a call)
-    live = torch.nonzero(counts > 0).squeeze(1)
-    g = max(1, GROUP_TAPS // (rchunk * Sp * P))
-    if drops is not None:
-        drops["tiles_marched"] = torch.tensor(live.numel())
-        drops["group_tiles"] = torch.tensor(g)
-    out = raypos.new_zeros(T, 4, P)
-    for i0 in range(0, live.numel(), g):
-        idx = live[i0:i0 + g]
-        gs = idx.numel()
-        rp_g, rd_g, tm_g = rp_t[idx], rd_t[idx], tm_t[idx]
-        idxs = binning.tile_start[idx][:, None] + torch.arange(
-            M, device=dev, dtype=torch.int32)                   # [g, M]
-        pm = idxs < binning.tile_end[idx][:, None]
-        pids = binning.sorted_prim[idxs.clamp(0, budget - 1).long()].long()
+    def march_group(rp_g, rd_g, tm_g, pids, pm, ins, primpos, primrot,
+                    primscale, rows, wrows):
+        """rgba [g, 4, P] of a group of tiles. A function of its arguments
+        alone (``ins``, the tiles' image rays, only for ``drops``), so the
+        backward can run it again."""
+        gs = rp_g.shape[0]
+        tpv_g = PackedVolume(rows, tpv.shape)
+        wpv_g = None if wrows is None else PackedVolume(wrows, wpv.shape)
 
         # each ray's span across its tile's prims
         tmin_pk, tmax_pk = _ray_box_span_g(rp_g, rd_g, pmin[pids],
@@ -449,13 +477,12 @@ def mvp_raymarch_tiled(
         t0 = tm_g[..., 0] + torch.floor(
             (t_enter - tm_g[..., 0]).clamp(min=0.0) / stepsize) * stepsize
         if drops is not None:
-            ins = inside[idx]
             _count(drops, "rays_over_r", (hit.sum(1) > R) & ins)
             _count(drops, "rays_step_capped", any_hit & ins & (
                 t0 + (S - 1) * stepsize + 1e-5 < t_exit))
 
         # taps [g, P, rc, Sp]: each ray's slots, each slot's window steps
-        acc = raypos.new_zeros(gs, P, 4, S)
+        acc = rp_g.new_zeros(gs, P, 4, S)
         for ci in range(nchunks):
             if ci and not bool((hitR.sum(2) > ci * rchunk).any()):
                 break   # hit slots are sorted first: no ray has more
@@ -487,8 +514,8 @@ def mvp_raymarch_tiled(
             yx = Ac[..., 0, None] * tj + Bc[..., 0, None]
             yy = Ac[..., 1, None] * tj + Bc[..., 1, None]
             yz = Ac[..., 2, None] * tj + Bc[..., 2, None]
-            smp = sample_prims_cf(tpv, gp[..., None], yx, yy, yz,
-                                  fadescale, fadeexp, warp=wpv)  # [4,g,P,rc,Sp]
+            smp = sample_prims_cf(tpv_g, gp[..., None], yx, yy, yz,
+                                  fadescale, fadeexp, warp=wpv_g)  # [4,g,P,rc,Sp]
             a = smp[3] * msk
             vals = torch.stack([smp[0] * a, smp[1] * a, smp[2] * a, a], 2)
             # deposit each window onto the step grid at s_lo + j
@@ -498,7 +525,7 @@ def mvp_raymarch_tiled(
             if drops is not None:
                 past = (ok & (s_lo + Sp < S) & (
                     t0[..., None] + (s_lo + Sp) * stepsize
-                    <= tmax_c + 1e-5) & inside[idx][..., None])
+                    <= tmax_c + 1e-5) & ins[..., None])
                 _count(drops, "window_cut_pairs", past)
                 cut_prims[gp[past]] = True
 
@@ -507,12 +534,31 @@ def mvp_raymarch_tiled(
         alpha = acc[:, :, 3] * live_s
         safe = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
         rgb_mean = acc[:, :, :3] / safe[:, :, None]
-        A = torch.cumsum(alpha * stepsize, dim=-1)
-        A_clip = A.clamp(max=1.0)
-        contrib = torch.diff(A_clip, dim=-1,
-                             prepend=torch.zeros_like(A_clip[..., :1]))
+        A_clip, contrib = saturate(alpha, stepsize)
         rgb_out = (rgb_mean * contrib[:, :, None]).sum(-1)      # [g, P, 3]
-        out[idx] = torch.cat([rgb_out, A_clip[..., -1:]], -1).transpose(1, 2)
+        return torch.cat([rgb_out, A_clip[..., -1:]], -1).transpose(1, 2)
+
+    # empty tiles march nothing: their rgba is 0 (one host sync a call)
+    live = torch.nonzero(counts > 0).squeeze(1)
+    g = max(1, GROUP_TAPS // (rchunk * Sp * P))
+    if drops is not None:
+        drops["tiles_marched"] = torch.tensor(live.numel())
+        drops["group_tiles"] = torch.tensor(g)
+    out = raypos.new_zeros(T, 4, P)
+    for i0 in range(0, live.numel(), g):
+        idx = live[i0:i0 + g]
+        idxs = binning.tile_start[idx][:, None] + torch.arange(
+            M, device=dev, dtype=torch.int32)                   # [g, M]
+        pm = idxs < binning.tile_end[idx][:, None]
+        pids = binning.sorted_prim[idxs.clamp(0, budget - 1).long()].long()
+        args = (rp_t[idx], rd_t[idx], tm_t[idx], pids, pm,
+                None if drops is None else inside[idx], primpos, primrot,
+                primscale, tpv.rows, None if wpv is None else wpv.rows)
+        # under autograd the group's taps are recomputed in the backward
+        # (one group's temporaries alive at a time); the binning, the tile
+        # order and the groups stay as this pass made them
+        out[idx] = (checkpoint(march_group, *args, use_reentrant=False)
+                    if recompute else march_group(*args))
 
     if drops is not None:
         drops["window_cut_prims"] = cut_prims.sum()

@@ -1,7 +1,7 @@
 """Image utilities (port of the JAX package's utils/image.py, the part the
 ported losses, summaries and models call: the color pipeline (linear <->
 sRGB, the mugsy color correction, the display mapping), ``jnp.clip``'s
-ties, mask morphology,
+and ``jnp.maximum``'s ties, mask morphology,
 the difference-image remap and the host-side gaussian blur of mesh_vae's
 texture mean). The labeled image grids of the visualization scripts come
 with those scripts.
@@ -22,6 +22,12 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     equals the bound (``torch.clamp`` gives all of it there). It matters
     where values sit exactly on a bound, as a render's background at 0."""
     return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0)``: half the gradient where ``x`` is 0 exactly
+    (``clamp(min=0)`` gives all of it there, ``F.relu`` none)."""
+    return torch.maximum(x, x.new_zeros(()))
 
 
 def linear2srgb(img: torch.Tensor, gamma: float = 2.4) -> torch.Tensor:

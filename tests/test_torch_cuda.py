@@ -905,6 +905,59 @@ def test_mvp_march_on_the_card_matches_the_cpu(cuda):
     assert int(d_cpu["prims_dropped"]) and int(d_cpu["window_cut_pairs"])
 
 
+def test_mvp_march_gradients_on_the_card_match_the_cpu(cuda):
+    """The tiled march's gradients of primpos, primrot, primscale and the
+    template under a seeded upstream gradient, on the scene of
+    test_mvp_march_on_the_card_matches_the_cpu without its drops (tile
+    lists of 16, 8 slots a ray, no window), card against CPU; the binning
+    runs once on the card (K4 twice), not in the backward."""
+    from goliath_torch.ops import mvp, raygen
+
+    rng = np.random.RandomState(0)
+    K, TD, H, W = 12, 4, 32, 32
+    rot = _rotations(rng, K)
+    pos = (rng.rand(K, 3) - 0.5) * 1.2
+    scale = 2.0 + 3.0 * rng.rand(K, 3)
+    tpl = rng.rand(K, 4, TD, TD, TD)
+    tpl[:, 3] *= 30.0
+    rp, rd, tm = raygen.compute_raydirs(
+        torch.tensor([[0.0, 0.0, -3.0]]), torch.eye(3)[None],
+        torch.tensor([[30.0, 30.0]]), torch.tensor([[W / 2, H / 2]]),
+        raygen.make_pixelcoords(1, H, W), 1.0)
+    K_cam = torch.tensor([[30.0, 0, W / 2], [0, 30.0, H / 2], [0, 0, 1]])
+    Rt = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 3.0]])
+    up = torch.from_numpy(rng.randn(4, H, W).astype(np.float32))
+    kw = dict(max_steps=100, max_prims_per_tile=16, chunk=8)
+    grads = {}
+    for device in ("cpu", cuda):
+        leaves = [torch.from_numpy(a.astype(np.float32)).to(device)
+                  .requires_grad_() for a in (pos, rot, scale, tpl)]
+        before = gc.LAUNCHES["cumsum1d"]
+        out = mvp.mvp_raymarch_tiled(
+            rp[0].to(device), rd[0].to(device), 0.05, tm[0].to(device),
+            *leaves, K_cam.to(device), Rt.to(device), **kw)
+        (out * up.to(device)).sum().backward()
+        assert gc.LAUNCHES["cumsum1d"] == before + (device != "cpu") * 2
+        grads[str(device)] = [x.grad.cpu() for x in leaves]
+    for got, ref in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(got, ref, rtol=1e-3,
+                                   atol=1e-3 * float(ref.abs().max()))
+        assert float(ref.abs().max()) > 0
+
+
+@pytest.mark.parametrize("model", ["hand_mvp", "hand_teacher"])
+def test_mvp_small_training_step_on_the_card_matches_the_cpu(cuda, model):
+    """chip_smoke.py's small training reference of the MVP hand and of the
+    OLAT teacher (run_train.main at HAND_MVP_SMALL / TEACHER_SMALL, one
+    step on the card and one on the CPU)."""
+    import chip_smoke
+
+    fn = {"hand_mvp": chip_smoke.hand_mvp_small_train_reference,
+          "hand_teacher": chip_smoke.teacher_small_train_reference}[model]
+    out = fn(torch)
+    assert out["losses_rel_err"] <= chip_smoke.SMALL_RTOL
+
+
 def _deep_shadow_scene(seed, K, spread, TD=4):
     """Random prims of tests/test_torch_deep_shadow.py's kind, float32."""
     rng = np.random.RandomState(seed)
