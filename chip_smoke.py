@@ -154,13 +154,28 @@ the final result line:
      and non-zero, the default group of the detached geometry's zero and
      its parameters moved by AdamW's decay alone, the same timings; then
      K4 on step 0's two scans, exactly;
- 22. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+ 22. the relighting entry point: goliath_torch.scripts.run_vis_relight.main
+     on configs/rgca.yml at full width (the eval path's data, weights from
+     seed 0) with a seeded 1024x2048 envmap (a sky, a sun reaching ~50,
+     noise), 3 frames of the point-light sweep and 3 of the HDRI spin (the
+     RGCA envmap branch: the prefilter at 64 samples, three renders a
+     frame), counts set to 0 just before and read just after (K1 12, K4
+     24, nothing else): the 6 PNGs read back at 2048x1334 and 2048x4002,
+     finite and non-constant, the decorator's build, each frame's augment,
+     forward, compose_envmap and its 101x101 blur by CUDA events and its
+     PNG write, peak memory and one profiled spin frame; then K4 against
+     torch.cumsum on the first spin frame's six scans, exactly, and K1
+     against its plain version on its third render (the spec_color pass);
+ 23. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
      path and one mesh training step, the URHand eval path and one URHand
      training step, and the hand_mvp eval path, at a small size, on the
      card against the CPU (plain versions) as the small-input reference;
      then the teacher's forward, and one training step of hand_mvp and of
-     the teacher, at their small sizes, card vs CPU;
- 23. per kernel (and per mode of a kernel): check result, launches on each
+     the teacher, at their small sizes, card vs CPU; then one spin frame at
+     configs/rgca_synthetic.yml size, card vs CPU (spec_color, the
+     diffuse and specular panels, and the composite panel's mirrorball
+     inset and the rest of it apart);
+ 24. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -3105,6 +3120,345 @@ def teacher_small_train_reference(torch):
             [*TEACHER_SMALL, *o], TEACHER_SMALL_DATA))
 
 
+# The relighting entry point (run_vis_relight.main on configs/rgca.yml): the
+# point-light sweep renders once a frame, the HDRI spin three times (the
+# composite's render, then the diffuse and the specular colours alone), each
+# render binning anew (K4 twice) and compositing (K1 once).
+RELIGHT_FRAMES = 3
+RELIGHT_RENDERS = {"sweep": 1, "spin": 3}
+RELIGHT_ENV_SHAPE = (1024, 2048)        # resize_area's block-mean branch
+RELIGHT_SMALL_ENV_SHAPE = (128, 256)
+RELIGHT_SMALL_SAMPLES = 8
+
+
+def write_envmap(path, shape=RELIGHT_ENV_SHAPE, seed=0):
+    """A float32 equirect envmap [H, W, 3] from ``seed``, saved as .npy: a
+    sky gradient, a sun disc reaching ~50 (flat-topped, 0.03 H across) and
+    uniform noise of 0.05."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    H, W = shape
+    y = (np.arange(H, dtype=np.float32) + 0.5) / H
+    sky = np.stack([0.3 + 0.5 * y, 0.5 + 0.3 * y, 1.0 - 0.4 * y], -1)
+    env = np.broadcast_to(sky[:, None], (H, W, 3)).copy()
+    yy, xx = np.mgrid[0:H, 0:W]
+    r2 = ((yy - 0.3 * H) ** 2 + (xx - 0.7 * W) ** 2) / (0.03 * H) ** 2
+    env += (50.0 * np.exp(-r2 ** 2))[..., None]
+    env += 0.05 * rng.random((H, W, 3), dtype=np.float32)
+    np.save(path, env.astype(np.float32))
+
+
+def read_png(path):
+    """[H, W, 3] uint8 of a PNG that goliath_torch.test._save_png wrote (8-bit
+    RGB, filter 0 on every row), each chunk's CRC checked."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    data = Path(path).read_bytes()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path} is not a PNG")
+    pos, idat, hdr = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(tag + body) & 0xFFFFFFFF != crc:
+            raise AssertionError(f"{path}: bad CRC in {tag!r}")
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    w, h, depth, ctype = hdr[:4]
+    if (depth, ctype) != (8, 2):
+        raise AssertionError(f"{path}: not 8-bit RGB")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    raw = raw.reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise AssertionError(f"{path}: filtered rows")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def relight_config(out_dir, envmap_path):
+    """configs/rgca.yml for run_vis_relight: the test data FULL_DATA, no
+    checkpoint (weights from seed 0), RELIGHT_FRAMES frames of each half."""
+    from goliath_torch.config import load_config
+
+    return load_config(str(ROOT / "configs" / "rgca.yml"), overrides=[
+        f"test.data={yaml_flow(FULL_DATA)}", "test.ckpt=null",
+        f"vis.n_frames={RELIGHT_FRAMES}", f"vis.envmap_path={envmap_path}",
+        f"vis.output_dir={out_dir}"])
+
+
+def relight_path(gc, torch, card_line, captured):
+    """run_vis_relight.main on configs/rgca.yml at full width (FULL_DATA,
+    weights from seed 0) with a 1024x2048 envmap (write_envmap) and 3 frames
+    of each half, the prefilter at its 64 samples, counts reset just before:
+    3 sweep PNGs of 2048x1334 and 3 spin PNGs of 2048x4002 read back, each
+    frame finite and non-constant before quantization, K1 12 and K4 24
+    times and no other kernel. Times the decorator's build (the prefilter)
+    and, per frame, the augment, the model forward, compose_envmap and its
+    blur (CUDA events) and the PNG write (host clock after a synchronise);
+    logs the peak memory; keeps in ``captured`` the first spin frame's six
+    K4 scans and its third render's K1 arguments (the spec_color pass);
+    then profiles one spin frame again."""
+    import os
+
+    import numpy as np
+
+    from goliath_torch.models import rgca
+    from goliath_torch.ops import binning
+    from goliath_torch.scripts import run_vis_relight
+    from goliath_torch.utils import envmap as envmap_lib
+    from goliath_torch.utils import light_decorator as ld
+
+    state = {"half": None, "frame": -1, "renders": 0}
+    events = {k: [] for k in ("augment", "forward", "compose", "blur")}
+    saved = {"sweep": [], "spin": []}
+    built = {}
+    orig = {"sweep_aug": ld.SingleLightCycleDecorator.augment,
+            "spin_aug": ld.EnvSpinDecorator.augment,
+            "spin_cls": run_vis_relight.EnvSpinDecorator,
+            "build": run_vis_relight.load_from_config,
+            "compose": rgca.compose_envmap,
+            "blur": envmap_lib.blur_background,
+            "save": run_vis_relight._save_frame,
+            "cs": binning.cumsum1d, "rt": gc.rasterize_tiled}
+
+    def timed(key, fn):
+        def call(*args, **kw):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*args, **kw)
+            ev[1].record()
+            events[key].append((state["half"], state["frame"], ev))
+            return out
+        return call
+
+    def augmenter(half, fn):
+        def augment(self, data):
+            state.update(half=half, frame=int(np.asarray(data["index"])[0]),
+                         renders=0)
+            if half == "spin":
+                built.update(deco=self, batch=data)
+            return timed("augment", fn)(self, data)
+        return augment
+
+    def spin_cls(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        deco = orig["spin_cls"](*args, **kw)
+        torch.cuda.synchronize()
+        built["build_s"] = time.perf_counter() - t0
+        return deco
+
+    def build(*args, **kw):
+        model = built["model"] = orig["build"](*args, **kw)
+        model.apply = timed("forward", model.apply)
+        return model
+
+    def save(path, rgb):
+        stats = torch.stack([torch.isfinite(rgb).all().float(),
+                             rgb.float().std()]).tolist()   # synchronises
+        t0 = time.perf_counter()
+        orig["save"](path, rgb)
+        saved[state["half"]].append((time.perf_counter() - t0, *stats))
+
+    def cs(x):
+        if (state["half"], state["frame"]) == ("spin", 0):
+            captured.setdefault("k4", []).append(x.clone())
+        return orig["cs"](x)
+
+    def rt(*args, **kw):
+        if (state["half"], state["frame"]) == ("spin", 0):
+            state["renders"] += 1
+            if state["renders"] == RELIGHT_RENDERS["spin"]:
+                captured["k1"] = args
+        return orig["rt"](*args, **kw)
+
+    def patch(on):
+        src = {"sweep_aug": augmenter("sweep", orig["sweep_aug"]),
+               "spin_aug": augmenter("spin", orig["spin_aug"]),
+               "spin_cls": spin_cls, "build": build,
+               "compose": timed("compose", orig["compose"]),
+               "blur": timed("blur", orig["blur"]), "save": save,
+               "cs": cs, "rt": rt} if on else orig
+        ld.SingleLightCycleDecorator.augment = src["sweep_aug"]
+        ld.EnvSpinDecorator.augment = src["spin_aug"]
+        run_vis_relight.EnvSpinDecorator = src["spin_cls"]
+        run_vis_relight.load_from_config = src["build"]
+        rgca.compose_envmap = src["compose"]
+        envmap_lib.blur_background = src["blur"]
+        run_vis_relight._save_frame = src["save"]
+        binning.cumsum1d = src["cs"]
+        gc.rasterize_tiled = src["rt"]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_relight_") as d:
+        env_path = os.path.join(d, "envmap.npy")
+        write_envmap(env_path)
+        out_dir = os.path.join(d, "out")
+        cfg = relight_config(out_dir, env_path)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        patch(True)
+        gc.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            run_vis_relight.main(cfg, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(gc.LAUNCHES)
+        finally:
+            patch(False)
+        peak = torch.cuda.max_memory_allocated()
+        shapes = {}
+        for half, sub in (("sweep", "light_sweep"), ("spin", "env_spin")):
+            imgs = [read_png(p) for p in sorted(Path(out_dir, sub).glob(
+                "*.png"))]
+            shapes[half] = [(im.shape, int(im.min()), int(im.max()))
+                            for im in imgs]
+    model = built.pop("model")
+    del model.apply
+    ms = {k: {} for k in events}
+    for key, evs in events.items():
+        for half, frame, (a, b) in evs:
+            ms[key].setdefault((half, frame), []).append(a.elapsed_time(b))
+    log(f"relight path launches: {launches}")
+    log(f"relight run: wall {wall:.3f} s, of which the spin decorator's "
+        f"build (load, resize, the 3 prefiltered levels at 64 samples) "
+        f"{built.get('build_s', float('nan')):.3f} s on {card_line}")
+    for half in ("sweep", "spin"):
+        for i in range(RELIGHT_FRAMES):
+            parts = ", ".join(f"{k} {sum(v[(half, i)]):.3f} ms"
+                              for k, v in ms.items() if (half, i) in v)
+            png_s = saved[half][i][0] if i < len(saved[half]) else math.nan
+            log(f"relight {half} frame {i}: {parts} (CUDA events; compose "
+                f"and its blur lie inside the forward); PNG write "
+                f"{png_s * 1e3:.1f} ms on {card_line}")
+    log(f"peak device memory (relight): {peak / 2**30:.3f} GiB on "
+        f"{card_line}")
+    log(f"relight PNGs (shape, min, max): {shapes}")
+    H, W = int(cfg.model.image_height), int(cfg.model.image_width)
+    want = {"sweep": (H, W, 3), "spin": (H, RELIGHT_RENDERS["spin"] * W, 3)}
+    for half, frames in shapes.items():
+        if [s[0] for s in frames] != [want[half]] * RELIGHT_FRAMES:
+            raise AssertionError(f"relight {half}: PNGs {frames}, want "
+                                 f"{RELIGHT_FRAMES} of {want[half]}")
+        if not all(hi > lo for _, lo, hi in frames):
+            raise AssertionError(f"relight {half}: a constant PNG")
+        stats = saved[half]
+        if len(stats) != RELIGHT_FRAMES or not all(
+                f == 1.0 and std > 0 for _, f, std in stats):
+            raise AssertionError(f"relight {half}: a frame is not finite or "
+                                 f"is constant before quantization {stats}")
+    if any(len(v) != 2 * RELIGHT_FRAMES for k, v in ms.items()
+           if k in ("augment", "forward")) or any(
+            len(v) != RELIGHT_FRAMES for k, v in ms.items()
+            if k in ("compose", "blur")):
+        raise AssertionError(f"relight frames timed "
+                             f"{ {k: len(v) for k, v in ms.items()} }")
+    renders = RELIGHT_FRAMES * sum(RELIGHT_RENDERS.values())
+    expected = {name: 0 for name in gc.LAUNCHES}
+    expected.update(compositor_fwd=renders, cumsum1d=2 * renders)
+    if launches != expected:
+        raise AssertionError(f"relight path launch counts {launches} != "
+                             f"{expected}")
+    profile_forward(torch, built.pop("deco"), built.pop("batch"), card_line,
+                    "profiled relight spin frame (augment and the model "
+                    "forward of the last spin frame, run again)", train=False)
+    return launches
+
+
+def check_k1_relight(gc, torch, args):
+    """K1 against its plain version (check_k1's tolerances) on the relight
+    path's first spin frame, third render: the spec_color pass."""
+    log("K1 on the relight path (spin frame 0, the spec_color render):")
+    return check_k1(gc, torch, args, {})
+
+
+def relight_small_reference(torch):
+    """One spin frame at configs/rgca_synthetic.yml size (64x64, uv 32; a
+    128x256 envmap from write_envmap; RELIGHT_SMALL_SAMPLES prefilter
+    samples a level, which EnvSpinDecorator draws on the host from its
+    generator seeded 7, so both devices get the same uniforms) on the card
+    (kernels) against the CPU (plain versions): spec_color, the diffuse and
+    specular panels of rgb, and the composite panel in two parts, each at
+    rtol SMALL_RTOL plus SMALL_RTOL of that part's own largest entry: the
+    mirrorball inset (the disc of envmap_to_mirrorball's mask, which
+    carries the unclamped envmap and its sun) and the rest of the panel
+    (the render over the clamped background). Returns {name: (largest
+    error, largest entry)}."""
+    import numpy as np
+
+    from goliath_torch.config import Config, load_config, load_from_config
+    from goliath_torch.data.pipeline import collate
+    from goliath_torch.scripts.run_train import build_dataset
+    from goliath_torch.test import to_device
+    from goliath_torch.utils.envmap import envmap_to_mirrorball
+    from goliath_torch.utils.light_decorator import EnvSpinDecorator
+
+    cfg = load_config(str(ROOT / "configs" / "rgca_synthetic.yml"))
+    ds = build_dataset(dict(cfg.test.data))
+    mc = Config.wrap(dict(cfg.model))
+    mc.pop("cal", None)
+    mc["learn_blur"] = False
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_relight_small_") as d:
+        path = str(Path(d) / "envmap.npy")
+        write_envmap(path, RELIGHT_SMALL_ENV_SHAPE)
+        for device in (DEVICE, "cpu"):
+            model = load_from_config(mc, assets=ds.static_assets,
+                                     device=device)
+            deco = EnvSpinDecorator(model, path, cycle=RELIGHT_FRAMES,
+                                    prefilter_samples=RELIGHT_SMALL_SAMPLES)
+            batch = to_device(collate([ds[0]]), torch.device(device))
+            batch["index"] = np.asarray([1])
+            with torch.no_grad():
+                preds = deco.apply(batch, train=False)
+            out[device] = {k: preds[k].float().cpu()
+                           for k in ("spec_color", "rgb")}
+    H, W = int(cfg.model.image_height), int(cfg.model.image_width)
+    got, ref = out[DEVICE], out["cpu"]
+    parts = {"spec_color": (got["spec_color"], ref["spec_color"])}
+    for i, name in enumerate(("composite", "diffuse", "specular")):
+        sl = slice(i * W, (i + 1) * W)
+        parts[name] = (got["rgb"][..., sl], ref["rgb"][..., sl])
+    # compose_envmap's inset: the mask's disc in the bottom-right square
+    ms = min(200, H, W)
+    ball = torch.zeros((H, W), dtype=torch.bool)
+    ball[-ms:, -ms:] = envmap_to_mirrorball(
+        ms, ms, torch.zeros((1, 3, 2, 4)))[0, 3] > 0
+    a, b = parts.pop("composite")
+    if a.shape != b.shape:
+        raise AssertionError(f"relight small reference composite: shapes "
+                             f"{tuple(a.shape)} / {tuple(b.shape)}")
+    parts["mirrorball"] = (a[..., ball], b[..., ball])
+    parts["composite_outside_ball"] = (a[..., ~ball], b[..., ~ball])
+    errs, bad = {}, []
+    for name, (a, b) in parts.items():
+        if a.shape != b.shape or a.numel() == 0:
+            raise AssertionError(f"relight small reference {name}: shapes "
+                                 f"{tuple(a.shape)} / {tuple(b.shape)}")
+        largest = float(b.abs().max())
+        diff = (a - b).abs()
+        errs[name] = (float(diff.max()), largest)
+        if not (bool(torch.isfinite(a).all()) and largest > 0 and bool(
+                (diff <= SMALL_RTOL * b.abs() + SMALL_RTOL * largest).all())):
+            bad.append(name)
+    log(f"small-input relight reference (one spin frame at rgca_synthetic "
+        f"size, card vs CPU plain): (max abs error, largest entry) "
+        f"{errs} (tolerance rtol {SMALL_RTOL} plus {SMALL_RTOL} of each "
+        f"part's largest entry)")
+    if bad:
+        raise AssertionError(f"the card's spin frame disagrees with the "
+                             f"CPU's in {bad}")
+    return errs
+
+
 def check_k6(gc, torch, steps):
     """K6 forward and backward against their plain versions on the own
     inputs of every fold training step (the rows, global tile bounds, cnt,
@@ -3860,12 +4214,23 @@ def main() -> int:
               teacher_train_inputs["k4"], "hand_teacher training step 0")
     del teacher_train_inputs
     torch.cuda.empty_cache()
+    relight_inputs = {}
+    phase("relight_path", relight_path, gc, torch, card_line, relight_inputs)
+    if relight_inputs.get("k4"):
+        phase("k4_relight", k4_mesh_check, gc, torch, relight_inputs["k4"],
+              2 * RELIGHT_RENDERS["spin"], "relight spin frame 0")
+    if "k1" in relight_inputs:
+        phase("k1_relight", check_k1_relight, gc, torch,
+              relight_inputs["k1"])
+    del relight_inputs
+    torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
     phase("teacher_small_reference", teacher_small_reference, torch)
     phase("hand_mvp_small_train_reference", hand_mvp_small_train_reference,
           torch)
     phase("teacher_small_train_reference", teacher_small_train_reference,
           torch)
+    phase("relight_small_reference", relight_small_reference, torch)
 
     # the phases that return (launches, measurements) of several kernels
     split = {}
@@ -3889,9 +4254,10 @@ def main() -> int:
              "hand_teacher_eval": phases.get("hand_teacher_eval_path", {}),
              "hand_mvp_train": phases.get("hand_mvp_train_path", {}),
              "hand_teacher_train": phases.get("teacher_train_path", {}),
+             "relight": phases.get("relight_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
-    checks = {"compositor_fwd": ("K1", ["k1_check"]),
+    checks = {"compositor_fwd": ("K1", ["k1_check", "k1_relight"]),
               "compositor_fwd_xla": ("K1 xla", [
                   "xla_window_check:compositor_fwd_xla"]),
               "pair_grads": ("K2", ["k2_check", "backward_check"]),
@@ -3901,7 +4267,7 @@ def main() -> int:
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh",
                                   "k4_urhand", "k4_urhand_train", "k4_mvp",
                                   "k4_teacher", "k4_mvp_train",
-                                  "k4_teacher_train"]),
+                                  "k4_teacher_train", "k4_relight"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
                                  "k5_urhand_shadow", "k5_urhand_render",
                                  "k5_urhand_train"]),

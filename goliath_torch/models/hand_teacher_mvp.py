@@ -31,26 +31,9 @@ from goliath_torch.nn.layers import Conv2dWNUB, leaky_relu
 from goliath_torch.ops.mvp import (shadow_at_points, shadow_at_points_exact,
                                    splat_density_grid)
 from goliath_torch.utils.image import relu
-from goliath_torch.utils.sampling import interpolate_bilinear
+from goliath_torch.utils.sampling import interpolate_bilinear, linspace
 
 SHADOW_MODES = ("grid", "exact")
-
-
-def linspace(start: float, stop: float, n: int,
-             device: Optional[torch.device] = None) -> torch.Tensor:
-    """float32 ``jnp.linspace(start, stop, n)`` to the bit (``torch.
-    linspace`` differs in the last bit at n >= 4). XLA computes
-    start * (1 - i * r) + i * (stop * r) with r = 1 / (n - 1) rounded to
-    float32 and the last add fused into a multiply-add; the product of two
-    float32 values is exact in float64, so the fused add is one float64 add
-    rounded to float32 (held against ``jnp.linspace`` in the tests)."""
-    if n == 1:
-        return torch.tensor([start], dtype=torch.float32, device=device)
-    r = torch.tensor(1.0 / (n - 1), dtype=torch.float32)
-    i = torch.arange(n - 1, dtype=torch.float32)
-    head = start * (1.0 - i * r)
-    head = (i.double() * (stop * r).double() + head.double()).float()
-    return torch.cat([head, torch.tensor([stop])]).to(device)
 
 
 class _OLATUNet(nn.Module):

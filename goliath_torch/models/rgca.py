@@ -18,8 +18,15 @@ feeds both packages the same values. ``remat_decoder`` recomputes the prim
 decoder in the backward (``torch.utils.checkpoint``) instead of keeping its
 uv-slab activations across the splat render; without it only the two conv
 pyramids are recomputed, as in the JAX package. The draws are made outside
-the recomputed calls, which do not replay an explicit generator. The envmap
-branch is not ported yet (ROADMAP queue 1) and raises.
+the recomputed calls, which do not replay an explicit generator.
+
+With ``preconv_envmap`` (the SG-prefiltered mip levels of an envmap) and
+``lightrot``, the specular colour is read from the mip levels along the
+rotated reflection directions instead of the point lights' angular
+Gaussians; with ``envbg`` too, the first render is composited over the
+envmap's background and mirrorball, and the diffuse and specular colours
+are rendered again on their own: ``rgb`` is the three panels side by side
+(``utils/light_decorator.EnvSpinDecorator`` makes these inputs).
 
 Submodules and parameters carry the flax names (``encoder.tex0.weight_v``,
 ``decoder.albedo``, ...), so ``goliath_torch.convert.params_from_jax`` maps
@@ -50,7 +57,9 @@ from goliath_torch.ops import gsplat
 from goliath_torch.ops.backend import resolve_device
 from goliath_torch.ops.sg import evaluate_gaussian
 from goliath_torch.utils import sh
+from goliath_torch.utils.envmap import compose_envmap, dir2uv
 from goliath_torch.utils.geom import GeometryModule
+from goliath_torch.utils.mipmap_sampler import mipmap_grid_sample
 
 primscale_range: Tuple[float, float] = (0.1, 20.0)
 
@@ -192,12 +201,16 @@ class PrimDecoder(nn.Module):
 
     def forward(self, embs, geom, headrel_campos, light_intensity,
                 headrel_light_pos, headrel_light_sh, n_lights,
-                light_dir: Optional[torch.Tensor] = None
+                light_dir: Optional[torch.Tensor] = None,
+                preconv_envmap: Optional[Tuple[torch.Tensor, ...]] = None,
+                lightrot: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """``light_dir`` [B, 1, 3] (any length) turns on the training-only
         backlit branch: the diffuse color under one unit light from that
         direction (``color_rand``) and the cosine between it and each
-        specular normal (``cos_weight``)."""
+        specular normal (``cos_weight``). ``preconv_envmap`` (mip levels
+        [B, 3, H_i, W_i]) with ``lightrot`` [B, 3, 3] (head-relative) reads
+        the specular colour from the envmap."""
         B = embs.shape[0]
         ncc, ndc = self.n_color_coeffs, self.n_diff_coeffs
 
@@ -248,9 +261,17 @@ class PrimDecoder(nn.Module):
         view_local = _normalize(primpos - headrel_campos[:, None])
         ref_dirs = view_local - 2.0 * torch.sum(
             view_local * spec_nml, dim=-1, keepdim=True) * spec_nml
-        spec_color = evaluate_gaussian(
-            ref_dirs, sigma, light_intensity, headrel_light_pos, primpos,
-            n_lights, w_type=0) * spec_vis
+        if preconv_envmap is not None:
+            ref_dirs = torch.einsum("bxy,bny->bnx", lightrot, ref_dirs)
+            ref_uv = dir2uv(ref_dirs, 2)
+            spec_color = mipmap_grid_sample(
+                list(preconv_envmap), ref_uv[:, :, None, :],
+                (sigma * 5)[..., None])[..., 0]
+            spec_color = spec_color.transpose(1, 2).clamp(max=1.0) * spec_vis
+        else:
+            spec_color = evaluate_gaussian(
+                ref_dirs, sigma, light_intensity, headrel_light_pos, primpos,
+                n_lights, w_type=0) * spec_vis
 
         color = diff_color.clamp(min=0.0) + spec_color
         preds = dict(
@@ -337,10 +358,6 @@ class _RGCANet(nn.Module):
         """With ``train=True`` the encoder noise [B, n_embs] and the backlit
         direction [B, 1, 3] are drawn from the model's generator unless
         ``noise`` / ``light_dir`` give them."""
-        if preconv_envmap is not None:
-            raise NotImplementedError(
-                "the RGCA envmap branch is not ported yet (ROADMAP queue 1, "
-                "utils/envmap.py and utils/mipmap_sampler.py)")
         B = head_pose.shape[0]
         dev = head_pose.device
         if train:
@@ -372,23 +389,29 @@ class _RGCANet(nn.Module):
         headrel_light_sh = torch.sum(
             sh_coeffs[:, :, None] * light_intensity[..., None]
             * lmask[:, :, None, None], dim=1)
+        if lightrot is not None:
+            lightrot = lightrot @ R_head
 
         enc_preds = self.encoder(registration_vertices, color, noise)
         embs = enc_preds["embs"]
         geom = self.geomdecoder(embs)["face_geom"]
         dec_args = (embs, geom, headrel_campos, light_intensity,
-                    headrel_light_pos, headrel_light_sh, n_lights, light_dir)
+                    headrel_light_pos, headrel_light_sh, n_lights, light_dir,
+                    preconv_envmap, lightrot)
         if self.remat_decoder and torch.is_grad_enabled():
             dec_preds = checkpoint(self.decoder, *dec_args,
                                    use_reentrant=False)
         else:
             dec_preds = self.decoder(*dec_args)
 
-        out = gsplat.render(
-            self.image_width, self.image_height, K, headrel_Rt,
-            dec_preds["primpos"], dec_preds["primqvec"],
-            dec_preds["primscale"], dec_preds["opacity"], dec_preds["color"],
-            return_depth=True, **self.render_cfg)
+        def render_pass(color):
+            return gsplat.render(
+                self.image_width, self.image_height, K, headrel_Rt,
+                dec_preds["primpos"], dec_preds["primqvec"],
+                dec_preds["primscale"], dec_preds["opacity"], color,
+                return_depth=True, **self.render_cfg)
+
+        out = render_pass(dec_preds["color"])
         rgb = out["render"]
         alpha = 1.0 - out["final_T"]
         depth = out["depth"] / alpha.clamp(0.05, 1.0)
@@ -398,6 +421,14 @@ class _RGCANet(nn.Module):
         if train and background is not None and is_fully_lit_frame is not None:
             bg = background[:, :3] * is_fully_lit_frame.reshape(B, 1, 1, 1)
             rgb = rgb + (1.0 - alpha) * bg
+        if preconv_envmap is not None and envbg is not None:
+            # [composite | diffuse | specular], each binned and composited
+            # anew, as in the JAX package
+            rgb = torch.cat([
+                compose_envmap(rgb, alpha, envbg, K, Rt),
+                render_pass(dec_preds["diff_color"].clamp(min=0.0))["render"],
+                render_pass(dec_preds["spec_color"].clamp(min=0.0))["render"],
+            ], dim=-1)
 
         preds = {
             "geom": geom,

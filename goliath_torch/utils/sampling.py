@@ -10,14 +10,15 @@ package to the bit; ``F.interpolate`` computes its weights in float32 from
 a float32 scale, which differs in the last bits wherever the ratio of the
 sizes is not a power of two (the pixel bias of mesh_vae, 166 -> 1334).
 ``grid_sample_3d`` (the OLAT teacher's deep shadows) takes the JAX
-package's eight gathers term for term too. ``avg_pool2d`` comes with the
-RGCA envmap branch (ROADMAP queue 1).
+package's eight gathers term for term too. ``avg_pool2d`` (the envmap's
+mip pyramid) and ``linspace`` (``jnp.linspace``'s float32 bits) serve the
+envmap branch and the OLAT teacher.
 """
 
 from __future__ import annotations
 
 from functools import lru_cache
-from typing import Literal
+from typing import Literal, Optional
 
 import numpy as np
 import torch
@@ -28,6 +29,29 @@ def sat_int(x: torch.Tensor, dtype=torch.int64) -> torch.Tensor:
     ``.to(int)`` gives INT_MIN for inf and NaN on the CPU)."""
     return torch.nan_to_num(x, nan=0.0).clamp(
         -2.0 ** 31, 2.0 ** 31 - 128).to(dtype)
+
+
+def linspace(start: float, stop: float, n: int,
+             device: Optional[torch.device] = None) -> torch.Tensor:
+    """float32 ``jnp.linspace(start, stop, n)`` to the bit (``torch.
+    linspace`` differs in the last bit at n >= 4). XLA computes
+    start * (1 - i * r) + i * (stop * r) with r = 1 / (n - 1) rounded to
+    float32 and the last add fused into a multiply-add; the product of two
+    float32 values is exact in float64, so the fused add is one float64 add
+    rounded to float32 (held against ``jnp.linspace`` in the tests)."""
+    if n == 1:
+        return torch.tensor([start], dtype=torch.float32, device=device)
+    r = torch.tensor(1.0 / (n - 1), dtype=torch.float32)
+    i = torch.arange(n - 1, dtype=torch.float32)
+    head = start * (1.0 - i * r)
+    head = (i.double() * (stop * r).double() + head.double()).float()
+    return torch.cat([head, torch.tensor([stop])]).to(device)
+
+
+def avg_pool2d(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Average pool [B, C, H, W] with stride == kernel == k."""
+    B, C, H, W = x.shape
+    return x.reshape(B, C, H // k, k, W // k, k).mean(dim=(3, 5))
 
 
 def _unnormalize(coord: torch.Tensor, size: int, align_corners: bool

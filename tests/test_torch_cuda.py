@@ -28,7 +28,11 @@ pixels, the image at atol/rtol 1e-4 where the face agrees. The OLAT
 teacher's deep shadows (plain PyTorch on both sides): the cell binning
 exact, the density grid at rtol 1e-5 plus 1e-6 of its largest value, the
 shadow integrals at rtol 1e-5 plus 1e-5, the small teacher forward at rtol
-1e-3 plus 1e-3 of each output's largest value.
+1e-3 plus 1e-3 of each output's largest value. The envmap functions (plain
+PyTorch on both sides) at rtol 1e-4 plus 1e-4 of the largest value; the
+small relight spin frame as chip_smoke.py's reference (rtol 1e-3 plus 1e-3
+of each part's largest entry; the composite panel's mirrorball inset and
+the rest of it are held apart).
 """
 
 import numpy as np
@@ -1081,3 +1085,81 @@ def test_hand_teacher_on_the_card_matches_the_cpu(cuda):
         torch.testing.assert_close(got, ref, rtol=1e-3,
                                    atol=1e-3 * float(ref.abs().max()))
         assert float(ref.abs().max()) > 0
+
+
+ENVMAP_TOL = 1e-4
+
+
+def _envmap_cases(rng):
+    """Seeded inputs of each envmap function: {name: (fn, args)}."""
+    from goliath_torch.utils import envmap as te
+    from goliath_torch.utils.mipmap_sampler import mipmap_grid_sample
+
+    def arr(*shape):
+        return torch.from_numpy(rng.random(shape).astype(np.float32))
+
+    def unit(*shape):
+        v = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        return v / v.norm(dim=1, keepdim=True)
+
+    rot = torch.from_numpy(_rotations(rng, 2).astype(np.float32))
+    K = torch.zeros(2, 3, 3)
+    K[:, 0, 0], K[:, 1, 1], K[:, 2, 2] = 40.0, 44.0, 1.0
+    K[:, 0, 2], K[:, 1, 2] = 21.5, 13.0
+    Rt = torch.cat([rot, arr(2, 3, 1) * 2.0 - 1.0], -1)
+    levels = [arr(2, 3, 32 >> i, 64 >> i) for i in range(4)]
+    return {
+        "dir2uv": (te.dir2uv, (unit(2, 3, 9, 13), 1)),
+        "rotate_envmap_mat": (te.rotate_envmap_mat, (arr(3, 32, 64),
+                                                     rot[0])),
+        "envmap_to_image": (lambda *a: te.envmap_to_image(40, 28, *a),
+                            (arr(2, 3, 32, 64), K[:, :2, 2], K, rot)),
+        "envmap_to_mirrorball": (lambda *a: te.envmap_to_mirrorball(
+            24, 24, *a), (arr(2, 3, 32, 64), rot)),
+        "importance_sample_sg": (lambda *a: te.importance_sample_sg(
+            *a, 0.4)[0], (arr(2, 2, 9, 13), unit(2, 3, 9, 13))),
+        "prefilter_envmap_sg": (lambda v, env, *d: te.prefilter_envmap_sg(
+            0.4, v, env, draws=d), (unit(1, 3, 8, 16), arr(1, 3, 16, 32),
+                                    arr(1, 2, 8, 16), arr(1, 2, 8, 16))),
+        "mipmap_grid_sample": (lambda g, lv, *lvls: mipmap_grid_sample(
+            list(lvls), g, lv), (arr(2, 5, 7, 2) * 2.2 - 1.1,
+                                 arr(2, 5, 7) * 4.0 - 0.5, *levels)),
+        "compose_envmap": (te.compose_envmap, (
+            arr(2, 3, 28, 40), arr(2, 1, 28, 40), arr(2, 3, 32, 64) * 2.0,
+            K, Rt)),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "dir2uv", "rotate_envmap_mat", "envmap_to_image", "envmap_to_mirrorball",
+    "importance_sample_sg", "prefilter_envmap_sg", "mipmap_grid_sample",
+    "compose_envmap"])
+def test_envmap_functions_on_the_card_match_the_cpu(cuda, name):
+    """utils/envmap.py and mipmap_grid_sample on the card against the CPU,
+    plain PyTorch on both: rtol 1e-4 plus 1e-4 of the largest |value|
+    (the card's sin, cos, atan2, acos and erfinv are a few ulp from the
+    CPU's, and a sample coordinate's ulp moves a bilinear tap; the blur's
+    101x101 sums run in cuDNN's order)."""
+    fn, args = _envmap_cases(np.random.RandomState(31))[name]
+    ref = fn(*args)
+    got = fn(*[a.to(cuda) if isinstance(a, torch.Tensor) else a
+               for a in args]).cpu()
+    torch.testing.assert_close(got, ref, rtol=ENVMAP_TOL,
+                               atol=ENVMAP_TOL * float(ref.abs().max()))
+    assert float(ref.abs().max()) > 0
+
+
+def test_relight_spin_frame_on_the_card_matches_the_cpu(cuda):
+    """chip_smoke.py's small relight reference: one spin frame at
+    configs/rgca_synthetic.yml size, card against CPU (spec_color, the
+    diffuse and specular panels, and the composite panel's mirrorball inset
+    and the rest of it apart, each at rtol 1e-3 plus 1e-3 of its own largest
+    entry; it raises beyond that)."""
+    import chip_smoke
+
+    errs = chip_smoke.relight_small_reference(torch)
+    assert set(errs) == {"spec_color", "mirrorball", "composite_outside_ball",
+                         "diffuse", "specular"}
+    for err, largest in errs.values():
+        assert largest > 0
+        assert err <= 2 * chip_smoke.SMALL_RTOL * largest
