@@ -5,7 +5,8 @@
 
 Phases, each printed on its own lines; any failure exits non-zero without
 the final result line:
-  1. the card's name and power limit (nvidia-smi);
+  1. the card's name and power limit (nvidia-smi), and whether the
+     tensorstore package (the orbax checkpoint reader's) imports;
   2. build of the hand-written CUDA kernels (torch.utils.cpp_extension.load:
      one nvcc per source and the bindings, run in parallel by ninja) and its
      time;
@@ -166,7 +167,22 @@ the final result line:
      PNG write, peak memory and one profiled spin frame; then K4 against
      torch.cumsum on the first spin frame's six scans, exactly, and K1
      against its plain version on its third render (the spec_color pass);
- 23. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+ 23. the quality recipe: goliath_torch.scripts.run_train.main on
+     configs/rgca_synthetic_quality.yml as it stands (256x256, uv 128,
+     batch 4, the 48 targets rendered on the card with K5 and K4, the data
+     cached on the card) for QUALITY_STEPS steps, then run_test.main from
+     its checkpoint directory (through latest) and on the untrained model,
+     12 frames of the 12-camera ring each (96 target renders each), counts
+     set to 0 just before each run and read just after (exact): finite
+     losses, the step time (median), the targets' render time, peak
+     memory, PSNR, SSIM and rgb_l1 of both models (and over the held-out
+     odd cameras), the trained PSNR at least QUALITY_MIN_GAIN_DB above the
+     untrained; then 3 steps of configs/rgca_synthetic_quality2.yml
+     (512x512, uv 256) and a 2-frame run_test from its checkpoint
+     directory; then K5 against its plain version, bit for bit, on the
+     first target render, K4 on its two scans, exactly, and K1 and K2 (XLA
+     window) and K3 on the first training step's own arguments;
+ 24. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
      path and one mesh training step, the URHand eval path and one URHand
      training step, and the hand_mvp eval path, at a small size, on the
      card against the CPU (plain versions) as the small-input reference;
@@ -175,7 +191,7 @@ the final result line:
      configs/rgca_synthetic.yml size, card vs CPU (spec_color, the
      diffuse and specular panels, and the composite panel's mirrorball
      inset and the rest of it apart);
- 24. per kernel (and per mode of a kernel): check result, launches on each
+ 25. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -244,6 +260,17 @@ def card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def tensorstore_line() -> str:
+    """Whether the tensorstore package imports here, and its version."""
+    from importlib import metadata
+
+    try:
+        import tensorstore  # noqa: F401
+    except ImportError as e:
+        return f"does not import ({e})"
+    return f"imports, version {metadata.version('tensorstore')}"
+
+
 def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
@@ -302,12 +329,23 @@ def check_k4(gc, torch):
     return worst
 
 
+def kernel_rows(prof):
+    """(device ms, calls, name) of each kernel a torch.profiler run saw,
+    busiest first (kernels only: an operator's device time repeats its
+    kernels')."""
+    from torch.autograd import DeviceType
+
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    return sorted(rows, reverse=True)
+
+
 def profile_forward(torch, model, batch, card_line, label: str,
                     **apply_kw) -> None:
     """One model forward under torch.profiler: wall time (ending in a
     synchronise), device busy time of the kernels, the device's idle share
     of the wall time and the busiest kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
@@ -316,11 +354,7 @@ def profile_forward(torch, model, batch, card_line, label: str,
         model.apply(batch, **apply_kw)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernels only: an operator's device time repeats its kernels'
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    rows.sort(reverse=True)
+    rows = kernel_rows(prof)
     busy = sum(r[0] for r in rows)
     log(f"{label}: wall {wall_ms:.3f} ms, device busy {busy:.3f} ms in "
         f"{sum(r[1] for r in rows)} kernels, idle share "
@@ -1001,8 +1035,6 @@ def run_training(gc, torch, card_line, label, expected, record,
     totals in ``record[label]``."""
     import contextlib
 
-    from torch.autograd import DeviceType
-
     from goliath_torch import train as train_lib
     from goliath_torch.scripts import run_train
 
@@ -1047,10 +1079,7 @@ def run_training(gc, torch, card_line, label, expected, record,
         f" {probe.groups}; checkpoints written: {written}")
     if probe.cameras:
         log(f"{label} cameras drawn (camera_idx per step): {probe.cameras}")
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in probe.profile.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    rows.sort(reverse=True)
+    rows = kernel_rows(probe.profile)
     busy = sum(r[0] for r in rows)
     # FoldEnv's copies of the step's K6 inputs are of this kind
     pinned = sum(r[0] for r in rows
@@ -1780,11 +1809,11 @@ def face_box_evals(rows, start, win_end, ts, ntx, img_h, img_w):
     return int(cnt[ok].sum())
 
 
-def check_k5(gc, torch, args, label="K5"):
+def check_k5(gc, torch, args, label="K5", min_covered=MESH_MIN_COVERED):
     """K5 against its plain version on the arguments a path's rasterize
     call handed to K5 (the mesh eval path's first frame, the mesh training
     path's first sample): face index equal on every pixel and depth equal
-    bit for bit; the row-pixel evaluations of its per-warp cull (counted by
+    bit for bit, at least ``min_covered`` of the image covered; the row-pixel evaluations of its per-warp cull (counted by
     the plain version's mirror) beside the first design's and those inside
     the faces' boxes."""
     from goliath_torch.ops import rasterizer_cuda as rc
@@ -1817,14 +1846,14 @@ def check_k5(gc, torch, args, label="K5"):
         f"{int(pairs.max())} mean {float(pairs.float().mean()):.2f} "
         f"(mean over non-empty {float(pairs[pairs > 0].float().mean()):.2f});"
         f" tiles over max_faces_per_tile={mfpt}: {int((pairs > mfpt).sum())}"
-        f"; covered share {covered:.4f} (floor {MESH_MIN_COVERED}); "
+        f"; covered share {covered:.4f} (floor {min_covered}); "
         f"mismatches: face index {idx_bad}, depth bits {z_bad} (max abs "
         f"{err:.3e}); tolerance: none, both exact")
     if idx_bad or z_bad:
         bad = torch.nonzero(idx != p_idx)[:10].tolist()
         log(f"{label} first mismatching pixels (y, x): {bad}")
         raise AssertionError("K5 differs from its plain version")
-    if not covered >= MESH_MIN_COVERED:
+    if not covered >= min_covered:
         raise AssertionError("K5's frame covers too little of the image")
     ms = cuda_ms(lambda: rc.zbuffer(*args), reps=50)
     plain_ms = cuda_ms(lambda: rc.zbuffer_plain(*args), reps=2, warmup=1)
@@ -3459,6 +3488,404 @@ def relight_small_reference(torch):
     return errs
 
 
+QUALITY_STEPS = 300
+QUALITY_PROFILE_STEP = QUALITY_STEPS // 2
+# the trained model's PSNR over the untrained one's (same seed, same 12
+# test frames), at least: the first run on an H100 gained 12.70 dB after
+# 300 steps (30.07 against 17.37 dB)
+QUALITY_MIN_GAIN_DB = 8.0
+QUALITY2_STEPS, QUALITY2_FRAMES = 3, 2
+# the sphere (radius 100 at distance 400, focal 1.2 x the width) covers
+# ~0.28 of a target render
+QUALITY_MIN_COVERED = 0.2
+
+
+def quality_config(name, overrides=()):
+    """configs/<name> (rgca_synthetic_quality.yml or its quality2) as it
+    stands, with ``overrides``."""
+    from goliath_torch.config import load_config
+
+    return load_config(str(ROOT / "configs" / name), overrides=list(overrides))
+
+
+class QualityCapture:
+    """For the duration of a with-block: each training step's wall time
+    (ending in a synchronise) and total loss, each target render's wall
+    time (``SyntheticDataset._ensure_targets``, ending in a synchronise),
+    each test frame's camera and PSNR, and in ``captured`` the first
+    target render's K5 arguments (``"k5"``) and its two K4 scans
+    (``"k4"``), and the first K1 arguments, K2 arguments and K3 input of
+    the first training step (``"k1"``, ``"k2"``, ``"k3"``), copied to
+    pinned host memory without a synchronise."""
+
+    def __init__(self, gc, torch, captured):
+        from goliath_torch import test as test_lib
+        from goliath_torch import train as train_lib
+        from goliath_torch.data.synthetic import SyntheticDataset
+        from goliath_torch.ops import binning, rasterizer
+
+        self.gc, self.torch, self.captured = gc, torch, captured
+        self.mods = dict(train=train_lib, test=test_lib, ds=SyntheticDataset,
+                         binning=binning, rasterizer=rasterizer)
+        self.orig = dict(
+            make=train_lib.make_train_step, test=test_lib.test,
+            targets=SyntheticDataset._ensure_targets,
+            zbuffer=rasterizer.zbuffer, cumsum1d=binning.cumsum1d,
+            compositor_fwd=gc.compositor_fwd, pair_grads=gc.pair_grads,
+            cumsum_cols=gc.cumsum_cols)
+        self.seconds, self.totals, self.target_seconds = [], [], []
+        self.frames = []   # (camera_idx, psnr) of each test frame
+        self.profile = None   # the torch.profiler run of QUALITY_PROFILE_STEP
+
+    def to_host(self, x):
+        return x.detach().to("cpu", non_blocking=True) \
+            if isinstance(x, self.torch.Tensor) else x
+
+    def first(self, key, fn):
+        captured, to_host = self.captured, self.to_host
+
+        def wrapped(*args, **kw):
+            if key not in captured:
+                captured[key] = (tuple(to_host(a) for a in args), kw)
+            return fn(*args, **kw)
+
+        return wrapped
+
+    def __enter__(self):
+        torch, o, m, gc = self.torch, self.orig, self.mods, self.gc
+        captured = self.captured
+        k4 = captured.setdefault("k4", [])
+
+        def make(model, loss_fn, optimizer):
+            step = o["make"](model, loss_fn, optimizer)
+
+            def timed(batch, iteration):
+                from torch.profiler import ProfilerActivity, profile
+
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if len(self.seconds) == QUALITY_PROFILE_STEP:
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        out = step(batch, iteration)
+                        torch.cuda.synchronize()
+                    self.profile = prof
+                else:
+                    out = step(batch, iteration)
+                    torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+                self.totals.append(out[0])
+                return out
+
+            return timed
+
+        def targets(ds):
+            if ds._targets is not None:
+                return
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o["targets"](ds)
+            torch.cuda.synchronize()
+            self.target_seconds.append(
+                (len(ds.camera_ids) * ds.n_frames, ds.img_h,
+                 time.perf_counter() - t0))
+
+        def cumsum1d(x):
+            if len(k4) < 2:
+                k4.append(self.to_host(x))
+            return o["cumsum1d"](x)
+
+        def test(model, loss_fn, data, config, **kw):
+            def recording(preds, batch, iteration=0):
+                total, ldict = loss_fn(preds, batch, iteration=iteration)
+                self.frames.append((int(batch["camera_idx"][0]),
+                                    float(ldict["loss_psnr"].mean())))
+                return total, ldict
+
+            return o["test"](model, recording, data, config, **kw)
+
+        m["train"].make_train_step = make
+        m["test"].test = test
+        m["ds"]._ensure_targets = targets
+        m["binning"].cumsum1d = cumsum1d
+        m["rasterizer"].zbuffer = self.first("k5", o["zbuffer"])
+        for name, key in (("compositor_fwd", "k1"), ("pair_grads", "k2"),
+                          ("cumsum_cols", "k3")):
+            setattr(gc, name, self.first(key, o[name]))
+        return self
+
+    def __exit__(self, *exc):
+        o, m, gc = self.orig, self.mods, self.gc
+        m["train"].make_train_step = o["make"]
+        m["test"].test = o["test"]
+        m["ds"]._ensure_targets = o["targets"]
+        m["binning"].cumsum1d = o["cumsum1d"]
+        m["rasterizer"].zbuffer = o["zbuffer"]
+        for name in ("compositor_fwd", "pair_grads", "cumsum_cols"):
+            setattr(gc, name, o[name])
+
+
+def quality_launches(gc, targets, renders, trained):
+    """The launch counts of a quality-config run: each target render K5
+    once and K4 twice; each splat render (the steps' samples, the
+    summary's, the test frames) K1 in the XLA window once and K4 twice;
+    each trained sample K2 in the XLA window and K3 once."""
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(zbuffer=targets, cumsum1d=2 * (targets + renders),
+                compositor_fwd_xla=renders, pair_grads_xla=trained,
+                cumsum_cols=trained)
+    return want
+
+
+def quality_eval(gc, torch, probe, cfg, label):
+    """run_test.main of a quality config, counts reset just before and
+    read just after; returns (means, launches, held-out PSNR)."""
+    from goliath_torch.scripts import run_test
+
+    probe.frames.clear()
+    gc.reset_launch_counts()
+    frames = []
+    means = run_test.main(cfg, device=DEVICE, frame_seconds=frames)
+    torch.cuda.synchronize()
+    launches = dict(gc.LAUNCHES)
+    held = [p for cam, p in probe.frames if cam % 2 == 1]
+    held_psnr = sum(held) / len(held) if held else float("nan")
+    log(f"{label}: psnr {means['loss_psnr']:.4f} dB, ssim "
+        f"{1.0 - means['loss_rgb_ssim']:.4f}, rgb_l1 "
+        f"{means['loss_rgb_l1']:.5f} over {len(frames)} frames (cameras "
+        f"{[cam for cam, _ in probe.frames]}); held-out odd cameras: "
+        f"{len(held)} frames, psnr {held_psnr:.4f} dB; frame walls "
+        f"{[round(f, 4) for f in frames]} s; launches {launches}")
+    if not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError(f"{label}: a loss mean is not finite")
+    return means, launches, held_psnr
+
+
+def quality_path(gc, torch, card_line, captured):
+    """The quality recipe at its full width: run_train.main on
+    configs/rgca_synthetic_quality.yml as it stands (256x256, uv 128, batch
+    4, rendered targets on the card, cache_device) for QUALITY_STEPS steps
+    into a temporary run directory, counts reset just before and read just
+    after; then run_test.main from that checkpoint DIRECTORY (through
+    latest) and again on the untrained model (test.ckpt null, seed 0),
+    each on the 12-camera ring's 12 frames, counts reset before each. The
+    trained PSNR must beat the untrained one by QUALITY_MIN_GAIN_DB. Then
+    QUALITY2_STEPS steps of configs/rgca_synthetic_quality2.yml (512x512,
+    uv 256) and a QUALITY2_FRAMES-frame run_test from its checkpoint
+    directory. Exact launch counts for each run."""
+    from goliath_torch.scripts import run_train
+
+    launches_all = {name: 0 for name in gc.LAUNCHES}
+
+    def add(launches):
+        for k, v in launches.items():
+            launches_all[k] += v
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_quality_") as d:
+        run = Path(d) / "run"
+        cfg = quality_config("rgca_synthetic_quality.yml", [
+            f"train.run_dir={run}", f"train.n_max_iters={QUALITY_STEPS}",
+            f"train.ckpt_every_n_steps={QUALITY_STEPS}",
+            f"test.ckpt.ckpt_path={run / 'checkpoints'}",
+            "test.vis_path=null"])
+        B = int(cfg.dataloader.batch_size)
+        n_train = int(cfg.data.n_cams) * int(cfg.data.n_frames)
+        n_test = int(cfg.test.data.n_cams) * int(cfg.test.data.n_frames)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with QualityCapture(gc, torch, captured) as probe:
+            gc.reset_launch_counts()
+            t0 = time.perf_counter()
+            iteration, last = run_train.main(cfg, device=DEVICE)
+            torch.cuda.synchronize()
+            train_wall = time.perf_counter() - t0
+            launches = dict(gc.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            with open(run / "tb" / "scalars.jsonl") as f:
+                scalars = [json.loads(line) for line in f]
+            written = sorted(p.name for p in (run / "checkpoints").iterdir())
+            totals = [float(t) for t in probe.totals]
+            profiled = probe.seconds.pop(QUALITY_PROFILE_STEP)
+            steady = sorted(probe.seconds[1:])
+            median = steady[len(steady) // 2]
+            log(f"quality train ({QUALITY_STEPS} steps, batch {B}, "
+                f"{n_train} target renders at {cfg.data.img_h}x"
+                f"{cfg.data.img_w}): run_train wall {train_wall:.2f} s; step "
+                f"0 {probe.seconds[0]:.4f} s, steps 1.. median "
+                f"{median:.4f} s (min {steady[0]:.4f}, max {steady[-1]:.4f})"
+                f"; target render {probe.target_seconds} (renders, height, "
+                f"s); peak device memory {peak / 2**30:.3f} GiB; total loss "
+                f"first {totals[0]:.4f} last {totals[-1]:.4f}; on "
+                f"{card_line}")
+            l1 = {r["step"]: round(r["value"], 5) for r in scalars
+                  if r["tag"] == "Losses/loss_rgb_l1"}
+            log(f"quality train rgb_l1 by step: {l1}; last losses "
+                f"{json.dumps(last)}; checkpoints {written}")
+            log(f"quality train launches: {launches}")
+            rows = kernel_rows(probe.profile)
+            busy = sum(r[0] for r in rows)
+            log(f"quality profiled step {QUALITY_PROFILE_STEP}: wall "
+                f"{profiled * 1e3:.3f} ms, device busy {busy:.3f} ms in "
+                f"{sum(r[1] for r in rows)} kernels, idle share "
+                f"{max(0.0, 1.0 - busy * 1e-3 / profiled):.3f} on {card_line}")
+            for ms, count, key in rows[:10]:
+                log(f"  {ms:9.3f} ms  x{count:<5d} {key[:90]}")
+            # the summary's train=False forward of the batch at iteration 0
+            want = quality_launches(gc, n_train, B * (QUALITY_STEPS + 1),
+                                    B * QUALITY_STEPS)
+            if iteration != QUALITY_STEPS or len(totals) != QUALITY_STEPS:
+                raise AssertionError(f"quality train took {len(totals)} "
+                                     f"steps for {QUALITY_STEPS}")
+            if not all(math.isfinite(v) for v in totals + list(last.values())):
+                raise AssertionError("a quality training loss is not finite")
+            if launches != want:
+                raise AssertionError(f"quality train launch counts "
+                                     f"{launches} != {want}")
+            if f"{QUALITY_STEPS:06d}.pt" not in written:
+                raise AssertionError("no final checkpoint was written")
+            add(launches)
+
+            eval_want = quality_launches(
+                gc, n_test, min(int(cfg.test.n_test_frames), n_test), 0)
+            trained, launches, held = quality_eval(
+                gc, torch, probe, cfg, "quality eval, trained (checkpoint "
+                "directory)")
+            add(launches)
+            untrained, launches_u, held_u = quality_eval(
+                gc, torch, probe, quality_config(
+                    "rgca_synthetic_quality.yml",
+                    ["test.ckpt=null", "test.vis_path=null"]),
+                "quality eval, untrained (seed 0)")
+            add(launches_u)
+            gain = trained["loss_psnr"] - untrained["loss_psnr"]
+            log(f"quality: trained psnr {trained['loss_psnr']:.4f} dB, ssim "
+                f"{1.0 - trained['loss_rgb_ssim']:.4f}, rgb_l1 "
+                f"{trained['loss_rgb_l1']:.5f} (held-out {held:.4f} dB) "
+                f"against untrained {untrained['loss_psnr']:.4f} dB, ssim "
+                f"{1.0 - untrained['loss_rgb_ssim']:.4f}, rgb_l1 "
+                f"{untrained['loss_rgb_l1']:.5f} (held-out {held_u:.4f} dB):"
+                f" gain {gain:.4f} dB after {QUALITY_STEPS} steps (at least "
+                f"{QUALITY_MIN_GAIN_DB}) on {card_line}")
+            for got, what in ((launches, "trained"), (launches_u, "untrained")):
+                if got != eval_want:
+                    raise AssertionError(f"quality eval ({what}) launch "
+                                         f"counts {got} != {eval_want}")
+            if not gain >= QUALITY_MIN_GAIN_DB:
+                raise AssertionError(f"the trained model gains {gain:.4f} dB"
+                                     f" (< {QUALITY_MIN_GAIN_DB})")
+            add(quality2_run(gc, torch, probe, Path(d) / "run2", card_line))
+    return launches_all
+
+
+def quality2_run(gc, torch, probe, run, card_line):
+    """QUALITY2_STEPS steps of configs/rgca_synthetic_quality2.yml, then a
+    QUALITY2_FRAMES-frame run_test from its checkpoint directory."""
+    from goliath_torch.scripts import run_train
+
+    cfg = quality_config("rgca_synthetic_quality2.yml", [
+        f"train.run_dir={run}", f"train.n_max_iters={QUALITY2_STEPS}",
+        f"train.ckpt_every_n_steps={QUALITY2_STEPS}",
+        f"test.ckpt.ckpt_path={run / 'checkpoints'}", "test.vis_path=null",
+        f"test.n_test_frames={QUALITY2_FRAMES}"])
+    B = int(cfg.dataloader.batch_size)
+    probe.seconds.clear()
+    probe.totals.clear()
+    probe.target_seconds.clear()
+    torch.cuda.reset_peak_memory_stats()
+    gc.reset_launch_counts()
+    iteration, last = run_train.main(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    launches = dict(gc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_train = int(cfg.data.n_cams) * int(cfg.data.n_frames)
+    log(f"quality2 train ({cfg.data.img_h}x{cfg.data.img_w}, uv "
+        f"{cfg.model.uv_size}, batch {B}, {QUALITY2_STEPS} steps): step "
+        f"walls {[round(s, 4) for s in probe.seconds]} s, totals "
+        f"{[round(float(t), 4) for t in probe.totals]}, target render "
+        f"{probe.target_seconds}, peak {peak / 2**30:.3f} GiB on "
+        f"{card_line}; launches {launches}")
+    want = quality_launches(gc, n_train, B * (QUALITY2_STEPS + 1),
+                            B * QUALITY2_STEPS)
+    if iteration != QUALITY2_STEPS or launches != want:
+        raise AssertionError(f"quality2 train: iteration {iteration}, launch"
+                             f" counts {launches} != {want}")
+    if not all(math.isfinite(v) for v in last.values()):
+        raise AssertionError("a quality2 training loss is not finite")
+    means, launches_e, _ = quality_eval(gc, torch, probe, cfg,
+                                        "quality2 eval (checkpoint directory)")
+    n_test = int(cfg.test.data.n_cams) * int(cfg.test.data.n_frames)
+    want = quality_launches(gc, n_test, QUALITY2_FRAMES, 0)
+    if launches_e != want:
+        raise AssertionError(f"quality2 eval launch counts {launches_e} != "
+                             f"{want}")
+    return {k: launches[k] + launches_e[k] for k in launches}
+
+
+def quality_kernels(gc, torch, captured, card_line):
+    """K1 and K2 in the XLA window and K3 against their plain versions on
+    the arguments the quality path's first training step handed them (K2
+    with the step's own upstream gradients), at the tolerances of the
+    earlier phases; K1 and K2 timed there."""
+    from goliath_torch.utils.timing import cuda_ms
+
+    def dev(args):
+        return tuple(a.to(DEVICE) if isinstance(a, torch.Tensor) else a
+                     for a in args)
+
+    (fa, fkw), (ba, bkw), (ca, _) = (captured[k] for k in ("k1", "k2", "k3"))
+    fa, ba, (x,) = dev(fa), dev(ba), dev(ca)
+    (rows, tile_start, tile_end, img_h, img_w, ts, ntx, nty, chunk, maxpp,
+     n_imgs, window) = fa
+    if window != "xla" or n_imgs != 1 or fkw or bkw:
+        raise AssertionError(f"the quality step's K1 call is not the XLA "
+                             f"window's: window {window!r}, n_imgs {n_imgs}")
+    img, T, cnt = gc.compositor_fwd(*fa)
+    p_img, p_T, p_cnt = gc.compositor_fwd_plain(*fa)
+    torch.cuda.synchronize()
+    err_f = max(float((img - p_img).abs().max()),
+                float((T - p_T).abs().max()))
+    pairs = (tile_end - tile_start).long()
+    log(f"K1 XLA window, quality step 0 sample 0 ({img_w}x{img_h}, tile {ts},"
+        f" max_pairs_per_tile {maxpp}, chunk {chunk}): {int((pairs > maxpp).sum())}"
+        f" of {pairs.numel()} tiles overflow (max {int(pairs.max())} pairs);"
+        f" max_abs_err {err_f:.3e}, cnt mismatches "
+        f"{int((cnt != p_cnt).sum())} (tolerance atol {K1_ATOL} rtol "
+        f"{K1_RTOL}, cnt exact)")
+    if not (torch.equal(cnt, p_cnt)
+            and torch.allclose(img, p_img, atol=K1_ATOL, rtol=K1_RTOL)
+            and torch.allclose(T, p_T, atol=K1_ATOL, rtol=K1_RTOL)):
+        raise AssertionError("K1 (XLA window) differs from its plain version"
+                             " on the quality step")
+    got = gc.pair_grads(*ba)
+    ref = gc.pair_grads_plain(*ba)
+    torch.cuda.synchronize()
+    C = ba[4].shape[-3]
+    err_b = compare_pair_grads(gc, torch, got, ref, C,
+                               "K2 XLA window, quality step 0")
+    check_same_bits(torch, got, gc.pair_grads(*ba), "K2 XLA window (quality)")
+    k3 = gc.cumsum_cols(x)
+    ref3 = torch.cumsum(x.double(), dim=1)
+    f32 = gc.cumsum_cols_plain(x)
+    torch.cuda.synchronize()
+    scale = ref3.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    e64 = float(((k3.double() - ref3).abs() / scale).max())
+    e32 = float(((k3 - f32).abs().double() / scale).max())
+    log(f"K3 quality step 0 {list(x.shape)}: error as a fraction of each "
+        f"row's largest running sum: against a float64 scan {e64:.3e} "
+        f"(tolerance {K3_TOL_F64}), against torch.cumsum float32 {e32:.3e} "
+        f"(tolerance {K3_TOL_F32})")
+    if not (e64 <= K3_TOL_F64 and e32 <= K3_TOL_F32):
+        raise AssertionError("K3 differs on the quality step")
+    check_same_bits(torch, k3, gc.cumsum_cols(x), "K3 (quality)")
+    ms1 = cuda_ms(lambda: gc.compositor_fwd(*fa), reps=50)
+    ms2 = cuda_ms(lambda: gc.pair_grads(*ba), reps=50)
+    ms3 = cuda_ms(lambda: gc.cumsum_cols(x), reps=50)
+    log(f"quality step 0 kernels: K1 XLA window {ms1:.4f} ms, K2 XLA window "
+        f"{ms2:.4f} ms, K3 {list(x.shape)} {ms3:.4f} ms on {card_line}")
+    return dict(k1_err=err_f, k2_err=err_b, k3_err=e64)
+
+
 def check_k6(gc, torch, steps):
     """K6 forward and backward against their plain versions on the own
     inputs of every fold training step (the rows, global tile bounds, cnt,
@@ -4065,6 +4492,7 @@ def main() -> int:
     log(f"card: {card_line}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    log(f"tensorstore (the orbax checkpoint reader's): {tensorstore_line()}")
     failed = []
     entries = {}
     try:
@@ -4224,6 +4652,20 @@ def main() -> int:
               relight_inputs["k1"])
     del relight_inputs
     torch.cuda.empty_cache()
+    quality_inputs = {}
+    phase("quality_path", quality_path, gc, torch, card_line, quality_inputs)
+    if "k5" in quality_inputs:
+        phase("k5_quality", check_k5, gc, torch, quality_inputs["k5"][0],
+              "K5 (quality path, the first target render)",
+              QUALITY_MIN_COVERED)
+    if len(quality_inputs.get("k4", ())) == 2:
+        phase("k4_quality", k4_mesh_check, gc, torch, quality_inputs["k4"],
+              2, "quality path, the first target render")
+    if {"k1", "k2", "k3"} <= set(quality_inputs):
+        phase("quality_kernels", quality_kernels, gc, torch, quality_inputs,
+              card_line)
+    del quality_inputs
+    torch.cuda.empty_cache()
     phase("small_reference", small_reference, torch)
     phase("teacher_small_reference", teacher_small_reference, torch)
     phase("hand_mvp_small_train_reference", hand_mvp_small_train_reference,
@@ -4255,22 +4697,25 @@ def main() -> int:
              "hand_mvp_train": phases.get("hand_mvp_train_path", {}),
              "hand_teacher_train": phases.get("teacher_train_path", {}),
              "relight": phases.get("relight_path", {}),
+             "quality": phases.get("quality_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check", "k1_relight"]),
               "compositor_fwd_xla": ("K1 xla", [
-                  "xla_window_check:compositor_fwd_xla"]),
+                  "xla_window_check:compositor_fwd_xla", "quality_kernels"]),
               "pair_grads": ("K2", ["k2_check", "backward_check"]),
               "pair_grads_xla": ("K2 xla", [
-                  "xla_window_check:pair_grads_xla"]),
-              "cumsum_cols": ("K3", ["k3_check", "backward_check"]),
+                  "xla_window_check:pair_grads_xla", "quality_kernels"]),
+              "cumsum_cols": ("K3", ["k3_check", "backward_check",
+                                     "quality_kernels"]),
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh",
                                   "k4_urhand", "k4_urhand_train", "k4_mvp",
                                   "k4_teacher", "k4_mvp_train",
-                                  "k4_teacher_train", "k4_relight"]),
+                                  "k4_teacher_train", "k4_relight",
+                                  "k4_quality"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
                                  "k5_urhand_shadow", "k5_urhand_render",
-                                 "k5_urhand_train"]),
+                                 "k5_urhand_train", "k5_quality"]),
               "compositor_fwd_fold": ("K6 fwd", [
                   "k6_check:compositor_fwd_fold", "fold_train_path"]),
               "pair_grads_fold": ("K6 bwd", [

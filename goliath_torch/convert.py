@@ -1,5 +1,13 @@
-"""Parameter formats: the JAX package's flax params -> this package's
-``state_dict``, and the ``.pt`` checkpoints the port reads and writes.
+"""Parameter and checkpoint formats: the JAX package's flax params -> this
+package's ``state_dict``; the JAX package's orbax checkpoints, read without
+JAX; and the ``.pt`` checkpoints the port writes.
+
+``load_checkpoint`` takes what the JAX package's ``load_checkpoint``
+takes: a checkpoint directory (it follows ``latest``), or one checkpoint:
+an orbax directory of the JAX package (it holds ``_METADATA``; read with
+the ``tensorstore`` package) or a ``.pt`` file of the port (a train state
+of ``goliath_torch.train.save_checkpoint``, or parameters alone from
+``save_params``).
 
 Modules here carry the flax names (``encoder.tex0.weight_v``) and layouts:
 linear weights (out, in), conv weights (out, in, kh, kw), transposed-conv
@@ -22,13 +30,17 @@ teacher's UNet add no level to the tree: their parameters sit under
 
 from __future__ import annotations
 
+import json
+import logging
 import os
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+logger = logging.getLogger(__name__)
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> "OrderedDict[str, torch.Tensor]":
@@ -56,21 +68,140 @@ def save_params(path: str, module: nn.Module) -> None:
     torch.save(module.state_dict(), path)
 
 
-def load_params(module: nn.Module, path: str) -> None:
-    """Load a ``.pt`` file written by ``save_params`` (or ``torch.save`` of
-    ``params_from_jax``'s result) into ``module``; keys and shapes must
-    match exactly."""
-    if os.path.isdir(path) or not str(path).endswith(".pt"):
+def read_orbax(path: str) -> Dict[str, Any]:
+    """The tree of an orbax checkpoint directory (``_METADATA`` beside an
+    OCDBT store of zarr arrays, as orbax's ``PyTreeCheckpointer`` writes
+    it) as a nested dict of numpy arrays; list indices become string keys
+    (``"0"``). Leaves stored as None (optax's empty states, the parameters
+    a ``multi_transform`` group masks out) are left out; scalars come back
+    as numpy scalars. Reads through ``tensorstore``, without JAX."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            f"reading the orbax checkpoint {path!r} needs the tensorstore "
+            f"package, which cannot be imported ({e})") from e
+    with open(os.path.join(path, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt") or meta.get("use_zarr3"):
         raise ValueError(
-            f"{path!r} is not a .pt checkpoint of this package. Orbax "
-            "checkpoint directories of the JAX package cannot be read "
-            "without JAX (ROADMAP queue 1, orbax checkpoint import); convert "
-            "them with goliath_torch.convert.params_from_jax in a process "
-            "that has JAX, then torch.save the result to a .pt file")
+            f"{path!r}: only orbax's OCDBT store of zarr v2 arrays is read "
+            f"(use_ocdbt={meta.get('use_ocdbt')}, "
+            f"use_zarr3={meta.get('use_zarr3')})")
+    base = "file://" + os.path.abspath(path)
+    leaves = []
+    for entry in meta["tree_metadata"].values():
+        if entry["value_metadata"]["value_type"] == "None":
+            continue
+        keys = [str(k["key"]) for k in entry["key_metadata"]]
+        leaves.append((keys, ts.open({
+            "driver": "zarr",
+            "kvstore": {"driver": "ocdbt", "base": base,
+                        "path": ".".join(keys)}}, open=True, read=True)))
+    reads = [(keys, opened.result().read()) for keys, opened in leaves]
+    tree: Dict[str, Any] = {}
+    for keys, read in reads:
+        arr = read.result()
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr[()] if arr.ndim == 0 else arr
+    return tree
+
+
+def _merge_into(dst: Dict[str, Any], src: Mapping[str, Any],
+                where: str) -> None:
+    for k, v in src.items():
+        if isinstance(v, Mapping):
+            _merge_into(dst.setdefault(k, {}), v, f"{where}.{k}")
+        elif k in dst:
+            raise ValueError(f"{where}.{k} is set in two optimizer groups")
+        else:
+            dst[k] = v
+
+
+def train_state_from_orbax(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """A train state of the JAX package (``read_orbax`` of what
+    ``goliath_tpu.train.save_checkpoint`` writes: ``model``, ``optimizer``,
+    ``iteration``) -> ``{"model": state_dict, "adam": {"mu", "nu",
+    "count"}, "iteration"}`` (the keys the tree has).
+
+    The optimizer is the JAX package's chain (scrub, clip, Adam): its third
+    state is Adam's, or with ``per_module`` groups an
+    ``optax.multi_transform`` state with one masked Adam state per group.
+    Each parameter's moments are stored in the one group that holds it, so
+    the groups' ``mu`` and ``nu`` trees are merged into one each; their
+    counts are equal. ``opt_state_from_jax`` takes the result."""
+    out: Dict[str, Any] = {"model": params_from_jax(tree["model"])}
+    if "iteration" in tree:
+        out["iteration"] = int(tree["iteration"])
+    if "optimizer" in tree:
+        base = tree["optimizer"]["2"]
+        if "inner_states" in base:
+            states = [g["inner_state"]["0"]
+                      for g in base["inner_states"].values()]
+        else:
+            states = [base["0"]]
+        counts = {int(s["count"]) for s in states}
+        if len(counts) != 1:
+            raise ValueError(f"the optimizer groups' step counts differ: "
+                             f"{sorted(counts)}")
+        mu: Dict[str, Any] = {}
+        nu: Dict[str, Any] = {}
+        for s in states:
+            _merge_into(mu, s.get("mu", {}), "mu")
+            _merge_into(nu, s.get("nu", {}), "nu")
+        out["adam"] = {"mu": mu, "nu": nu, "count": counts.pop()}
+    return out
+
+
+def load_checkpoint(path: str, iteration: Optional[int] = None,
+                    map_location: Any = None) -> Dict[str, Any]:
+    """Read a checkpoint. A directory with ``latest`` stands for the
+    checkpoint that ``latest`` names (or, with ``iteration``, its
+    ``{iteration:06d}.pt`` or ``{iteration:06d}``). A directory that holds
+    ``_METADATA`` is an orbax checkpoint of the JAX package
+    (``train_state_from_orbax``); a ``.pt`` file is the port's
+    (``torch.load``: a train state with ``model``, ``optimizer`` and
+    ``iteration``, or a ``state_dict`` alone). Anything else raises."""
+    if os.path.isdir(path) and os.path.exists(os.path.join(path, "latest")):
+        if iteration is None:
+            with open(os.path.join(path, "latest")) as f:
+                name = f.read().strip()
+        else:
+            name = f"{iteration:06d}.pt"
+            if not os.path.exists(os.path.join(path, name)):
+                name = f"{iteration:06d}"
+        path = os.path.join(path, name)
+    logger.info(f"loading checkpoint {path}")
+    if os.path.isfile(os.path.join(path, "_METADATA")):
+        return train_state_from_orbax(read_orbax(path))
+    if os.path.isfile(path) and str(path).endswith(".pt"):
+        return torch.load(path, map_location=map_location, weights_only=True)
+    raise ValueError(
+        f"{path!r} holds no checkpoint: expected a .pt file of this package, "
+        "an orbax checkpoint directory of the JAX package (with _METADATA) "
+        "or a checkpoint directory with latest")
+
+
+def load_params(module: nn.Module, path: str) -> None:
+    """Load the model parameters of the checkpoint at ``path`` (anything
+    ``load_checkpoint`` reads) into ``module``. Parameters of top-level
+    submodules that ``module`` lacks are skipped, as the JAX package's
+    apply ignores them (``run_test`` drops ``cal`` and ``learn_blur`` from
+    the trained model); every other key and shape must match exactly."""
     device = next(module.parameters()).device
-    state: Dict[str, torch.Tensor] = torch.load(path, map_location=device,
-                                                weights_only=True)
-    module.load_state_dict(state, strict=True)
+    state = load_checkpoint(path, map_location=device)
+    if isinstance(state.get("model"), Mapping):
+        state = state["model"]
+    own = {k.split(".", 1)[0] for k in module.state_dict()}
+    skipped = sorted({k.split(".", 1)[0] for k in state} - own)
+    if skipped:
+        logger.info(f"not loading the checkpoint's {skipped}: the model has "
+                    f"no such submodule")
+    module.load_state_dict(
+        {k: v for k, v in state.items() if k.split(".", 1)[0] in own},
+        strict=True)
 
 
 def opt_state_from_jax(optimizer, module: nn.Module, mu: Mapping[str, Any],
@@ -82,9 +213,8 @@ def opt_state_from_jax(optimizer, module: nn.Module, mu: Mapping[str, Any],
     of numpy arrays over all of ``module``'s parameters, ``count`` the number
     of steps taken. Where the JAX optimizer was built with ``per_module``
     groups, each group's ``ScaleByAdamState`` holds the moments of its own
-    parameters only (the others are masked): merge the groups' trees into
-    one before the call, in the process that has JAX; their counts are
-    equal."""
+    parameters only: ``train_state_from_orbax`` merges them into one tree
+    each."""
     mu, nu = params_from_jax(mu), params_from_jax(nu)
     state = optimizer.inner.state
     for name, p in module.named_parameters():

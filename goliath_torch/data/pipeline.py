@@ -2,9 +2,9 @@
 
 Samples are numpy dicts, built inline (``num_workers=0``) or on a thread
 pool with a small prefetch queue, and collated into numpy batches; the
-harness moves them to the device. The JAX loader's ``cache_device`` mode
-(whole dataset resident on a remote TPU) has no use on a local card and is
-not ported.
+harness moves them to the device. With ``cache_device`` the whole dataset
+is stacked once on ``device`` (string fields dropped) and each batch is
+gathered there, in the order the host batches would come in.
 """
 
 from __future__ import annotations
@@ -14,6 +14,9 @@ import threading
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
+
+from goliath_torch.ops.backend import resolve_device
 
 
 def collate(samples: List[Optional[Dict[str, Any]]]
@@ -38,7 +41,9 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 1, seed: int = 0, drop_last: bool = True,
-                 prefetch: int = 2, n_epochs: Optional[int] = None):
+                 prefetch: int = 2, n_epochs: Optional[int] = None,
+                 cache_device: bool = False,
+                 device: torch.device | str = "cuda"):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -47,6 +52,9 @@ class DataLoader:
         self.drop_last = drop_last
         self.prefetch = prefetch
         self.n_epochs = n_epochs  # None = loop forever
+        self.cache_device = cache_device
+        self.device = device      # where cache_device keeps the dataset
+        self._device_cache: Optional[Dict[str, torch.Tensor]] = None
 
     def _index_stream(self) -> Iterator[List[int]]:
         rng = np.random.RandomState(self.seed)
@@ -59,7 +67,25 @@ class DataLoader:
                 yield [int(j) for j in order[i: i + self.batch_size]]
             epoch += 1
 
+    def _ensure_device_cache(self, dev: torch.device
+                             ) -> Dict[str, torch.Tensor]:
+        if self._device_cache is None:
+            items = [self.dataset[i] for i in range(len(self.dataset))]
+            self._device_cache = {
+                k: torch.from_numpy(np.stack(
+                    [np.asarray(it[k]) for it in items])).to(dev)
+                for k, v0 in items[0].items()
+                if not isinstance(v0, (str, bytes))}
+        return self._device_cache
+
     def __iter__(self) -> Iterator[Optional[Dict[str, Any]]]:
+        if self.cache_device:
+            dev = resolve_device(self.device)
+            cache = self._ensure_device_cache(dev)
+            for idxs in self._index_stream():
+                ji = torch.as_tensor(idxs, device=dev)
+                yield {k: v[ji] for k, v in cache.items()}
+            return
         if self.num_workers == 0:
             for idxs in self._index_stream():
                 yield collate([self.dataset[j] for j in idxs])

@@ -1,5 +1,5 @@
 """Synthetic capture fixture: a textured UV-sphere in a camera ring (port of
-the JAX package's data/synthetic.py, with noise targets).
+the JAX package's data/synthetic.py).
 
 Generates static assets (topology, verts mean/var, color mean, camera ids,
 neighbour tables, and the body-model assets of the mesh path: a 3-joint
@@ -10,9 +10,13 @@ samples with the keys the head and body datasets yield (``pose`` and
 ``RandomState`` draws in the JAX package's order, so both packages see the
 same data for the same seed.
 
-``render_targets=True`` (lambert-lit targets drawn with the mesh
-rasterizer, per-frame seeding) is not ported yet and raises (ROADMAP
-queue 1, mesh path).
+``render_targets=True`` gives targets a model can fit: a fixed sinusoid
+texture as ``color_mean`` / ``tex_mean`` and every sample's ``color``, and
+``image`` / ``image_mask`` rendered from it through the mesh rasterizer
+(``ops/rasterizer.py``, K5 and K4 on the card), lambert-shaded by the
+frame's active lights. The frame's draws are then seeded per frame, so the
+views of a frame agree. The targets are rendered once per dataset, on
+``device``, and kept as numpy.
 """
 
 from __future__ import annotations
@@ -20,9 +24,16 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+import torch
 
+from goliath_torch.ops.backend import resolve_device
+from goliath_torch.ops.rasterizer import RenderLayer, interpolate
 from goliath_torch.utils.assets import AttrDict
-from goliath_torch.utils.geom import compute_neighbours, compute_v2uv
+from goliath_torch.utils.geom import (
+    compute_neighbours,
+    compute_v2uv,
+    vert_normals,
+)
 
 
 def make_sphere_mesh(n_lat: int = 8, n_lon: int = 12, radius: float = 100.0):
@@ -171,16 +182,16 @@ class SyntheticDataset:
         n_pose_dims: int = 6,
         seed: int = 0,
         render_targets: bool = False,
+        device: torch.device | str = "cuda",
     ):
-        if render_targets:
-            raise NotImplementedError(
-                "render_targets=True (rasterized lambert-lit targets) is not "
-                "ported yet (ROADMAP queue 1, mesh path)")
         self.rng = np.random.RandomState(seed)
         self.img_h, self.img_w = img_h, img_w
         self.uv_size = uv_size
         self.n_frames = n_frames
         self.n_lights_max = n_lights
+        self.render_targets = render_targets
+        self.device = device   # where the targets are rendered
+        self._targets = None   # {(frame, cam): (image, mask)}, numpy
 
         v, vi, vt, vti = make_sphere_mesh(n_lat, n_lon)
         self.v, self.vi, self.vt, self.vti = v, vi, vt, vti
@@ -189,9 +200,20 @@ class SyntheticDataset:
         self.camera_ids = [f"40{i:04d}" for i in range(n_cams)]
 
         nbs_idxs, nbs_weights = compute_neighbours(len(v), vi)
-        color_mean = (
-            self.rng.rand(3, uv_size, uv_size).astype(np.float32) * 128 + 64
-        )
+        if render_targets:
+            uu, vv = np.meshgrid(
+                np.linspace(0, 4 * np.pi, uv_size),
+                np.linspace(0, 4 * np.pi, uv_size))
+            color_mean = np.stack([
+                127.5 + 100.0 * np.sin(uu) * np.cos(vv),
+                127.5 + 100.0 * np.sin(uu + 1.3),
+                127.5 + 100.0 * np.cos(vv + 0.7),
+            ]).astype(np.float32)
+        else:
+            color_mean = (
+                self.rng.rand(3, uv_size, uv_size).astype(np.float32) * 128
+                + 64)
+        self._fixed_tex = color_mean
         n_joints = 3
         lbs_model_json, lbs_config_dict = make_synthetic_lbs(
             v, vi, vt, vti, n_joints)
@@ -230,11 +252,12 @@ class SyntheticDataset:
     def batch_filter(batch):
         return batch
 
-    def get(self, frame: int, cam: int) -> Dict[str, np.ndarray]:
-        H, W = self.img_h, self.img_w
-        T = self.uv_size
+    def _frame_state(self, frame: int, cam: int):
+        """The frame's draws: seeded per frame with ``render_targets``,
+        per (frame, camera) otherwise."""
         L = self.n_lights_max
-        rng = np.random.RandomState(frame * 977 + cam)
+        rng = np.random.RandomState(
+            frame if self.render_targets else frame * 977 + cam)
         angle = 0.1 * np.sin(frame * 0.7)
         ca, sa = np.cos(angle), np.sin(angle)
         R_head = np.asarray(
@@ -251,7 +274,64 @@ class SyntheticDataset:
         )
         n_lights = 1 if frame % 3 == 0 else L
         light_intensity = np.ones((L, 1), np.float32) / n_lights
-        image = rng.rand(3, H, W).astype(np.float32)
+        return rng, head_pose, verts, light_pos, light_intensity, n_lights
+
+    def _ensure_targets(self) -> None:
+        """Render every (frame, camera) target once: the fixed texture
+        through the UV atlas, times 0.25 + 0.75 x the lambert shade of the
+        frame's active lights (interpolated from the vertices), clipped to
+        [0, 1]."""
+        if self._targets is not None:
+            return
+        dev = resolve_device(self.device)
+        n_cams = len(self.camera_ids)
+        rl = RenderLayer(self.img_h, self.img_w, self.vi, self.vt, self.vti,
+                         device=dev)
+        tex = torch.from_numpy(self._fixed_tex / 255.0).to(dev)
+        tex = tex[None].expand(n_cams, -1, -1, -1)
+        K = torch.from_numpy(self.K).to(dev)
+        Rt = torch.from_numpy(self.Rt).to(dev)
+        vi = rl.vi
+        active = np.arange(self.n_lights_max)
+        targets = {}
+        with torch.no_grad():
+            for frame in range(self.n_frames):
+                _, _, verts, light_pos, light_int, n_lights = \
+                    self._frame_state(frame, 0)
+                light_w = torch.from_numpy(
+                    (light_int[:, 0] * (active < n_lights))
+                    .astype(np.float32)).to(dev)
+                vb = torch.from_numpy(verts).to(dev)[None].expand(
+                    n_cams, -1, -1)
+                out = rl(vb, tex, K, Rt, edge_grad=False)
+                n = vert_normals(vb, vi)                          # [B, V, 3]
+                ldir = (torch.from_numpy(light_pos).to(dev)[None, :, None]
+                        - vb[:, None])                            # [B, L, V, 3]
+                ldir = ldir / torch.linalg.norm(ldir, dim=-1, keepdim=True)
+                lam = (n[:, None] * ldir).sum(-1).clamp(min=0.0)  # [B, L, V]
+                shade = (lam * light_w[None, :, None]).sum(1)     # [B, V]
+                shade_img = torch.stack([
+                    interpolate(s[:, None], vi, ii, bb)
+                    for s, ii, bb in zip(shade, out["index_img"],
+                                         out["bary_img"])])       # [B, 1, H, W]
+                img = (out["render"] * (0.25 + 0.75 * shade_img)).clamp(
+                    0.0, 1.0).cpu().numpy()
+                mask = out["mask"].cpu().numpy()
+                for cam in range(n_cams):
+                    targets[(frame, cam)] = (img[cam], mask[cam])
+        self._targets = targets
+
+    def get(self, frame: int, cam: int) -> Dict[str, np.ndarray]:
+        H, W = self.img_h, self.img_w
+        T = self.uv_size
+        rng, head_pose, verts, light_pos, light_intensity, n_lights = \
+            self._frame_state(frame, cam)
+        if self.render_targets:
+            self._ensure_targets()
+            image, mask = self._targets[(frame, cam)]
+        else:
+            image = rng.rand(3, H, W).astype(np.float32)
+            mask = np.ones((1, H, W), np.float32)
         return {
             "head_pose": head_pose,
             "campos": self.campos[cam],
@@ -259,7 +339,8 @@ class SyntheticDataset:
             "camera_id": self.camera_ids[cam],
             "frame_id": np.int64(frame),
             "registration_vertices": verts,
-            "color": rng.rand(3, T, T).astype(np.float32) * 255.0,
+            "color": (self._fixed_tex.copy() if self.render_targets
+                      else rng.rand(3, T, T).astype(np.float32) * 255.0),
             "light_intensity": light_intensity,
             "light_pos": light_pos,
             "n_lights": np.int32(n_lights),
@@ -269,7 +350,7 @@ class SyntheticDataset:
             "princpt": self.K[cam][:2, 2],
             "image": image,
             "image_weight": np.ones((1, H, W), np.float32),
-            "image_mask": np.ones((1, H, W), np.float32),
+            "image_mask": mask,
             "background": np.zeros((3, H, W), np.float32),
             "is_fully_lit_frame": np.bool_(frame % 3 == 0),
             "pose": 0.1 * rng.randn(self.n_pose_total).astype(np.float32),

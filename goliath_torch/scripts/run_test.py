@@ -3,7 +3,10 @@
 Injects a ``psnr`` metric, strips train-only losses, samples
 ``n_test_frames`` random frames at batch size 1, and drops the per-camera
 color calibration and blur (``learn_blur=False`` goes to every model; URHand
-takes the argument and has no blur). Runs on the card unless
+takes the argument and has no blur). ``test.ckpt.ckpt_path`` is read by
+``goliath_torch.convert.load_params``: a checkpoint directory (through
+``latest``), the JAX package's orbax checkpoint or a ``.pt`` file; without
+it the model keeps its seeded initialization. Runs on the card unless
 ``device="cpu"``.
 
     python -m goliath_torch.scripts.run_test configs/rgca.yml [a.b=value ...]
@@ -36,7 +39,8 @@ def main(config: Config, device: str = "cuda",
     prints) the loss means."""
     device = resolve_device(device)
     test_cfg = config.get("test", Config())
-    dataset = build_dataset(dict(test_cfg.get("data", config.data)))
+    dataset = build_dataset(dict(test_cfg.get("data", config.data)),
+                            device=device)
     static_assets = dataset.static_assets
 
     model_cfg = Config.wrap(dict(config.model))

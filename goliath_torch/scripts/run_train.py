@@ -4,7 +4,10 @@
 
 Builds dataset, model, optimizer, loss, data loader and summary writer, then
 runs the train loop; resumes from ``latest`` if ``train.resume`` is set (the
-default) and a checkpoint exists. Runs on the card unless ``device="cpu"``.
+default) and a checkpoint exists (the port's ``.pt`` or the JAX package's
+orbax checkpoint). Runs on the card unless ``device="cpu"``: the data
+loader's ``cache_device`` and the synthetic fixture's rendered targets use
+the run's device too.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ def main(config: Config, device: str = "cuda"
     last step's losses. ``train.seed`` seeds the parameters and the training
     draws."""
     device = resolve_device(device)
-    dataset = build_dataset(config.data)
+    dataset = build_dataset(config.data, device=device)
     static_assets = dataset.static_assets
 
     generator = torch.Generator().manual_seed(
@@ -59,7 +62,8 @@ def main(config: Config, device: str = "cuda"
     summary_fn = (load_from_config(config.summary)
                   if "summary" in config else None)
 
-    loader = DataLoader(dataset, **config.get("dataloader", {"batch_size": 1}))
+    loader = DataLoader(dataset, device=device,
+                        **config.get("dataloader", {"batch_size": 1}))
     train_dir = config.train.get("run_dir", "runs/default")
     os.makedirs(train_dir, exist_ok=True)
     with open(os.path.join(train_dir, "config.yml"), "w") as f:

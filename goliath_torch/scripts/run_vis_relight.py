@@ -8,8 +8,9 @@ frame holds the composite, diffuse and specular panels side by side) of
 the model of a config, ``vis.n_frames`` frames each, as PNGs under
 ``vis.output_dir`` (``light_sweep/``, ``env_spin/``); with ``ffmpeg`` on
 PATH each sequence is also encoded to an mp4. The model drops ``cal`` and
-runs without ``learn_blur``; ``test.ckpt.ckpt_path`` (a ``.pt`` file) is
-loaded where given, else the weights are those drawn from seed 0. A
+runs without ``learn_blur``; ``test.ckpt.ckpt_path`` (a checkpoint
+directory, the JAX package's orbax checkpoint or a ``.pt`` file) is loaded
+where given, else the weights are those drawn from seed 0. A
 ``vis.envmap_path`` that does not exist raises. Runs on the card unless
 ``device="cpu"``.
 
@@ -80,7 +81,8 @@ def main(config: Config, device: str = "cuda") -> None:
                                 f"exist")
 
     test_cfg = config.get("test", Config())
-    dataset = build_dataset(dict(test_cfg.get("data", config.data)))
+    dataset = build_dataset(dict(test_cfg.get("data", config.data)),
+                            device=device)
     model_cfg = Config.wrap(dict(config.model))
     model_cfg.pop("cal", None)
     model_cfg["learn_blur"] = False

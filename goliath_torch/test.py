@@ -43,8 +43,10 @@ def _save_png(path: str, img: np.ndarray) -> None:
 
 def to_device(batch: Mapping[str, Any], device: torch.device
               ) -> Dict[str, torch.Tensor]:
-    """numpy batch -> tensors on ``device`` (string fields are dropped)."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
+    """numpy (or tensor) batch -> tensors on ``device`` (string fields are
+    dropped)."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v))).to(device)
             for k, v in batch.items() if not isinstance(v, (list, str))}
 
 

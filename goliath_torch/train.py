@@ -5,7 +5,9 @@ scrub -> global-norm clip 1.0 -> Adam update, the last three inside
 ``goliath_torch.optim.ChainedOptimizer``), wrapped by a host-side loop with
 loss-explosion detection and rollback to the last checkpoint, periodic
 scalar/image logging, and ``.pt`` checkpoints (``latest`` +
-``{iteration:06d}.pt``).
+``{iteration:06d}.pt``). Resuming and rolling back read the port's
+checkpoints or the JAX package's orbax ones
+(``goliath_torch.convert.load_checkpoint``).
 
 The loss scalar is read with a one-step lag, so the explosion check does
 not make the host wait for the step it has just queued on the card; a
@@ -27,6 +29,7 @@ from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from goliath_torch.convert import load_checkpoint, opt_state_from_jax
 from goliath_torch.test import to_device
 
 logger = logging.getLogger(__name__)
@@ -53,21 +56,6 @@ def save_checkpoint(ckpt_dir: str, state: Dict[str, Any],
         f.write(name)
 
 
-def load_checkpoint(ckpt_path: str, iteration: Optional[int] = None,
-                    map_location: Any = None) -> Dict[str, Any]:
-    """Load from a checkpoint dir (using ``latest``) or an explicit file."""
-    if os.path.isdir(ckpt_path) and has_checkpoint(ckpt_path):
-        if iteration is None:
-            with open(os.path.join(ckpt_path, "latest")) as f:
-                name = f.read().strip()
-        else:
-            name = f"{iteration:06d}.pt"
-        ckpt_path = os.path.join(ckpt_path, name)
-    logger.info(f"loading checkpoint {ckpt_path}")
-    return torch.load(ckpt_path, map_location=map_location,
-                      weights_only=True)
-
-
 def has_checkpoint(ckpt_dir: str) -> bool:
     return os.path.exists(os.path.join(ckpt_dir, "latest"))
 
@@ -78,10 +66,15 @@ def _train_state(model, optimizer) -> Dict[str, Any]:
 
 
 def restore_train_state(model, optimizer, restored: Mapping[str, Any]) -> int:
-    """Load a checkpoint's model and optimizer state in place; returns its
-    iteration (0 when it has none)."""
+    """Load a checkpoint's model and optimizer state in place (what
+    ``load_checkpoint`` read: the port's train state, or the JAX package's
+    with Adam's moments under ``adam``); returns its iteration (0 when it
+    has none)."""
     model.module.load_state_dict(restored["model"], strict=True)
-    optimizer.load_state_dict(restored["optimizer"])
+    if "adam" in restored:
+        opt_state_from_jax(optimizer, model.module, **restored["adam"])
+    else:
+        optimizer.load_state_dict(restored["optimizer"])
     return int(restored.get("iteration", 0))
 
 

@@ -1,5 +1,6 @@
 """The port stands alone: no module of goliath_torch/ and not chip_smoke.py
-imports JAX or the JAX package (the card's machine has neither). Read from
+imports JAX, orbax or the JAX package (the card's machine has none of
+them; the port reads orbax checkpoints through tensorstore). Read from
 the sources with ``ast``; this file imports neither package itself.
 """
 
@@ -9,7 +10,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "goliath_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "goliath_tpu")
 SOURCES = sorted(ROOT.glob("goliath_torch/**/*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -46,6 +47,7 @@ def test_no_jax_import(path):
     "import goliath_tpu.utils.hdr", "from goliath_tpu.utils import hdr",
     "def f():\n    from goliath_tpu import models",
     "try:\n    import flax\nexcept ImportError:\n    pass",
+    "import orbax.checkpoint as ocp",
 ])
 def test_the_guard_finds_each_form(line):
     assert forbidden_imports(line)

@@ -155,7 +155,8 @@ def _recording(fn, windows):
 
 def test_run_test_own_init_and_checkpoints(tmp_path, monkeypatch):
     """test.ckpt=null draws the port's own seeded init; a .pt written by
-    save_params reloads to the same losses; an orbax directory raises."""
+    save_params reloads to the same losses; a directory that holds no
+    checkpoint raises, naming the forms it takes (orbax among them)."""
     monkeypatch.chdir(tmp_path)
     vis = tmp_path / "viz"
     cfg = t_load_config(_CFG, overrides=["test.ckpt=null",
