@@ -191,7 +191,33 @@ the final result line:
      configs/rgca_synthetic.yml size, card vs CPU (spec_color, the
      diffuse and specular panels, and the composite panel's mirrorball
      inset and the rest of it apart);
- 25. per kernel (and per mode of a kernel): check result, launches on each
+ 25. the capture path (captures in Goliath's zip layout written by
+     tests/goliath_capture.py, read through goliath_torch's BodyDataset and
+     its native zip reader): the zip reader in use and whether Pillow
+     decodes AVIF; a Head capture (13 cameras, 2048x1334 PNG images under
+     .avif names, segmentation at half size, uv 1024; 6 train frames
+     alternating the fully-lit pattern and 5-light ones, 2 test frames) and
+     the writer's time; run_train.main on configs/rgca.yml as it stands
+     (batch 4, the loader's 4 threads) for 3 steps, counts set to 0 just
+     before and read just after (as the training path's), each step's wall
+     time and the time the loop waited for its batch, peak memory, the
+     loader's samples per second, no sample dropped; then run_test.main
+     from its checkpoint directory on the test split's 12 cameras, 3
+     frames (K1 3, K4 6); K4 against torch.cumsum on the run's first two
+     scans, exactly;
+ 26. the texture mean: run_gen_texmean.main on configs/urhand.yml as it
+     stands on a fresh Hands capture (8 cameras x 5 fully-lit frames, a
+     16,384-face sphere at global_scaling 10, 2048x1334, uv 1024), counts
+     set to 0 just before and read just after (K5 40, K4 80), every view
+     textured, the covered texel share, each view's and the run's wall
+     time, the new color_mean.png read back by the capture dataset; then
+     K5 against its plain version on the first view, bit for bit, and K4
+     on its two scans, exactly;
+ 27. both capture paths at 48x48 and uv 64, card against CPU: two RGCA
+     training steps on a small Head capture (losses and gradients at
+     rtol 1e-3) and run_gen_texmean on a small Hands capture (the PNGs
+     equal but within 1e-3 px of a pixel edge);
+ 28. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -1020,7 +1046,7 @@ def rgca_config(overrides=()):
 
 def run_training(gc, torch, card_line, label, expected, record,
                  patch=None, make_config=rgca_config, batch=TRAIN_BATCH,
-                 zero_grad_ok=None, default_group=False):
+                 zero_grad_ok=None, default_group=False, run_dir=None):
     """run_train.main at full width (``make_config``: configs/rgca.yml on
     synthetic data at 2048x1334 and uv 1024 unless another is given), the
     config's batch ``batch`` (4 unless given), 3 steps, no resume, counts
@@ -1032,13 +1058,16 @@ def run_training(gc, torch, card_line, label, expected, record,
     ``default_group`` the optimizer also has the group of the modules its
     config leaves out (``__default__``), whose gradients may be zero but
     whose parameters must move by AdamW's decay alone. Leaves the step
-    totals in ``record[label]``."""
+    totals in ``record[label]``. The run writes into ``run_dir`` where it
+    is given (the caller reads its checkpoints after), else into a
+    temporary directory."""
     import contextlib
 
     from goliath_torch import train as train_lib
     from goliath_torch.scripts import run_train
 
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
+    with (contextlib.nullcontext(run_dir) if run_dir else
+          tempfile.TemporaryDirectory(prefix="chip_smoke_train_")) as run_dir:
         cfg = make_config([
             f"train.run_dir={run_dir}", f"train.n_max_iters={TRAIN_STEPS}",
             "train.resume=false", "train.log_every_n_steps=1"])
@@ -3886,6 +3915,508 @@ def quality_kernels(gc, torch, captured, card_line):
     return dict(k1_err=err_f, k2_err=err_b, k3_err=e64)
 
 
+# The capture phases: fake Goliath captures in the dataset's zip layout
+# (no capture is in the repo), written by tests/goliath_capture.py, the
+# writer the CPU tests use, then read by goliath_torch's BodyDataset through
+# the entry points on the configs as they stand (capture_root, the run and
+# checkpoint directories, the step count and test.n_test_frames cut).
+CAPTURE_HEAD = "m--20230306--0707--AXE977--pilot--ProjectGoliath--Head"
+CAPTURE_HANDS = "m--20230306--0839--AXE977--pilot--ProjectGoliath--Hands--left"
+# 6 train frames alternating the fully-lit pattern and a 5-light one, and 2
+# test frames
+CAPTURE_TRAIN, CAPTURE_TEST = [0, 1, 2, 3, 4, 5], [6, 7]
+CAPTURE_LIGHTS = 8
+CAPTURE_PATTERNS = [[[i, 694] for i in range(CAPTURE_LIGHTS)],
+                    [[i, 5555] for i in range(1, 6)],
+                    [[i, 5555] for i in (0, 2, 4, 6, 7)]]
+CAPTURE_PATTERN_OF = {0: 0, 1: 1, 2: 0, 3: 2, 4: 0, 5: 1, 6: 0, 7: 2}
+CAPTURE_TEST_FRAMES = 3
+# the Hands capture: 8 cameras at 4,000 from a sphere of 16,384 faces whose
+# radius of 100 is 1,000 at configs/urhand.yml's global_scaling of 10;
+# frames 0-4 fully lit (the script's texmean_num_frames of 5), 5-6 OLAT
+TEXMEAN_CAMERAS = 8
+TEXMEAN_FRAMES = [0, 1, 2, 3, 4, 5, 6]
+TEXMEAN_PATTERN_OF = {0: 0, 1: 0, 2: 0, 3: 0, 4: 0, 5: 1, 6: 1}
+TEXMEAN_SPHERE = {"n_lat": 64, "n_lon": 128}
+TEXMEAN_DIST = 4000.0
+# the small configs card vs CPU: 48x48 images, uv 64
+CAPTURE_SMALL_HW, CAPTURE_SMALL_UV = (48, 48), 64
+# a texel of the small texture means may differ card vs CPU only where its
+# projection lies within this many pixels of a pixel edge in a view that
+# sees it: float32 projections from other operation orders round to the
+# other pixel there
+TEXMEAN_EDGE_PX = 1e-3
+
+
+def capture_writer():
+    """tests/goliath_capture.py, the writer the CPU tests use."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import goliath_capture
+
+    return goliath_capture
+
+
+def avif_line() -> str:
+    """Whether this machine's Pillow decodes AVIF (real captures are)."""
+    import warnings
+
+    import PIL
+    from PIL import features
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        ok = features.check("avif")
+    return f"Pillow {PIL.__version__}: AVIF {'decodes' if ok else 'does not'}"
+
+
+def write_head_capture(gcap, base, hw, uv, cameras, seed=0):
+    """The Head capture CAPTURE_HEAD under ``base`` at ``hw`` images and
+    ``uv`` texture (the synthetic fixture's sphere, verts_mean and color
+    mean, as FULL_DATA's; the fixture's camera ring), its segmentation at
+    half size, and its shared assets (the fixture's topology). Returns the
+    number of image members written."""
+    from goliath_torch.data.synthetic import SyntheticDataset, \
+        make_camera_ring
+
+    a = SyntheticDataset(n_cams=1, n_frames=1, img_h=hw[0], img_w=hw[1],
+                         uv_size=uv, seed=seed, device="cpu").static_assets
+    K, Rt, _ = make_camera_ring(len(cameras), *hw)
+    gcap.write_capture(base, CAPTURE_HEAD, gcap.CaptureSpec(
+        kind="Head", cameras=list(cameras), K=K, Rt=Rt,
+        frames=CAPTURE_TRAIN + CAPTURE_TEST, test_frames=CAPTURE_TEST,
+        template=a["verts_mean"], image_hw=hw, uv_size=uv,
+        color_mean=a["color_mean"], seg_half=True,
+        n_light_positions=CAPTURE_LIGHTS, light_patterns=CAPTURE_PATTERNS,
+        pattern_of_frame=CAPTURE_PATTERN_OF, seed=seed))
+    gcap.write_shared_assets(Path(base) / "shared" / "static_assets_head.pt",
+                             {"topology": dict(a["topology"])})
+    return len(cameras) * len(CAPTURE_TRAIN + CAPTURE_TEST)
+
+
+def write_hands_capture(gcap, base, hw, uv, n_cams, sphere, seed=0):
+    """The Hands capture CAPTURE_HANDS under ``base``: ``n_cams`` cameras at
+    TEXMEAN_DIST around the fixture's ``sphere`` (the template PLYs), poses
+    of the fixture's 3-joint skeleton, TEXMEAN_FRAMES, no color mean; its
+    shared assets (the topology with v2uv, the skeleton's model and
+    config)."""
+    from goliath_torch.data.synthetic import make_camera_ring, \
+        make_sphere_mesh, make_synthetic_lbs
+    from goliath_torch.utils.geom import compute_v2uv
+
+    v, vi, vt, vti = make_sphere_mesh(**sphere)
+    K, Rt, _ = make_camera_ring(n_cams, *hw, dist=TEXMEAN_DIST)
+    cams = ["400870"] + [f"40{1645 + i:04d}" for i in range(n_cams - 1)]
+    gcap.write_capture(base, CAPTURE_HANDS, gcap.CaptureSpec(
+        kind="Hands", cameras=cams, K=K, Rt=Rt, frames=TEXMEAN_FRAMES,
+        template=v, faces=vi, image_hw=hw, uv_size=uv,
+        pattern_of_frame=TEXMEAN_PATTERN_OF, seed=seed))
+    lbs_json, lbs_cfg = make_synthetic_lbs(v, vi, vt, vti)
+    gcap.write_shared_assets(
+        Path(base) / "shared" / "static_assets_hand_left.pt", {
+            "topology": {"v": v, "vi": vi, "vt": vt, "vti": vti,
+                         "v2uv": compute_v2uv(len(v), vi, vti)},
+            "lbs_model_json": lbs_json, "lbs_config_dict": lbs_cfg})
+    return Path(base) / CAPTURE_HANDS
+
+
+def capture_config(base, run_dir, overrides=()):
+    """configs/rgca.yml as it stands on the Head capture under ``base``:
+    capture_root, the run directory and its checkpoints for run_test,
+    CAPTURE_TEST_FRAMES test frames and no visualisations."""
+    from goliath_torch.config import load_config
+
+    return load_config(str(ROOT / "configs" / "rgca.yml"), overrides=[
+        f"capture_root={base}", f"train.run_dir={run_dir}",
+        f"test.ckpt.ckpt_path={Path(run_dir) / 'checkpoints'}",
+        f"test.n_test_frames={CAPTURE_TEST_FRAMES}", "test.vis_path=null",
+        *overrides])
+
+
+class LoaderProbe:
+    """For the duration of a with-block: the time the training loop waited
+    for each batch (run_train's DataLoader, timed around each ``next``),
+    the time of each ``collate`` (it runs inside the loader's ``next``, on
+    the loop's thread, so it is part of that wait), the samples ``collate``
+    dropped as None (a broken reader would hide there), and the inputs of
+    the first ``k4`` K4 scans (copied to the host without a synchronise)."""
+
+    def __init__(self, k4=2):
+        self.k4 = k4
+        self.waits, self.collates, self.k4_inputs = [], [], []
+        self.dropped, self.samples = 0, 0
+
+    def __enter__(self):
+        from goliath_torch.data import pipeline
+        from goliath_torch.ops import binning
+        from goliath_torch.scripts import run_train
+
+        self.mods = (pipeline, binning, run_train)
+        self.orig = (pipeline.collate, binning.cumsum1d, run_train.DataLoader)
+        orig_collate, orig_cs, base = self.orig
+        probe = self
+
+        def collate(samples):
+            probe.samples += len(samples)
+            probe.dropped += sum(s is None for s in samples)
+            t0 = time.perf_counter()
+            out = orig_collate(samples)
+            probe.collates.append(time.perf_counter() - t0)
+            return out
+
+        def cs(x):
+            if len(probe.k4_inputs) < probe.k4:
+                probe.k4_inputs.append(x.to("cpu", non_blocking=True))
+            return orig_cs(x)
+
+        class TimedLoader(base):
+            def __iter__(self):
+                it = super().__iter__()
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    probe.waits.append(time.perf_counter() - t0)
+                    yield batch
+
+        pipeline.collate, binning.cumsum1d = collate, cs
+        run_train.DataLoader = TimedLoader
+        return self
+
+    def __exit__(self, *exc):
+        pipeline, binning, run_train = self.mods
+        pipeline.collate, binning.cumsum1d, run_train.DataLoader = self.orig
+
+
+def loader_rate(cfg, card_line, batches=4):
+    """The capture loader alone (the config's batch and threads):
+    samples per second over ``batches`` batches from a fresh iterator, and
+    one sample's read on one thread."""
+    from goliath_torch.data.pipeline import DataLoader
+    from goliath_torch.scripts import run_train
+
+    ds = run_train.build_dataset(cfg.data)
+    t0 = time.perf_counter()
+    one = ds[0]
+    single = time.perf_counter() - t0
+    loader = DataLoader(ds, device=DEVICE, **cfg.dataloader)
+    t0 = time.perf_counter()
+    it = iter(loader)
+    n = 0
+    for _ in range(batches):
+        b = next(it)
+        n += len(b["camera_id"])
+    rate = n / (time.perf_counter() - t0)
+    it.close()
+    log(f"capture loader alone: {rate:.2f} samples/s over {n} samples "
+        f"({int(cfg.dataloader.num_workers)} threads, batch "
+        f"{int(cfg.dataloader.batch_size)}; PNG under .avif names, "
+        f"{tuple(one['image'].shape)} images); one sample on one thread "
+        f"{single:.4f} s (the host, beside {card_line})")
+    return rate
+
+
+def capture_path(gc, torch, card_line, captured):
+    """The Head recipe on a capture at full width: the Head capture (13
+    cameras: the CalV5 identity camera 400870 and configs/rgca.yml's 12 test
+    cameras; 2048x1334 images, segmentation at half size, uv 1024; 6 train
+    frames alternating the fully-lit pattern and 5-light ones, 2 test
+    frames), then run_train.main on configs/rgca.yml as it stands (batch 4,
+    the loader's 4 threads, fully_lit_only false) through run_training for
+    TRAIN_STEPS steps into a run directory, then run_test.main from its
+    checkpoint directory on the test split's 12 cameras
+    (CAPTURE_TEST_FRAMES frames). Cuts: capture_root, train.n_max_iters,
+    the run and checkpoint directories, test.n_test_frames,
+    test.vis_path. Counts reset before each run: training as train_path
+    (K1, K2, K3 once a sample a step, K1 for the summary's forward, K4
+    twice a render), the test K1 once and K4 twice a frame. Per step the
+    wall time and the time the loop waited for its batch; the loader's
+    samples per second; no sample dropped. Keeps the run's first two K4
+    inputs in ``captured["k4"]``. Returns the launches of the test run and
+    of the training run."""
+    from goliath_torch.native import zipio
+    from goliath_torch.scripts import run_test
+
+    gcap = capture_writer()
+    log(f"capture zip reader: {zipio.reader_name()}")
+    log(f"capture images: {avif_line()}")
+    cfg0 = capture_config("/unused", "/unused")
+    cameras = ["400870"] + list(cfg0.test.data.cameras_subset)
+    hw = (int(cfg0.model.image_height), int(cfg0.model.image_width))
+    uv = int(cfg0.model.uv_size)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capture_") as base:
+        t0 = time.perf_counter()
+        n_img = write_head_capture(gcap, base, hw, uv, cameras)
+        log(f"capture writer: the Head capture ({n_img} images of "
+            f"{hw[0]}x{hw[1]} and their half-size segmentations, "
+            f"{len(CAPTURE_TRAIN + CAPTURE_TEST)} uv {uv} textures) in "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+        run_dir = Path(base) / "run"
+        n = TRAIN_BATCH * TRAIN_STEPS
+        with LoaderProbe() as probe:
+            train = run_training(
+                gc, torch, card_line, "capture train path", dict(
+                    pair_grads=n, cumsum_cols=n,
+                    compositor_fwd=n + TRAIN_BATCH,
+                    cumsum1d=2 * (n + TRAIN_BATCH)), {},
+                make_config=lambda o: capture_config(base, run_dir, o),
+                run_dir=str(run_dir))
+        for i, (w, c) in enumerate(zip(probe.waits, probe.collates)):
+            log(f"capture train path step {i}: waited {w:.4f} s for its "
+                f"batch, of which collate {c:.4f} s (host clock around the "
+                f"loader's next and around collate)")
+        captured["k4"] = probe.k4_inputs
+        cfg = capture_config(base, run_dir)
+        rate = loader_rate(cfg, card_line)
+
+        frames = []
+        with LoaderProbe(k4=0) as test_probe:
+            torch.cuda.synchronize()
+            gc.reset_launch_counts()
+            means = run_test.main(cfg, device=DEVICE, frame_seconds=frames)
+            torch.cuda.synchronize()
+            test = dict(gc.LAUNCHES)
+    log(f"capture eval launches: {test}")
+    log(f"capture eval means (from the checkpoint directory): "
+        f"{json.dumps(means)}")
+    for i, s in enumerate(frames):
+        log(f"capture eval frame {i}: wall {s:.4f} s on {card_line}")
+    dropped = probe.dropped + test_probe.dropped
+    log(f"capture samples collated: {probe.samples} into the training "
+        f"loop's batches, {test_probe.samples} into the eval frames; "
+        f"dropped as None: {dropped}")
+    if dropped:
+        raise AssertionError(f"{dropped} capture samples were dropped")
+    if len(frames) != CAPTURE_TEST_FRAMES or not all(
+            math.isfinite(v) for v in means.values()):
+        raise AssertionError("capture eval means are not finite")
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(compositor_fwd=CAPTURE_TEST_FRAMES,
+                cumsum1d=2 * CAPTURE_TEST_FRAMES)
+    if test != want:
+        raise AssertionError(f"capture eval launch counts {test} != {want}")
+    if len(probe.waits) < TRAIN_STEPS or not rate > 0:
+        raise AssertionError("the capture loader was not timed")
+    return test, train
+
+
+def texmean_path(gc, torch, card_line, captured):
+    """run_gen_texmean.main on configs/urhand.yml as it stands on a fresh
+    Hands capture (no uv_image/color_mean.png yet): TEXMEAN_CAMERAS cameras
+    x the script's 5 fully-lit frames, each view one render at the
+    config's 2048x1334 (K5 once, K4 twice) unprojected at uv 1024, counts
+    reset just before and read just after (exact). Every view must give
+    texels; the covered texel share must be above 0; the capture dataset
+    then reads the new mean as [3, 1024, 1024]. Cut: capture_root. Keeps
+    the first view's K5 arguments and K4 inputs in ``captured``."""
+    from goliath_torch.config import load_config
+    from goliath_torch.ops import binning, rasterizer
+    from goliath_torch.scripts import run_gen_texmean, run_train
+
+    gcap = capture_writer()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_texmean_") as base:
+        cfg = load_config(str(ROOT / "configs" / "urhand.yml"),
+                          overrides=[f"capture_root={base}"])
+        hw = (int(cfg.model.renderer.image_height),
+              int(cfg.model.renderer.image_width))
+        uv = int(cfg.get("texmean_uv_size", 1024))
+        t0 = time.perf_counter()
+        root = write_hands_capture(gcap, base, hw, uv, TEXMEAN_CAMERAS,
+                                   TEXMEAN_SPHERE)
+        log(f"capture writer: the Hands capture ({TEXMEAN_CAMERAS} cameras "
+            f"x {len(TEXMEAN_FRAMES)} frames of {hw[0]}x{hw[1]}) in "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+        mean_png = root / "uv_image" / "color_mean.png"
+        if mean_png.exists():
+            raise AssertionError("a fresh capture has no color mean")
+        views, k4_inputs = [], []
+        orig_zb, orig_cs = rasterizer.zbuffer, binning.cumsum1d
+
+        def zb(*args):
+            if "k5" not in captured:
+                captured["k5"] = tuple(
+                    a.to("cpu", non_blocking=True)
+                    if isinstance(a, torch.Tensor) else a for a in args)
+            return orig_zb(*args)
+
+        def cs(x):
+            if len(k4_inputs) < 2:
+                k4_inputs.append(x.to("cpu", non_blocking=True))
+            return orig_cs(x)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rasterizer.zbuffer, binning.cumsum1d = zb, cs
+        gc.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            out = run_gen_texmean.main(cfg, device=DEVICE, view_seconds=views)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            launches = dict(gc.LAUNCHES)
+        finally:
+            rasterizer.zbuffer, binning.cumsum1d = orig_zb, orig_cs
+        peak = torch.cuda.max_memory_allocated()
+        captured["k4"] = k4_inputs
+        data = dict(cfg.data)
+        color_mean = run_train.build_dataset(data).static_assets.color_mean
+    n_views = len(out["rendered"])
+    log(f"texmean launches: {launches}")
+    log(f"texmean: {n_views} views rendered, skipped {out['skipped']}; "
+        f"texels per view {[v[2] for v in out['rendered']]}; covered "
+        f"texel share {out['covered']:.4f}; wrote color_mean.png read back "
+        f"as {tuple(getattr(color_mean, 'shape', ()))}")
+    log(f"texmean wall: {total:.3f} s for the run (its UV tables and the "
+        f"capture's static assets included); a view (read, render, "
+        f"accumulate) median {sorted(views)[len(views) // 2]:.4f} s, first "
+        f"{views[0]:.4f} s, range {min(views):.4f}-{max(views):.4f} s; peak "
+        f"device memory {peak / 2**30:.3f} GiB on {card_line}")
+    n_fully = len([f for f in TEXMEAN_FRAMES if TEXMEAN_PATTERN_OF[f] == 0])
+    want_views = TEXMEAN_CAMERAS * min(5, n_fully)
+    if out["skipped"] or n_views != want_views or not all(
+            v[2] > 0 for v in out["rendered"]):
+        raise AssertionError(f"a (frame, camera) gave no texture: "
+                             f"{out['skipped']}")
+    if not out["covered"] > 0:
+        raise AssertionError("the texture mean covers no texel")
+    if getattr(color_mean, "shape", None) != (3, uv, uv):
+        raise AssertionError("the capture does not read the new color mean")
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(zbuffer=n_views, cumsum1d=2 * n_views)
+    if launches != want:
+        raise AssertionError(f"texmean launch counts {launches} != {want}")
+    return launches
+
+
+def texmean_edge_distance(torch, tex_module):
+    """Wraps ``tex_module.compute_view_texture`` for a with-block: keeps,
+    per texel, the smallest distance (pixels) of its projection to a pixel
+    edge over the views that see it."""
+    import contextlib
+
+    from goliath_torch.utils.geom import project_points
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = tex_module.compute_view_texture
+        best = {}
+
+        def cvt(verts, faces, image, face_index_image, normal_image, K, Rt,
+                index_uv, bary_uv, face_index_uv, **kw):
+            out = orig(verts, faces, image, face_index_image, normal_image,
+                       K, Rt, index_uv, bary_uv, face_index_uv, **kw)
+            idx = index_uv.clamp(0, verts.shape[1] - 1).long()
+            c = verts[:, idx] * bary_uv[None, ..., None]
+            xyz = c[..., 0, :] + c[..., 1, :] + c[..., 2, :]
+            pix, _ = project_points(xyz.reshape(verts.shape[0], -1, 3), Rt, K)
+            dist = (pix - pix.round()).abs().amin(-1).reshape(
+                out[1].shape[0], *index_uv.shape[:2])
+            dist = torch.where(out[1][:, 0], dist, torch.inf).amin(0)
+            best["edge"] = (dist if "edge" not in best
+                            else torch.minimum(best["edge"], dist))
+            return out
+
+        tex_module.compute_view_texture = cvt
+        try:
+            yield best
+        finally:
+            tex_module.compute_view_texture = orig
+
+    return ctx()
+
+
+def capture_small_reference(torch):
+    """Both capture paths at a small size on the card (kernels) against the
+    CPU (plain versions). The RGCA recipe on a small Head capture (48x48,
+    uv 64, configs/rgca_synthetic.yml's model at those widths): two
+    training steps through run_train.main, the second step's losses and
+    the first step's gradients at SMALL_RTOL, as small_reference holds
+    configs/rgca_synthetic.yml. run_gen_texmean on a small Hands capture
+    (48x48, uv 64, 2 cameras, its first 3 frames, fully lit): the PNGs
+    equal but at texels whose projection lies within TEXMEAN_EDGE_PX of a
+    pixel edge in a view that sees them (measured, printed)."""
+    import numpy as np
+    from PIL import Image
+
+    from goliath_torch import train as train_lib
+    from goliath_torch.config import load_config
+    from goliath_torch.scripts import run_gen_texmean, run_train
+    from goliath_torch.utils import tex as tex_module
+
+    gcap = capture_writer()
+    hw, uv = CAPTURE_SMALL_HW, CAPTURE_SMALL_UV
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_capsmall_") as base:
+        write_head_capture(gcap, base, hw, uv, ["400000", "400001",
+                                                "400002"], seed=3)
+        data = {"root_path": str(Path(base) / CAPTURE_HEAD),
+                "shared_assets_path": str(
+                    Path(base) / "shared" / "static_assets_head.pt"),
+                "split": "train", "fully_lit_only": False}
+        runs = {}
+        for device in (DEVICE, "cpu"):
+            cfg = load_config(str(ROOT / "configs" / "rgca_synthetic.yml"),
+                              overrides=[
+                f"data={yaml_flow(data)}", f"model.image_height={hw[0]}",
+                f"model.image_width={hw[1]}", f"model.uv_size={uv}",
+                f"train.run_dir={Path(base) / ('run_' + device)}",
+                "train.n_max_iters=2", "train.resume=false"])
+            with StepProbe(torch, train_lib, keep_grads=True) as probe:
+                _it, last = run_train.main(cfg, device=device)
+            runs[device] = (last, probe.grads, probe.totals)
+    (got, g_got, t_got), (ref, g_ref, t_ref) = runs[DEVICE], runs["cpu"]
+    worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
+    worst_g, worst_name = grad_error(g_got, g_ref)
+    log(f"small capture RGCA training reference (card vs CPU plain): step "
+        f"totals {t_got} vs {t_ref}; second step's losses max rel diff "
+        f"{worst:.3e}; first step's gradients over {len(g_ref)} parameters: "
+        f"largest error as a fraction of the parameter's largest gradient "
+        f"{worst_g:.3e} ({worst_name}) (tolerance {SMALL_RTOL} each)")
+    if not (worst <= SMALL_RTOL and worst_g <= SMALL_RTOL
+            and set(got) == set(ref) and set(g_got) == set(g_ref)):
+        raise AssertionError("the card's capture training steps disagree "
+                             "with the CPU's")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_texsmall_") as base:
+        root = write_hands_capture(gcap, base, hw, uv, 2,
+                                   {"n_lat": 8, "n_lon": 12}, seed=5)
+        cfg = load_config(str(ROOT / "configs" / "urhand.yml"), overrides=[
+            f"capture_root={base}", f"model.renderer.image_height={hw[0]}",
+            f"model.renderer.image_width={hw[1]}",
+            f"texmean_uv_size={uv}", "texmean_num_frames=3"])
+        pngs = {}
+        for device in (DEVICE, "cpu"):
+            with texmean_edge_distance(torch, tex_module) as best:
+                out = run_gen_texmean.main(cfg, device=device)
+            path = Path(out["path"])
+            pngs[device] = np.asarray(Image.open(path)).astype(np.int16)
+            path.unlink()
+            if device == "cpu":
+                # the PNG is the mean flipped vertically
+                edge = best["edge"].flip(0).cpu().numpy()
+    diff = np.abs(pngs[DEVICE] - pngs["cpu"]).max(-1)
+    bad = diff > 0
+    near = edge < TEXMEAN_EDGE_PX
+    seen = np.isfinite(edge)
+    far_bad = int((bad & ~near).sum())
+    where = (f", the farthest {float(edge[bad].max()):.3e} px from a pixel "
+             f"edge" if bad.any() else "")
+    log(f"small texmean reference (card vs CPU plain, {uv}x{uv}, "
+        f"{len(out['rendered'])} views): {int(bad.sum())} of {int(seen.sum())}"
+        f" seen texels differ (by up to {int(diff.max())} of 255{where}); "
+        f"{int(near.sum())} "
+        f"texels lie within {TEXMEAN_EDGE_PX} px of one (the smallest "
+        f"distance {float(edge.min()):.3e} px), where a difference is "
+        f"allowed")
+    if far_bad or not seen.any() or not pngs["cpu"].any():
+        raise AssertionError(f"the card's texture mean differs from the "
+                             f"CPU's at {far_bad} texels away from pixel "
+                             f"edges")
+    return {"losses_rel_err": worst, "grad_err_of_scale": worst_g,
+            "texmean_texels_differing": int(bad.sum())}
+
+
 def check_k6(gc, torch, steps):
     """K6 forward and backward against their plain versions on the own
     inputs of every fold training step (the rows, global tile bounds, cnt,
@@ -4673,10 +5204,28 @@ def main() -> int:
     phase("teacher_small_train_reference", teacher_small_train_reference,
           torch)
     phase("relight_small_reference", relight_small_reference, torch)
+    capture_inputs = {}
+    phase("capture_path", capture_path, gc, torch, card_line, capture_inputs)
+    if len(capture_inputs.get("k4", ())) == 2:
+        phase("k4_capture", k4_mesh_check, gc, torch, capture_inputs["k4"],
+              2, "capture training, the run's first render")
+    del capture_inputs
+    torch.cuda.empty_cache()
+    texmean_inputs = {}
+    phase("texmean_path", texmean_path, gc, torch, card_line, texmean_inputs)
+    if "k5" in texmean_inputs:
+        phase("k5_texmean", check_k5, gc, torch, texmean_inputs["k5"],
+              "K5 (texmean, the first view)")
+    if len(texmean_inputs.get("k4", ())) == 2:
+        phase("k4_texmean", k4_mesh_check, gc, torch, texmean_inputs["k4"],
+              2, "texmean, the first view")
+    del texmean_inputs
+    torch.cuda.empty_cache()
+    phase("capture_small_reference", capture_small_reference, torch)
 
     # the phases that return (launches, measurements) of several kernels
     split = {}
-    for name in ("xla_window_check", "k7_check", "p1_probe"):
+    for name in ("xla_window_check", "k7_check", "p1_probe", "capture_path"):
         if name in phases:
             split[name], phases[name] = phases[name]
     xla_eval, xla_train = split.get("xla_window_check", ({}, {}))
@@ -4698,6 +5247,9 @@ def main() -> int:
              "hand_teacher_train": phases.get("teacher_train_path", {}),
              "relight": phases.get("relight_path", {}),
              "quality": phases.get("quality_path", {}),
+             "capture_train": phases.get("capture_path", {}),
+             "capture_eval": split.get("capture_path", {}),
+             "texmean": phases.get("texmean_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check", "k1_relight"]),
@@ -4712,10 +5264,11 @@ def main() -> int:
                                   "k4_urhand", "k4_urhand_train", "k4_mvp",
                                   "k4_teacher", "k4_mvp_train",
                                   "k4_teacher_train", "k4_relight",
-                                  "k4_quality"]),
+                                  "k4_quality", "k4_capture", "k4_texmean"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
                                  "k5_urhand_shadow", "k5_urhand_render",
-                                 "k5_urhand_train", "k5_quality"]),
+                                 "k5_urhand_train", "k5_quality",
+                                 "k5_texmean"]),
               "compositor_fwd_fold": ("K6 fwd", [
                   "k6_check:compositor_fwd_fold", "fold_train_path"]),
               "pair_grads_fold": ("K6 bwd", [

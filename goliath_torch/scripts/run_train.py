@@ -7,7 +7,8 @@ runs the train loop; resumes from ``latest`` if ``train.resume`` is set (the
 default) and a checkpoint exists (the port's ``.pt`` or the JAX package's
 orbax checkpoint). Runs on the card unless ``device="cpu"``: the data
 loader's ``cache_device`` and the synthetic fixture's rendered targets use
-the run's device too.
+the run's device too. A config without ``data.synthetic`` reads a capture
+(``BodyDataset``: ``data.root_path`` and ``data.shared_assets_path``).
 """
 
 from __future__ import annotations
@@ -29,20 +30,22 @@ from goliath_torch.optim import build_optimizer
 logger = logging.getLogger(__name__)
 
 
-def build_dataset(data_cfg: Dict[str, Any], **kwargs):
-    """The dataset a config's ``data`` section names. Only the synthetic
-    fixture is ported; capture datasets wait for ``BodyDataset`` (ROADMAP
-    queue 1, data/dataloader.py)."""
+def build_dataset(data_cfg: Dict[str, Any],
+                  device: torch.device | str = "cuda", **kwargs):
+    """The dataset a config's ``data`` section names: the synthetic fixture
+    (``data.synthetic``; ``device`` is where it renders its targets) or a
+    capture read by ``BodyDataset`` on the host."""
     data_cfg = dict(data_cfg)
-    if not data_cfg.pop("synthetic", False):
-        raise NotImplementedError(
-            "capture datasets (BodyDataset) are not ported yet (ROADMAP "
-            "queue 1, data/dataloader.py); use data.synthetic=true")
-    from goliath_torch.data.synthetic import SyntheticDataset
+    if data_cfg.pop("synthetic", False):
+        from goliath_torch.data.synthetic import SyntheticDataset
 
-    for k in ("root_path", "shared_assets_path", "split", "fully_lit_only"):
-        data_cfg.pop(k, None)
-    return SyntheticDataset(**data_cfg, **kwargs)
+        for k in ("root_path", "shared_assets_path", "split",
+                  "fully_lit_only"):
+            data_cfg.pop(k, None)
+        return SyntheticDataset(**data_cfg, device=device, **kwargs)
+    from goliath_torch.data.dataloader import BodyDataset
+
+    return BodyDataset(**data_cfg, **kwargs)
 
 
 def main(config: Config, device: str = "cuda"

@@ -17,8 +17,9 @@ the RGCA and mesh_vae paths use).
 * Per-face TBN frames (``compute_tbn``) and UV position maps
   (``make_postex``) for the MVP hand's primitive bases.
 
-View-texture unprojection comes with the path that uses it (ROADMAP
-queue 1).
+* View-texture unprojection (``compute_view_texture``, with the per-face
+  and per-texel visibility of a rasterized face-id image) for
+  ``run_gen_texmean``.
 """
 
 from __future__ import annotations
@@ -439,3 +440,69 @@ class GeometryModule:
 
     def from_uv(self, values_uv: torch.Tensor) -> torch.Tensor:
         return sample_uv(values_uv, self.vt, self.v2uv)
+
+
+# ---------------------------------------------------------------------------
+# view-texture unprojection (the JAX package's utils/geom.py:505-572)
+# ---------------------------------------------------------------------------
+
+
+def compute_face_visibility(index_img: torch.Tensor, n_faces: int
+                            ) -> torch.Tensor:
+    """[B, H, W] rasterized face ids -> [B, F] visibility (scatter-max)."""
+    B = index_img.shape[0]
+    flat = index_img.reshape(B, -1)
+    valid = (flat != -1).to(torch.float32)
+    fi = flat.clamp(0, n_faces - 1).long()
+    mask = torch.zeros((B, n_faces), device=index_img.device)
+    mask.scatter_reduce_(1, fi, valid, "amax")
+    return mask > 0
+
+
+def compute_uv_visibility_face(face_index_image: torch.Tensor, n_faces: int,
+                               face_index_uv: torch.Tensor) -> torch.Tensor:
+    """Per-texel visibility [B, T, T] from per-pixel rasterized face ids."""
+    face_mask = compute_face_visibility(face_index_image, n_faces)  # [B, F]
+    fi = face_index_uv.clamp(0, n_faces - 1).long()
+    return face_mask[:, fi] & (face_index_uv != -1)[None]
+
+
+def compute_view_texture(
+    verts: torch.Tensor,             # [B, V, 3]
+    faces: torch.Tensor,             # [F, 3]
+    image: torch.Tensor,             # [B, 3, H, W]
+    face_index_image: torch.Tensor,  # [B, H, W] rasterized face ids
+    normal_image,                    # unused (parity with the reference)
+    K: torch.Tensor,                 # [B, 3, 3]
+    Rt: torch.Tensor,                # [B, 3, 4]
+    index_image_uv: torch.Tensor,    # [T, T, 3]
+    bary_image_uv: torch.Tensor,     # [T, T, 3]
+    face_index_uv: torch.Tensor,     # [T, T]
+    intensity_threshold=None,
+    normal_threshold=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Unproject a camera image into UV space with face-visibility masking:
+    each texel's surface point is projected into the image and takes its
+    nearest pixel. Returns (tex [B, 3, T, T], visibility [B, 1, T, T])."""
+    B = verts.shape[0]
+    T = index_image_uv.shape[0]
+    H, W = image.shape[2:4]
+
+    uv_mask = index_image_uv[..., 0] != -1
+    idx = index_image_uv.clamp(0, verts.shape[1] - 1).long()   # [T, T, 3]
+    corners = verts[:, idx] * bary_image_uv[None, ..., None]   # [B, T, T, 3, 3]
+    xyz_w = corners[..., 0, :] + corners[..., 1, :] + corners[..., 2, :]
+    v_pix, _ = project_points(xyz_w.reshape(B, -1, 3), Rt, K)
+    yxs = 2.0 * torch.stack(
+        [v_pix[..., 0] / W, v_pix[..., 1] / H], dim=-1) - 1.0
+    verts_rgb = grid_sample(
+        image, yxs.reshape(B, T, T, 2), mode="nearest",
+        align_corners=False, padding_mode="border")           # [B, 3, T, T]
+    tex = verts_rgb * uv_mask[None, None]
+
+    visibility = compute_uv_visibility_face(
+        face_index_image, faces.shape[0], face_index_uv)
+    tex = tex * visibility[:, None]
+    if intensity_threshold:
+        tex = tex * (tex <= intensity_threshold).all(dim=1, keepdim=True)
+    return tex, visibility[:, None]

@@ -9,12 +9,13 @@ per joint (tx ty tz rx ry rz sc) from a sparse parameter transform.
 
 Host-side tables (joint tree, skinning weights and indices, bind state)
 are numpy; the ones the device math reads are kept on ``device`` (the card
-unless ``device="cpu"``). The momentum .cfg text parser waits for capture data (ROADMAP
-queue 1).
+unless ``device="cpu"``). ``load_momentum_cfg`` parses the momentum .cfg
+text (the JAX package's utils/lbs.py:326-421) into the config dict.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -289,3 +290,106 @@ class LBSModule:
             (B,) + tuple(self.lbs_template_verts.shape[-2:]))
         return self.lbs_fn(motion, self._scales(B), verts) \
             * self.global_scaling
+
+
+# ---------------------------------------------------------------------------
+# momentum .cfg text parsing (reference lbs.py:432-633)
+# ---------------------------------------------------------------------------
+
+
+def load_momentum_cfg(model: Dict[str, Any], lbs_config_txt_fh,
+                      nr_scaling_params: Optional[int] = None) -> Dict[str, Any]:
+    channel_names = ["tx", "ty", "tz", "rx", "ry", "rz", "sc"]
+    joint_names = [b["Name"] for b in model["Skeleton"]["Bones"]]
+    param_names: List[str] = []
+    limits: List[Dict[str, Any]] = []
+    triplets: List[tuple] = []
+
+    def find_joint(x):
+        return joint_names.index(x) if x in joint_names else None
+
+    def find_param(x):
+        return param_names.index(x) if x in param_names else None
+
+    for line in lbs_config_txt_fh.readlines():
+        line = line[: line.find("#")] if "#" in line else line
+
+        if "limit" in line:
+            r = re.search(r"limit ([\w.]+) (\w+) (.*)", line)
+            if r is None:
+                continue
+            fullname, ltype, remaining = r.groups()
+            parameter_index = find_param(fullname)
+            joint_name = fullname.split(".")
+            joint_index = find_joint(joint_name[0])
+            channel_index = -1
+            if joint_index is not None and len(joint_name) == 2:
+                channel_index = channel_names.index(joint_name[1])
+            if ltype in ("minmax_passive", "minmax"):
+                rp = re.search(
+                    r"\[\s*([-+]?[0-9]*\.?[0-9]+)\s*,\s*([-+]?[0-9]*\.?[0-9]+)\s*\]"
+                    r"(\s*[-+]?[0-9]*\.?[0-9]+)?",
+                    remaining,
+                )
+                if rp is None:
+                    continue
+                min_v, max_v = float(rp.groups()[0]), float(rp.groups()[1])
+                weight = float(rp.groups()[2]) if rp.groups()[2] else 1.0
+                if channel_index >= 0:
+                    limits.append({
+                        "type": "LimitMinMaxJointValue", "str": fullname,
+                        "valueIndex": joint_index * 7 + channel_index,
+                        "limits": [min_v, max_v], "weight": weight,
+                    })
+                elif parameter_index is not None:
+                    limits.append({
+                        "type": "LimitMinMaxParameter", "str": fullname,
+                        "parameterIndex": parameter_index,
+                        "limits": [min_v, max_v], "weight": weight,
+                    })
+            continue
+
+        if "parameterset" in line:
+            continue
+
+        r = re.search(r"(\w+).(\w+)\s*=\s*(.*)", line)
+        if r is None:
+            continue
+        joint_index = find_joint(r.groups()[0])
+        if joint_index is None:
+            continue
+        channel_index = channel_names.index(r.groups()[1])
+        value_index = joint_index * 7 + channel_index
+        for pair in r.groups()[2].split("+"):
+            rr = re.search(r"\s*([+-]?[0-9]*\.?[0-9]*)\s\*\s(\w+)\s*", pair.strip())
+            if rr is None:
+                continue
+            val = float(rr.groups()[0])
+            pname = rr.groups()[1]
+            pidx = find_param(pname)
+            if pidx is None:
+                pidx = len(param_names)
+                param_names.append(pname)
+            triplets.append((value_index, pidx, val))
+
+    transform = np.zeros((7 * len(joint_names), len(param_names)), np.float32)
+    for i, j, v in triplets:
+        transform[i, j] = v
+
+    out = {
+        "model_param_names": param_names,
+        "joint_names": joint_names,
+        "channel_names": channel_names,
+        "limits": limits,
+        "transform": transform,
+        "transform_offsets": np.zeros((1, 7 * len(joint_names)), np.float32),
+    }
+    if nr_scaling_params is None:
+        out["nr_scaling_params"] = len(
+            [s for s in param_names if s.startswith("scale")]
+        )
+        out["nr_position_params"] = len(param_names) - out["nr_scaling_params"]
+    else:
+        out["nr_scaling_params"] = nr_scaling_params
+        out["nr_position_params"] = len(param_names) - nr_scaling_params
+    return out

@@ -1,6 +1,8 @@
-"""The port stands alone: no module of goliath_torch/ and not chip_smoke.py
-imports JAX, orbax or the JAX package (the card's machine has none of
-them; the port reads orbax checkpoints through tensorstore). Read from
+"""The port stands alone: no module of goliath_torch/ (its native/ zip
+reader included), not chip_smoke.py and not the capture writer it imports
+(tests/goliath_capture.py) imports JAX, orbax or the JAX package (the
+card's machine has none of them; the port reads orbax checkpoints through
+tensorstore). Read from
 the sources with ``ast``; this file imports neither package itself.
 """
 
@@ -11,7 +13,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "goliath_tpu")
-SOURCES = sorted(ROOT.glob("goliath_torch/**/*.py")) + [ROOT / "chip_smoke.py"]
+# chip_smoke.py imports the capture writer of the tests, so it is checked too
+SOURCES = sorted(ROOT.glob("goliath_torch/**/*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "goliath_capture.py"]
 
 
 def forbidden_imports(source: str):
@@ -33,6 +37,7 @@ def forbidden_imports(source: str):
 def test_the_port_has_sources_to_check():
     assert len(SOURCES) > 40
     assert (ROOT / "goliath_torch" / "__init__.py") in SOURCES
+    assert (ROOT / "goliath_torch" / "native" / "zipio.py") in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -10,12 +10,15 @@ import logging
 import math
 import os
 
-import pytest
+import numpy as np
 import torch
 
+from goliath_capture import CaptureSpec, write_capture, write_shared_assets
 from goliath_torch import train as train_lib
 from goliath_torch.config import load_config, load_from_config
+from goliath_torch.data.dataloader import BodyDataset
 from goliath_torch.data.pipeline import DataLoader
+from goliath_torch.data.synthetic import make_camera_ring
 from goliath_torch.optim import build_optimizer
 from goliath_torch.scripts import run_test, run_train
 
@@ -207,7 +210,16 @@ def test_checkpoint_helpers_and_moved_build_dataset(tmp_path):
     assert train_lib.process_losses(
         {"a": torch.tensor(2.0), "b": torch.tensor([1.0, 3.0]),
          "c": torch.zeros(2, 2)}) == {"a": 2.0, "b": 2.0}
-    # build_dataset lives in run_train; run_test uses the same function
+    # build_dataset lives in run_train; run_test uses the same function.
+    # A config without data.synthetic names a capture: a BodyDataset
     assert run_test.build_dataset is run_train.build_dataset
-    with pytest.raises(NotImplementedError, match="BodyDataset"):
-        run_train.build_dataset({"root_path": "/nowhere"})
+    K, Rt, _ = make_camera_ring(2, 16, 16)
+    root = write_capture(tmp_path, "m--test--Head", CaptureSpec(
+        kind="Head", cameras=["400000", "400001"], K=K, Rt=Rt,
+        frames=[0, 1, 2], test_frames=[2], template=np.zeros((4, 3)),
+        image_hw=(16, 16), uv_size=8))
+    shared = write_shared_assets(tmp_path / "shared.pt", {"topology": {}})
+    ds = run_train.build_dataset({"root_path": str(root),
+                                  "shared_assets_path": str(shared),
+                                  "split": "train", "fully_lit_only": False})
+    assert isinstance(ds, BodyDataset) and len(ds) == 2 * 2
