@@ -82,7 +82,20 @@ the final result line:
      busiest backward nodes; then K5 against its plain version on the
      first step's first sample, bit for bit, and the edge-gradient
      backward of that sample on the card against the CPU;
- 16. the URHand eval path: goliath_torch.scripts.run_test.main on
+ 16. the drivable body model (models/mesh_vae_drivable.py) at full width:
+     configs/mesh_vae.yml's model block with the drivable class, its
+     encoders and frozen face decoder at the JAX modules' widths (a
+     1024-d body code at 512^2, a 256-d face code decoded to 7,306
+     vertices and a 1024^2 texture) and the body encoder's logvar_scale
+     cut to 0.001 (DRIVABLE_CUTS), every batch's keys renamed and a seeded
+     face code added by DrivableData: run_test.main (3 frames, the mesh
+     eval path's checks, K5 3 and K4 6, the face decoder's ms by CUDA
+     events), then run_train.main (3 steps at batch 4, K5 16 and K4 32,
+     the mesh training path's checks, the face decoder's group with no
+     gradient and its parameters unchanged); K5 bit for bit and K4 exactly
+     on the first eval frame and the first training sample, and that
+     sample's edge-gradient backward on the card against the CPU;
+ 17. the URHand eval path: goliath_torch.scripts.run_test.main on
      configs/urhand.yml at full width (the same sphere and renderer, uv
      1024, texture stacks to 2048, 5 lights: 2 x 5 shadow-map light views
      at 1024x1024 and 3 renders a frame), 3 test frames, counts set to 0
@@ -92,7 +105,7 @@ the final result line:
      frame; then K5 against its plain version, bit for bit, on the first
      light view and on the first render of the run, and K4 against
      torch.cumsum on the first frame's 26 scans, exactly;
- 17. the URHand training path: goliath_torch.scripts.run_train.main on
+ 18. the URHand training path: goliath_torch.scripts.run_train.main on
      configs/urhand.yml at full width (the eval path's data and cuts, cal
      kept), the config's batch size 1, its five losses (effnet and
      effnet_phys on fixed-seed random features, asked for in their loss
@@ -106,7 +119,7 @@ the final result line:
      rgb render, K4 against torch.cumsum on its 26 scans, and the
      edge-gradient backward of its rgb and phys renders on the card against
      the CPU;
- 18. the MVP hand eval path: goliath_torch.scripts.run_test.main on
+ 19. the MVP hand eval path: goliath_torch.scripts.run_test.main on
      configs/hand_mvp.yml at full width (uv 1024, 4,096 prims of 8x16x16
      voxels, 2048x1334, window 16; the same sphere, n_pose_dims 6 and
      global_scaling 1), 3 test frames, counts set to 0 just before and read
@@ -117,7 +130,7 @@ the final result line:
      card's march against the CPU's on the whole frame, and
      march_reference against the tiled march on a 32x32 window with
      nothing dropped;
- 19. the OLAT teacher's eval path: goliath_torch.scripts.run_test.main on
+ 20. the OLAT teacher's eval path: goliath_torch.scripts.run_test.main on
      configs/hand_teacher_mvp.yml at full width (hand_mvp's widths and
      cuts, 5 lights, the 64^3 deep-shadow density grid, 32 shadow steps,
      the UNet at uv 1024 over 5 slabs; mask_l1 on image_mask), 3 test
@@ -133,7 +146,7 @@ the final result line:
      prims grown 32x (whose shadows must be neither all 0 nor all 1), the
      march's drops, and the exact per-prim shadow against the grid path
      on 1,024 points (logged);
- 20. the MVP hand training path: goliath_torch.scripts.run_train.main on
+ 21. the MVP hand training path: goliath_torch.scripts.run_train.main on
      configs/hand_mvp.yml at full width (the eval path's widths and cuts,
      cal kept), the config's batch 4, all six of its losses (vgg on
      fixed-seed random features) and 3 steps, counts set to 0 just before
@@ -148,14 +161,14 @@ the final result line:
      the march's drops on step 0's first sample (no_grad), and the march's
      gradients of the template, primpos, primrot and primscale on its
      2 x 2-tile window, card against CPU;
- 21. the OLAT teacher's training path: run_train.main on
+ 22. the OLAT teacher's training path: run_train.main on
      configs/hand_teacher_mvp.yml at full width (its eval widths and cuts,
      5 lights, cal kept), the config's batch 1, its three losses and 3
      steps (K4 8 times, nothing else): its four groups' gradients finite
      and non-zero, the default group of the detached geometry's zero and
      its parameters moved by AdamW's decay alone, the same timings; then
      K4 on step 0's two scans, exactly;
- 22. the relighting entry point: goliath_torch.scripts.run_vis_relight.main
+ 23. the relighting entry point: goliath_torch.scripts.run_vis_relight.main
      on configs/rgca.yml at full width (the eval path's data, weights from
      seed 0) with a seeded 1024x2048 envmap (a sky, a sun reaching ~50,
      noise), 3 frames of the point-light sweep and 3 of the HDRI spin (the
@@ -167,7 +180,7 @@ the final result line:
      PNG write, peak memory and one profiled spin frame; then K4 against
      torch.cumsum on the first spin frame's six scans, exactly, and K1
      against its plain version on its third render (the spec_color pass);
- 23. the quality recipe: goliath_torch.scripts.run_train.main on
+ 24. the quality recipe: goliath_torch.scripts.run_train.main on
      configs/rgca_synthetic_quality.yml as it stands (256x256, uv 128,
      batch 4, the 48 targets rendered on the card with K5 and K4, the data
      cached on the card) for QUALITY_STEPS steps, then run_test.main from
@@ -182,7 +195,7 @@ the final result line:
      directory; then K5 against its plain version, bit for bit, on the
      first target render, K4 on its two scans, exactly, and K1 and K2 (XLA
      window) and K3 on the first training step's own arguments;
- 24. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
+ 25. the RGCA entry points on configs/rgca_synthetic.yml, and the mesh eval
      path and one mesh training step, the URHand eval path and one URHand
      training step, and the hand_mvp eval path, at a small size, on the
      card against the CPU (plain versions) as the small-input reference;
@@ -190,8 +203,9 @@ the final result line:
      the teacher, at their small sizes, card vs CPU; then one spin frame at
      configs/rgca_synthetic.yml size, card vs CPU (spec_color, the
      diffuse and specular panels, and the composite panel's mirrorball
-     inset and the rest of it apart);
- 25. the capture path (captures in Goliath's zip layout written by
+     inset and the rest of it apart); then the drivable model's eval means
+     and one training step at its small size, card vs CPU;
+ 26. the capture path (captures in Goliath's zip layout written by
      tests/goliath_capture.py, read through goliath_torch's BodyDataset and
      its native zip reader): the zip reader in use and whether Pillow
      decodes AVIF; a Head capture (13 cameras, 2048x1334 PNG images under
@@ -205,19 +219,20 @@ the final result line:
      from its checkpoint directory on the test split's 12 cameras, 3
      frames (K1 3, K4 6); K4 against torch.cumsum on the run's first two
      scans, exactly;
- 26. the texture mean: run_gen_texmean.main on configs/urhand.yml as it
-     stands on a fresh Hands capture (8 cameras x 5 fully-lit frames, a
-     16,384-face sphere at global_scaling 10, 2048x1334, uv 1024), counts
-     set to 0 just before and read just after (K5 40, K4 80), every view
-     textured, the covered texel share, each view's and the run's wall
-     time, the new color_mean.png read back by the capture dataset; then
-     K5 against its plain version on the first view, bit for bit, and K4
-     on its two scans, exactly;
- 27. both capture paths at 48x48 and uv 64, card against CPU: two RGCA
+ 27. the texture mean: run_gen_texmean.main on configs/urhand.yml with
+     data.partially_lit_only=false (the config's OLAT data gives the
+     script no view as it stands) on a fresh Hands capture (8 cameras x
+     5 fully-lit frames, a 16,384-face sphere at global_scaling 10,
+     2048x1334, uv 1024), counts set to 0 just before and read just after
+     (K5 40, K4 80), every view textured, the covered texel share, each
+     view's and the run's wall time, the new color_mean.png read back by
+     the capture dataset; then K5 against its plain version on the first
+     view, bit for bit, and K4 on its two scans, exactly;
+ 28. both capture paths at 48x48 and uv 64, card against CPU: two RGCA
      training steps on a small Head capture (losses and gradients at
      rtol 1e-3) and run_gen_texmean on a small Hands capture (the PNGs
      equal but within 1e-3 px of a pixel edge);
- 28. per kernel (and per mode of a kernel): check result, launches on each
+ 29. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -1046,7 +1061,8 @@ def rgca_config(overrides=()):
 
 def run_training(gc, torch, card_line, label, expected, record,
                  patch=None, make_config=rgca_config, batch=TRAIN_BATCH,
-                 zero_grad_ok=None, default_group=False, run_dir=None):
+                 zero_grad_ok=None, default_group=False, run_dir=None,
+                 frozen=None):
     """run_train.main at full width (``make_config``: configs/rgca.yml on
     synthetic data at 2048x1334 and uv 1024 unless another is given), the
     config's batch ``batch`` (4 unless given), 3 steps, no resume, counts
@@ -1060,7 +1076,9 @@ def run_training(gc, torch, card_line, label, expected, record,
     whose parameters must move by AdamW's decay alone. Leaves the step
     totals in ``record[label]``. The run writes into ``run_dir`` where it
     is given (the caller reads its checkpoints after), else into a
-    temporary directory."""
+    temporary directory. ``frozen`` = (an optimizer group, the top-level
+    modules it holds): parameters that take no gradient and must end the
+    run exactly where they began."""
     import contextlib
 
     from goliath_torch import train as train_lib
@@ -1079,9 +1097,11 @@ def run_training(gc, torch, card_line, label, expected, record,
         torch.cuda.reset_peak_memory_stats()
         with patch or contextlib.nullcontext():
             gc.reset_launch_counts()
+            watch = {"__default__"} if default_group else set()
+            if frozen:
+                watch.add(frozen[0])
             with StepProbe(torch, train_lib, profile_step=TRAIN_STEPS - 1,
-                           watch={"__default__"} if default_group else ()
-                           ) as probe:
+                           watch=watch) as probe:
                 iteration, last = run_train.main(cfg, device=DEVICE)
                 torch.cuda.synchronize()
                 launches = dict(gc.LAUNCHES)
@@ -1148,8 +1168,11 @@ def run_training(gc, torch, card_line, label, expected, record,
     if probe.totals[-1] == probe.totals[0]:
         raise AssertionError("the total loss did not move in 3 steps")
     expected_groups = set(cfg.optimizer.per_module) | (
-        {"__default__"} if default_group else set())
+        {"__default__"} if default_group or frozen else set())
     may_be_zero = zero_grad_ok(probe) if zero_grad_ok else set()
+    if frozen:
+        may_be_zero = may_be_zero | {frozen[0]}
+        check_frozen(probe.watched, *frozen, len(probe.totals), label)
     if set(probe.groups) != expected_groups or not all(
             finite and (nonzero or name in may_be_zero)
             for name, (finite, nonzero) in probe.groups.items()):
@@ -1165,6 +1188,22 @@ def run_training(gc, torch, card_line, label, expected, record,
     if "latest" not in written:
         raise AssertionError("no checkpoint was written")
     return launches
+
+
+def check_frozen(watched, group, modules, steps, label):
+    """The parameters of the optimizer group ``group``, which take no
+    gradient: exactly those of the top-level ``modules``, and after
+    ``steps`` Adam updates each bit for bit what it was before the
+    first."""
+    held = {name.split(".", 1)[0] for name, *_ in watched}
+    moved = [name for name, p, p0, _lr, _wd in watched
+             if not bool((p.detach() == p0).all())]
+    log(f"{label}: the {len(watched)} parameters of the group {group} "
+        f"({sorted(held)}, no gradient) after {steps} updates: "
+        f"{len(moved)} moved {moved[:6]}")
+    if held != set(modules) or moved:
+        raise AssertionError(f"{label}: the frozen group {group} holds "
+                             f"{sorted(held)}, or moved: {moved}")
 
 
 def check_decay(watched, steps, label):
@@ -1571,14 +1610,19 @@ def mesh_config(overrides=(), data=MESH_DATA):
     weights but those of MESH_DROPPED_LOSSES (rgb_l1, mask_l1, geom_l2,
     geom_lap, learn_blur, kl, face_kl), rgb_l1's mask and mask_l1's target
     being image_mask: no segmentation_fgbg is generated."""
+    return mesh_vae_config([
+        *overrides, f"model.encoder.verts_scale={MESH_VERTS_SCALE}",
+        f"model.encoder_face.verts_scale={MESH_VERTS_SCALE}"], data)
+
+
+def mesh_vae_config(overrides, data):
+    """mesh_config without the encoders' input scale."""
     from goliath_torch.config import Config, load_config
 
     cfg = load_config(str(ROOT / "configs" / "mesh_vae.yml"), overrides=[
         f"data={yaml_flow(data)}", f"test.data={yaml_flow(data)}",
         "test.ckpt=null", "test.n_test_frames=3", "test.vis_path=null",
-        "model.decoder.n_pose_dims=6", *overrides,
-        f"model.encoder.verts_scale={MESH_VERTS_SCALE}",
-        f"model.encoder_face.verts_scale={MESH_VERTS_SCALE}"])
+        "model.decoder.n_pose_dims=6", *overrides])
     losses = {k: v for k, v in cfg.loss.losses.to_dict().items()
               if k not in MESH_DROPPED_LOSSES}
     losses["rgb_l1"]["mask_key"] = "image_mask"
@@ -1592,21 +1636,26 @@ def mesh_config(overrides=(), data=MESH_DATA):
 MESH_MIN_COVERED = 0.3
 
 
-def mesh_eval_path(gc, torch, card_line, captured):
-    """run_test.main on configs/mesh_vae.yml at full width, counts reset
-    just before: 3 frames with finite losses that each cover at least
-    MESH_MIN_COVERED of the image, K5 once and K4 twice per frame, no splat
-    kernel. Keeps in ``captured`` the run's own inputs to K5 (first frame)
-    and to K4 (every scan), copied to the host without a synchronise so
-    that they add nothing to the run's device memory, then profiles a
-    second run of the last frame on the run's model."""
+def mesh_eval_path(gc, torch, card_line, captured, label="mesh",
+                   make_config=mesh_config, wrap_data=None):
+    """run_test.main on configs/mesh_vae.yml at full width
+    (``make_config``: mesh_config unless given), counts reset just before:
+    3 frames with finite losses that each cover at least MESH_MIN_COVERED
+    of the image, K5 once and K4 twice per frame, no splat kernel. Keeps in
+    ``captured`` the run's own inputs to K5 (first frame) and to K4 (every
+    scan), copied to the host without a synchronise so that they add
+    nothing to the run's device memory, and the run's model and its last
+    batch (``"model"``, ``"batch"``), then profiles a second run of the
+    last frame on the run's model. ``wrap_data`` wraps the dataset that
+    run_test builds."""
     from goliath_torch.ops import binning, rasterizer
     from goliath_torch.scripts import run_test
 
-    cfg = mesh_config()
+    cfg = make_config()
     frames, covered, k4_inputs, built = [], [], [], {}
     orig_zb, orig_cs = rasterizer.zbuffer, binning.cumsum1d
     orig_build = run_test.load_from_config
+    orig_data = run_test.build_dataset
 
     def to_host(x):   # pinned memory, no synchronise
         return x.to("cpu", non_blocking=True) \
@@ -1634,11 +1683,16 @@ def mesh_eval_path(gc, torch, card_line, captured):
         model.apply = apply
         return model
 
+    def data(*a, **kw):
+        return wrap_data(orig_data(*a, **kw))
+
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rasterizer.zbuffer, binning.cumsum1d = zb, cs
     run_test.load_from_config = build
+    if wrap_data is not None:
+        run_test.build_dataset = data
     gc.reset_launch_counts()
     try:
         means = run_test.main(cfg, device=DEVICE, frame_seconds=frames)
@@ -1647,29 +1701,32 @@ def mesh_eval_path(gc, torch, card_line, captured):
     finally:
         rasterizer.zbuffer, binning.cumsum1d = orig_zb, orig_cs
         run_test.load_from_config = orig_build
+        run_test.build_dataset = orig_data
     peak = torch.cuda.max_memory_allocated()
     captured["k4"] = k4_inputs
     covered = [int(n) / size for n, size in covered]
-    log(f"mesh path launches: {launches}")
-    log(f"mesh eval means: {json.dumps(means)}")
+    log(f"{label} path launches: {launches}")
+    log(f"{label} eval means: {json.dumps(means)}")
     for i, sec in enumerate(frames):
-        log(f"mesh frame {i}: wall {sec:.4f} s on {card_line}")
-    log(f"peak device memory (mesh eval): {peak / 2**30:.3f} GiB on "
+        log(f"{label} frame {i}: wall {sec:.4f} s on {card_line}")
+    log(f"peak device memory ({label} eval): {peak / 2**30:.3f} GiB on "
         f"{card_line}")
-    log(f"mesh frames: covered share {[round(c, 4) for c in covered]} "
+    log(f"{label} frames: covered share {[round(c, 4) for c in covered]} "
         f"(floor {MESH_MIN_COVERED})")
     if len(frames) != 3 or not all(math.isfinite(v) for v in means.values()):
-        raise AssertionError("mesh eval losses are not finite")
+        raise AssertionError(f"{label} eval losses are not finite")
     if len(covered) != 3 or not all(c >= MESH_MIN_COVERED for c in covered):
-        raise AssertionError("a mesh frame rendered too little of the mesh")
+        raise AssertionError(f"a {label} frame rendered too little of the "
+                             f"mesh")
     expected = {name: 0 for name in gc.LAUNCHES}
     expected.update(zbuffer=3, cumsum1d=6)
     if launches != expected:
-        raise AssertionError(f"mesh path launch counts {launches} != "
+        raise AssertionError(f"{label} path launch counts {launches} != "
                              f"{expected}")
+    captured["model"], captured["batch"] = built["model"], built["batch"]
     profile_forward(torch, built.pop("model"), built.pop("batch"), card_line,
-                    "profiled mesh frame (mesh_vae forward of the last "
-                    "frame, run again)", train=False)
+                    f"profiled {label} frame (the model's forward of the "
+                    f"last frame, run again)", train=False)
     return launches
 
 
@@ -1906,6 +1963,198 @@ def check_k5(gc, torch, args, label="K5", min_covered=MESH_MIN_COVERED):
         raise AssertionError("K5's counts disagree on the window")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+
+
+# The drivable body model (models/mesh_vae_drivable.py). No config of the
+# repo names it, and no dataset of either package gives its inputs, so:
+# configs/mesh_vae.yml's model block as mesh_config reads it (MESH_DATA,
+# the synthetic skeleton's 6 local pose dims, MESH_DROPPED_LOSSES) with the
+# drivable class and its blocks at the JAX modules' defaults (a 1024-d body
+# code from a 512^2 UV map; the frozen face decoder from a 256-d face code
+# to 7,306 face vertices and a 1024^2 texture, encoded again at 512^2),
+# and DrivableData renaming each batch's keys. The drivable encoders have
+# no input scale (mesh_config's verts_scale). Cut instead: the body
+# encoder's logvar_scale, 0.001. At the default 0.1 its random logvar
+# reaches 43.8 on the sphere (the encoder alone at full width on a CPU),
+# so exp(logvar) times the training noise would be ~1e19.
+DRIVABLE_BLOCKS = [
+    "model.class_name=goliath_tpu.models.mesh_vae_drivable.AutoEncoder",
+    'model.encoder={"n_embs": 1024, "enc_size": 512}',
+    'model.encoder_face={"n_embs": 256, "uv_size": 512, "n_vert_in": 21918}',
+    'model.decoder_face={"n_latent": 256, "n_vert_out": 21918, '
+    '"tex_out_shp": [1024, 1024]}']
+DRIVABLE_CUTS = ["model.encoder.logvar_scale=0.001"]
+# tests/drivable_fixture.py's encoders and face decoder on MESH_SMALL's
+# decoder and data
+DRIVABLE_SMALL = [
+    *MESH_SMALL,
+    'model.encoder={"n_embs": 16, "enc_size": 64}',
+    'model.encoder_face={"n_embs": 8, "uv_size": 32, "n_vert_in": 48}',
+    'model.decoder_face={"n_latent": 8, "n_vert_out": 48, '
+    '"tex_out_shp": [32, 32]}']
+
+
+def drivable_config(overrides=(), data=MESH_DATA):
+    """configs/mesh_vae.yml with the drivable model: DRIVABLE_BLOCKS, then
+    ``overrides``, then DRIVABLE_CUTS, on ``data`` (MESH_DATA unless
+    given), with mesh_config's losses."""
+    return mesh_vae_config([*DRIVABLE_BLOCKS, *overrides, *DRIVABLE_CUTS],
+                           data)
+
+
+class DrivableData:
+    """A dataset whose batches carry the drivable model's input keys beside
+    their own, as tests/test_mesh_vae_drivable.py renames them:
+    lbs_motion = pose, geom = registration_vertices, ao =
+    ambient_occlusion, and face_embs, a [B, n_face_code] face code from a
+    numpy generator seeded ``seed``. Everything else is the dataset's."""
+
+    def __init__(self, dataset, n_face_code, seed=0):
+        import numpy as np
+
+        self.dataset, self.n_face_code = dataset, n_face_code
+        self.rng = np.random.RandomState(seed)
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, idx):
+        return self.dataset[idx]
+
+    def batch_filter(self, batch):
+        import numpy as np
+
+        inner = getattr(self.dataset, "batch_filter", None)
+        batch = dict(inner(batch) if inner is not None else batch)
+        batch.update(
+            lbs_motion=batch["pose"], geom=batch["registration_vertices"],
+            ao=batch["ambient_occlusion"],
+            face_embs=self.rng.randn(len(batch["pose"]), self.n_face_code)
+            .astype(np.float32))
+        return batch
+
+
+def drivable_wrap(cfg, seed=0):
+    """The dataset wrapper of ``cfg``'s drivable model (its face code
+    width)."""
+    n = int(cfg.model.decoder_face.n_latent)
+    return lambda ds: DrivableData(ds, n, seed)
+
+
+def drivable_eval_path(gc, torch, card_line, captured):
+    """run_test.main on the drivable model at full width (drivable_config),
+    its dataset wrapped by DrivableData: mesh_eval_path's checks (3 frames,
+    finite losses, coverage, K5 once and K4 twice a frame, no splat
+    kernel, one profiled frame); then the frozen face decoder's time on the
+    last frame's face code, by CUDA events."""
+    from goliath_torch.utils.timing import cuda_ms
+
+    cfg = drivable_config()
+    launches = mesh_eval_path(gc, torch, card_line, captured, "drivable",
+                              drivable_config, drivable_wrap(cfg))
+    model, batch = captured.pop("model"), captured.pop("batch")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model.module.decoder_face(batch["face_embs"]),
+                     reps=10)
+    log(f"drivable frame: the frozen face decoder (face code "
+        f"{tuple(batch['face_embs'].shape)} -> 7,306 vertices and a "
+        f"{cfg.model.decoder_face.tex_out_shp[0]}^2 texture) {ms:.4f} ms a "
+        f"frame (CUDA events, 10 calls) on {card_line}")
+    return launches
+
+
+class DrivableTrainCapture(MeshTrainCapture):
+    """MeshTrainCapture (the first K5 launch's arguments, the first
+    edge-gradient backward), also the run's first two K4 inputs
+    (``"k4"``), with run_train's dataset wrapped by ``wrap``."""
+
+    def __init__(self, torch, captured, wrap):
+        from goliath_torch.ops import binning
+        from goliath_torch.scripts import run_train
+
+        super().__init__(torch, captured)
+        self.binning, self.run_train, self.wrap = binning, run_train, wrap
+        self.orig_data = run_train.build_dataset
+        self.orig_cs = binning.cumsum1d
+
+    def __enter__(self):
+        orig_data, orig_cs, wrap = self.orig_data, self.orig_cs, self.wrap
+        k4 = self.captured.setdefault("k4", [])
+
+        def cs(x):
+            if len(k4) < 2:
+                k4.append(self.to_host(x))
+            return orig_cs(x)
+
+        self.run_train.build_dataset = lambda *a, **kw: wrap(
+            orig_data(*a, **kw))
+        self.binning.cumsum1d = cs
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        self.run_train.build_dataset = self.orig_data
+        self.binning.cumsum1d = self.orig_cs
+        return super().__exit__(*exc)
+
+
+def drivable_train_path(gc, torch, card_line, record, captured):
+    """run_train.main (its loop, train.make_train_step) on the drivable
+    model at full width (drivable_config, the config's optimizer and
+    mesh_config's losses), batch 4, 3 steps, its dataset wrapped by
+    DrivableData: K5 once per sample of each step and of the summary's
+    train=False forward at iteration 0, K4 twice per render, no splat
+    kernel; every group's gradient finite and non-zero but the default
+    group's, which holds the frozen face decoder alone: no gradient, and
+    its parameters exactly as they were after the 3 updates."""
+    n = TRAIN_BATCH * (TRAIN_STEPS + 1)
+    cfg = drivable_config()
+    return run_training(
+        gc, torch, card_line, "drivable train path",
+        dict(zbuffer=n, cumsum1d=2 * n), record,
+        patch=DrivableTrainCapture(torch, captured, drivable_wrap(cfg)),
+        make_config=drivable_config,
+        frozen=("__default__", {"decoder_face"}))
+
+
+def drivable_small_reference(torch):
+    """The drivable model at a small size (DRIVABLE_SMALL on
+    MESH_SMALL_DATA, the jittered template), card (kernels) against CPU
+    (plain versions): run_test.main's eval means at SMALL_RTOL, and one
+    training step through small_train_step_reference (losses at
+    SMALL_RTOL, gradients by its rule), both with DrivableData."""
+    from goliath_torch.scripts import run_test, run_train
+
+    cfg = drivable_config(DRIVABLE_SMALL, MESH_SMALL_DATA)
+    wrap = drivable_wrap(cfg)
+    build_test, build_train = run_test.build_dataset, run_train.build_dataset
+
+    def jittered(data_cfg, **kw):
+        return wrap(jitter_template(build_test(data_cfg, **kw)))
+
+    run_test.build_dataset = jittered
+    try:
+        got = run_test.main(cfg, device=DEVICE)
+        ref = run_test.main(cfg, device="cpu")
+    finally:
+        run_test.build_dataset = build_test
+    worst = max(abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-6) for k in ref)
+    log(f"small-input drivable eval reference (card vs CPU plain): means "
+        f"{json.dumps(got)}; max rel diff {worst:.3e} (tolerance "
+        f"{SMALL_RTOL})")
+    if not (worst <= SMALL_RTOL and set(got) == set(ref)):
+        raise AssertionError("the card's drivable eval disagrees with the "
+                             "CPU's")
+    run_train.build_dataset = lambda *a, **kw: wrap(build_train(*a, **kw))
+    try:
+        train = small_train_step_reference(
+            torch, "drivable", lambda o: drivable_config(
+                [*DRIVABLE_SMALL, *o], MESH_SMALL_DATA))
+    finally:
+        run_train.build_dataset = build_train
+    return {"eval_rel_err": worst, **train}
 
 
 # URHand (configs/urhand.yml) on the mesh paths' synthetic sphere
@@ -4203,9 +4452,11 @@ def capture_path(gc, torch, card_line, captured):
 
 
 def texmean_path(gc, torch, card_line, captured):
-    """run_gen_texmean.main on configs/urhand.yml as it stands on a fresh
-    Hands capture (no uv_image/color_mean.png yet): TEXMEAN_CAMERAS cameras
-    x the script's 5 fully-lit frames, each view one render at the
+    """run_gen_texmean.main on configs/urhand.yml with
+    data.partially_lit_only=false (as the config stands, its OLAT training
+    data gives the script no view: a black mean, as in the JAX package) on
+    a fresh Hands capture (no uv_image/color_mean.png yet): TEXMEAN_CAMERAS
+    cameras x the script's 5 fully-lit frames, each view one render at the
     config's 2048x1334 (K5 once, K4 twice) unprojected at uv 1024, counts
     reset just before and read just after (exact). Every view must give
     texels; the covered texel share must be above 0; the capture dataset
@@ -4218,7 +4469,8 @@ def texmean_path(gc, torch, card_line, captured):
     gcap = capture_writer()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_texmean_") as base:
         cfg = load_config(str(ROOT / "configs" / "urhand.yml"),
-                          overrides=[f"capture_root={base}"])
+                          overrides=[f"capture_root={base}",
+                                     "data.partially_lit_only=false"])
         hw = (int(cfg.model.renderer.image_height),
               int(cfg.model.renderer.image_width))
         uv = int(cfg.get("texmean_uv_size", 1024))
@@ -4384,7 +4636,8 @@ def capture_small_reference(torch):
         cfg = load_config(str(ROOT / "configs" / "urhand.yml"), overrides=[
             f"capture_root={base}", f"model.renderer.image_height={hw[0]}",
             f"model.renderer.image_width={hw[1]}",
-            f"texmean_uv_size={uv}", "texmean_num_frames=3"])
+            f"texmean_uv_size={uv}", "texmean_num_frames=3",
+            "data.partially_lit_only=false"])
         pngs = {}
         for device in (DEVICE, "cpu"):
             with texmean_edge_distance(torch, tex_module) as best:
@@ -5102,6 +5355,34 @@ def main() -> int:
               mesh_train_inputs["edge"])
     del mesh_train_inputs
     torch.cuda.empty_cache()
+    drivable_inputs = {}
+    phase("drivable_eval_path", drivable_eval_path, gc, torch, card_line,
+          drivable_inputs)
+    if "k5" in drivable_inputs:
+        phase("k5_drivable", check_k5, gc, torch, drivable_inputs["k5"],
+              "K5 (drivable eval, frame 0)")
+    if "k4" in drivable_inputs:
+        phase("k4_drivable", k4_mesh_check, gc, torch, drivable_inputs["k4"],
+              6, "drivable eval")
+    del drivable_inputs
+    torch.cuda.empty_cache()
+    drivable_train_inputs = {}
+    phase("drivable_train_path", drivable_train_path, gc, torch, card_line,
+          totals, drivable_train_inputs)
+    if "k5" in drivable_train_inputs:
+        phase("k5_drivable_train", check_k5, gc, torch,
+              drivable_train_inputs["k5"],
+              "K5 (drivable training, step 0 sample 0)")
+    if len(drivable_train_inputs.get("k4", ())) == 2:
+        phase("k4_drivable_train", k4_mesh_check, gc, torch,
+              drivable_train_inputs["k4"], 2,
+              "drivable training, step 0 sample 0")
+    if "edge" in drivable_train_inputs:
+        phase("drivable_edge_grad_check", check_edge_grads, torch,
+              drivable_train_inputs["edge"],
+              "drivable edge-gradient backward")
+    del drivable_train_inputs
+    torch.cuda.empty_cache()
     urhand_inputs = {}
     phase("urhand_eval_path", urhand_eval_path, gc, torch, card_line,
           urhand_inputs)
@@ -5204,6 +5485,7 @@ def main() -> int:
     phase("teacher_small_train_reference", teacher_small_train_reference,
           torch)
     phase("relight_small_reference", relight_small_reference, torch)
+    phase("drivable_small_reference", drivable_small_reference, torch)
     capture_inputs = {}
     phase("capture_path", capture_path, gc, torch, card_line, capture_inputs)
     if len(capture_inputs.get("k4", ())) == 2:
@@ -5239,6 +5521,8 @@ def main() -> int:
              "xla_train": xla_train,
              "mesh": phases.get("mesh_eval_path", {}),
              "mesh_train": phases.get("mesh_train_path", {}),
+             "drivable_eval": phases.get("drivable_eval_path", {}),
+             "drivable_train": phases.get("drivable_train_path", {}),
              "urhand": phases.get("urhand_eval_path", {}),
              "urhand_train": phases.get("urhand_train_path", {}),
              "hand_mvp_eval": phases.get("hand_mvp_eval_path", {}),
@@ -5261,11 +5545,13 @@ def main() -> int:
               "cumsum_cols": ("K3", ["k3_check", "backward_check",
                                      "quality_kernels"]),
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh",
+                                  "k4_drivable", "k4_drivable_train",
                                   "k4_urhand", "k4_urhand_train", "k4_mvp",
                                   "k4_teacher", "k4_mvp_train",
                                   "k4_teacher_train", "k4_relight",
                                   "k4_quality", "k4_capture", "k4_texmean"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
+                                 "k5_drivable", "k5_drivable_train",
                                  "k5_urhand_shadow", "k5_urhand_render",
                                  "k5_urhand_train", "k5_quality",
                                  "k5_texmean"]),

@@ -8,11 +8,10 @@ Ported: every loss the RGCA configs name, for eval and training (rgb_l1,
 rgb_l2, rgb_ssim, psnr, mask_l1, geom_l2, the Laplacian and region geometry
 losses, kl, face_kl, learn_blur, backlit_reg, l2_reg, list_l1_reg,
 bound_primscale, negcolor, primvolsum, alphaprior), mesh_vae's
-pose_shadow_l2, URHand's rgb_l1_focus and rgb_l1_phys, and the perceptual
-losses vgg, effnet and effnet_phys (``losses/perceptual.py``, which
-registers itself on import). The loss of a path not ported yet
-(region_rgb_l1) is not registered (ROADMAP queue 1); a config naming it
-raises. ``.detach()`` stands where the JAX package has ``stop_gradient``.
+pose_shadow_l2, URHand's rgb_l1_focus and rgb_l1_phys, region_rgb_l1, and
+the perceptual losses vgg, effnet and effnet_phys (``losses/perceptual.py``,
+which registers itself on import). ``.detach()`` stands where the JAX
+package has ``stop_gradient``.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ import numpy as np
 import torch
 
 from goliath_torch.config import load_from_config
+from goliath_torch.utils.image import absolute as _abs
 from goliath_torch.utils.image import erode
 from goliath_torch.utils.ssim import ssim
 
@@ -180,13 +180,6 @@ class ModularLoss:
 # ---------------------------------------------------------------------------
 # registered losses
 # ---------------------------------------------------------------------------
-
-
-def _abs(x: torch.Tensor) -> torch.Tensor:
-    """|x| whose gradient at exactly 0 is +1, the JAX package's convention
-    (``torch.abs`` gives 0 there). It matters where a loss starts at its
-    kink: ``learn_blur``'s weights are initialized to exactly 1."""
-    return torch.where(x >= 0, x, -x)
 
 
 def kl_loss(mu, logvar):
@@ -370,6 +363,23 @@ def psnr(preds, targets, src_key="rendered_rgb", tgt_key="image",
 @register_loss_by_fn()
 def mask_l1(preds, targets, src_key="rendered_mask", tgt_key="image_mask"):
     return torch.mean(_abs(preds[src_key] - targets[tgt_key]))
+
+
+@register_loss("region_rgb_l1")
+class RegionRGBL1Loss:
+    """Sum of |rgb - image| over the foreground segmentation times the
+    rendered region mask (no gradient through the region mask), over 1 plus
+    the mask's sum."""
+
+    def __init__(self, assets, src_key="rgb", tgt_key="image",
+                 mask_key="seg_fg", region_mask_key="rendered_region_mask"):
+        self.src_key, self.tgt_key = src_key, tgt_key
+        self.mask_key, self.region_mask_key = mask_key, region_mask_key
+
+    def __call__(self, preds, targets):
+        mask = targets[self.mask_key] * preds[self.region_mask_key].detach()
+        delta = preds[self.src_key] - targets[self.tgt_key]
+        return torch.sum(_abs(delta * mask)) / (1.0 + torch.sum(mask))
 
 
 @register_loss_by_fn()

@@ -320,7 +320,8 @@ class _MeshVAENet(nn.Module):
                  decoder_view_cfg, shadow_net_cfg, upscale_net_cfg,
                  pose_to_shadow_cfg, cal_cfg, pixel_cal_cfg,
                  learn_blur_enabled: bool, uv_size: int, tex_size: int,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 **encoder_extra):
         super().__init__()
         g = generator
         # source of the training draws (the encoders' noise)
@@ -330,11 +331,8 @@ class _MeshVAENet(nn.Module):
         self.renderer = renderer
         self.tex_std, self.tex_size = tex_std, tex_size
         self.register_buffer("tex_mean", tex_mean, persistent=False)
-        self.encoder = Encoder(mask=1.0 - masks["face_mask"], generator=g,
-                               **encoder_cfg)
-        self.encoder_face = FaceEncoder(mask=masks["face_mask"],
-                                        uv_size=uv_size, generator=g,
-                                        **encoder_face_cfg)
+        self._make_encoders(encoder_cfg, encoder_face_cfg, masks, uv_size, g,
+                            **encoder_extra)
         self.decoder = ConvDecoder(
             geo_fn, seam_sampler, pose_cond_mask=masks["pose_cond_mask"],
             face_cond_mask=masks["face_cond_mask"],
@@ -358,6 +356,14 @@ class _MeshVAENet(nn.Module):
         self.pixel_cal = (
             CameraPixelBias(n_cameras=len(camera_ids), **pixel_cal_cfg)
             if pixel_cal_cfg is not None else None)
+
+    def _make_encoders(self, encoder_cfg, encoder_face_cfg, masks, uv_size,
+                       generator):
+        self.encoder = Encoder(mask=1.0 - masks["face_mask"],
+                               generator=generator, **encoder_cfg)
+        self.encoder_face = FaceEncoder(mask=masks["face_mask"],
+                                        uv_size=uv_size, generator=generator,
+                                        **encoder_face_cfg)
 
     def forward(
         self,
@@ -400,7 +406,13 @@ class _MeshVAENet(nn.Module):
                          **self.encoder_face(verts_unposed_uv, face_noise)}
             embs = enc_preds["embs"]
             face_embs = enc_preds["face_embs"]
+        return self.decode(pose, campos, ambient_occlusion, K, Rt,
+                           camera_idx, embs, face_embs, enc_preds, train)
 
+    def decode(self, pose, campos, ambient_occlusion, K, Rt, camera_idx,
+               embs, face_embs, enc_preds, train) -> Dict[str, Any]:
+        """Latents -> geometry, texture, shadow and the render: everything
+        after the encoders (``enc_preds`` joins the predictions)."""
         dec_preds = self.decoder(pose, embs, face_embs)
         geom_rec = self.lbs_fn.pose(dec_preds["geom_delta_rec"], pose)
         dec_view_preds = self.decoder_view(geom_rec, dec_preds["tex_mean_rec"],
@@ -594,7 +606,7 @@ class AutoEncoder(ModelFacade):
         self.learn_blur_enabled = bool(learn_blur)
         self.pose_to_shadow_enabled = pose_to_shadow is not None
         self.pixel_cal_enabled = pixel_cal is not None
-        self.module = _MeshVAENet(
+        self.module = self._net(
             geo_fn=self.geo_fn, lbs_fn=self.lbs_fn,
             seam_sampler=self.seam_sampler,
             seam_sampler_2k=self.seam_sampler_2k, renderer=rl,
@@ -612,6 +624,10 @@ class AutoEncoder(ModelFacade):
             tex_size=tex_size, generator=generator,
         ).to(dev)
         self.module.eval()
+
+    def _net(self, **kw) -> nn.Module:
+        """The inner module, from the shared precompute ``kw``."""
+        return _MeshVAENet(**kw)
 
     def name_to_idx(self, camera_ids) -> torch.Tensor:
         return torch.tensor([self.cameras.index(str(c)) for c in camera_ids],

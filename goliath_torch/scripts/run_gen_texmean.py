@@ -11,15 +11,16 @@ package's frame and camera order. Runs on the card unless ``device="cpu"``.
 The JAX script also builds a ``GeometryModule`` whose UV tables it never
 reads; the port takes the topology's index arrays directly.
 
-The dataset is built with ``fully_lit_only`` set, as in the JAX package,
-and ``partially_lit_only`` cleared: a config that trains on OLAT frames
-(``configs/urhand.yml``) would otherwise give no view at all, because its
-fully-lit frames fail the partially-lit sample's check and its OLAT frames
-have no assets under ``fully_lit_only`` (the JAX script then writes an
-all-black mean).
+The dataset is built from the config's ``data`` section with
+``fully_lit_only`` set, as in the JAX package. A config that trains on
+OLAT frames with ``partially_lit_only`` (``configs/urhand.yml``) gives no
+view then, in both packages: its fully-lit frames fail the partially-lit
+sample's check and its OLAT frames have no assets under
+``fully_lit_only``, so the mean is all black. Pass
+``data.partially_lit_only=false`` to average its fully-lit frames:
 
     python -m goliath_torch.scripts.run_gen_texmean configs/urhand.yml \
-        capture_root=/path/to/goliath [a.b=value ...]
+        capture_root=/path/to/goliath data.partially_lit_only=false
 """
 
 from __future__ import annotations
@@ -60,7 +61,6 @@ def main(config: Config, device: str = "cuda",
     device = resolve_device(device)
     data_cfg = dict(config.data)
     data_cfg["fully_lit_only"] = True
-    data_cfg["partially_lit_only"] = False
     dataset = build_dataset(data_cfg, device=device)
     assets = dataset.static_assets
 

@@ -15,7 +15,10 @@ the RGCA and mesh_vae paths use).
 * Pinhole projections (``project_points``, ``project_points_multi``) for
   URHand's shadow maps.
 * Per-face TBN frames (``compute_tbn``) and UV position maps
-  (``make_postex``) for the MVP hand's primitive bases.
+  (``make_postex``) for the MVP hand's primitive bases; per-texel TBN
+  frames (``compute_tbn_uv``, ``compute_tbn_uv_given_normal``) and the
+  camera parameters of an ``Rt`` and ``K`` (``convert_camera_parameters``)
+  for ``utils/geom_body.py``.
 
 * View-texture unprojection (``compute_view_texture``, with the per-face
   and per-texel visibility of a rasterized face-id image) for
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from goliath_torch.ops.backend import resolve_device
+from goliath_torch.utils.image import clip
 from goliath_torch.utils.sampling import grid_sample
 
 # ---------------------------------------------------------------------------
@@ -298,6 +302,55 @@ def compute_tbn(geom: torch.Tensor, vt: torch.Tensor, vi: torch.Tensor,
     return tangent, bitangent, normal
 
 
+def compute_tbn_uv(tri_xyz: torch.Tensor, tri_uv: torch.Tensor,
+                   eps: float = 1e-5):
+    """Tangent, bitangent and normal per texel from its triangle's gathered
+    corners ``tri_xyz`` [B, N, 3, 3] and texture coordinates ``tri_uv``
+    [N, 3, 2]: three [B, N, 3] tensors (``eps`` is unused, as in the JAX
+    package)."""
+    tri_uv = tri_uv[None]
+    v01 = tri_xyz[:, :, 1] - tri_xyz[:, :, 0]
+    v02 = tri_xyz[:, :, 2] - tri_xyz[:, :, 0]
+    normal = _normalize(torch.linalg.cross(v01, v02, dim=-1))
+    vt01 = tri_uv[:, :, 1] - tri_uv[:, :, 0]
+    vt02 = tri_uv[:, :, 2] - tri_uv[:, :, 0]
+    f = 1.0 / (vt01[..., 0] * vt02[..., 1] - vt01[..., 1] * vt02[..., 0])
+    tangent = f[..., None] * (v01 * vt02[..., 1][..., None]
+                              - v02 * vt01[..., 1][..., None])
+    tangent = _normalize(tangent)
+    bitangent = _normalize(torch.linalg.cross(normal, tangent, dim=-1))
+    return tangent, bitangent, normal
+
+
+def _clip_norm(v: torch.Tensor, eps: float) -> torch.Tensor:
+    """v / max(|v|, eps) along the last axis, with ``jnp.clip``'s tie."""
+    return v / clip(torch.linalg.norm(v, dim=-1, keepdim=True), eps,
+                    float("inf"))
+
+
+def compute_tbn_uv_given_normal(tri_xyz: torch.Tensor, tri_uv: torch.Tensor,
+                                normals: torch.Tensor, eps: float = 1e-5):
+    """The tangent frame of ``compute_tbn_uv`` orthogonalized against the
+    given ``normals`` [B, N, 3]; UV areas under 1e-8 in magnitude count as
+    1e-8."""
+    tri_uv = tri_uv[None]
+    v01 = tri_xyz[:, :, 1] - tri_xyz[:, :, 0]
+    v02 = tri_xyz[:, :, 2] - tri_xyz[:, :, 0]
+    vt01 = tri_uv[:, :, 1] - tri_uv[:, :, 0]
+    vt02 = tri_uv[:, :, 2] - tri_uv[:, :, 0]
+    fin = vt01[..., 0] * vt02[..., 1] - vt01[..., 1] * vt02[..., 0]
+    fin = torch.where(fin.abs() < 1e-8, torch.full_like(fin, 1e-8), fin)
+    f = 1.0 / fin
+    tangents = f[..., None] * (v01 * vt02[..., 1][..., None]
+                               - v02 * vt01[..., 1][..., None])
+    tangents = _clip_norm(tangents, eps)
+    bitangents = _clip_norm(torch.linalg.cross(normals, tangents, dim=-1),
+                            eps)
+    tangents = _clip_norm(torch.linalg.cross(bitangents, normals, dim=-1),
+                          eps)
+    return tangents, bitangents, normals
+
+
 def make_postex(v: torch.Tensor, idxim: torch.Tensor, barim: torch.Tensor
                 ) -> torch.Tensor:
     """Barycentric blend of the vertex positions ``v`` [B, V, 3] into a UV
@@ -307,6 +360,15 @@ def make_postex(v: torch.Tensor, idxim: torch.Tensor, barim: torch.Tensor
            + barim[None, :, :, 1, None] * v[:, idxim[:, :, 1]]
            + barim[None, :, :, 2, None] * v[:, idxim[:, :, 2]])
     return out.permute(0, 3, 1, 2)
+
+
+def convert_camera_parameters(Rt: torch.Tensor, K: torch.Tensor
+                              ) -> Dict[str, torch.Tensor]:
+    """World-to-camera ``Rt`` [B, 3, 4] and intrinsics ``K`` [B, 3, 3] ->
+    the camera position, rotation, focal lengths and principal point."""
+    R = Rt[:, :3, :3]
+    t = -torch.einsum("bji,bj->bi", R, Rt[:, :3, 3])
+    return dict(campos=t, camrot=R, focal=K[:, :2, :2], princpt=K[:, :2, 2])
 
 
 def xyz2normals(xyz: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

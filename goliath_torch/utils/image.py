@@ -1,7 +1,7 @@
 """Image utilities (port of the JAX package's utils/image.py, the part the
 ported losses, summaries and models call: the color pipeline (linear <->
 sRGB, the mugsy color correction, the display mapping), ``jnp.clip``'s
-and ``jnp.maximum``'s ties, mask morphology,
+and ``jnp.maximum``'s ties, ``jnp.abs``'s gradient at 0, mask morphology,
 the difference-image remap and the host-side gaussian blur of mesh_vae's
 texture mean). The labeled image grids of the visualization scripts come
 with those scripts.
@@ -28,6 +28,13 @@ def relu(x: torch.Tensor) -> torch.Tensor:
     """``jnp.maximum(x, 0)``: half the gradient where ``x`` is 0 exactly
     (``clamp(min=0)`` gives all of it there, ``F.relu`` none)."""
     return torch.maximum(x, x.new_zeros(()))
+
+
+def absolute(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.abs``: |x| whose gradient at exactly 0 is +1 (``torch.abs``
+    gives 0 there). It matters where a function starts at its kink:
+    ``learn_blur``'s weights are initialized to exactly 1."""
+    return torch.where(x >= 0, x, -x)
 
 
 def linear2srgb(img: torch.Tensor, gamma: float = 2.4) -> torch.Tensor:

@@ -3,13 +3,17 @@
 Quaternions are stored (x, y, z, w), matching the reference. Only what the
 ported paths use is here so far: the products, rotation and Euler angles of
 the skeleton solve (``utils/lbs.py``), and matrix -> quaternion and the
-Rodrigues maps of URHand's pose conditioning (``models/urhand.py``). Rigid
-alignment comes with the path that uses it.
+Rodrigues maps of URHand's pose conditioning (``models/urhand.py``), and
+the weighted Kabsch alignment ``rigid_align``.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
+
+from goliath_torch.utils.image import clip
 
 
 def quat_mul(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -146,3 +150,28 @@ def matrix_to_axisangle(R: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     theta = 2.0 * torch.atan2(n, qw)
     axis = qvec / n.clamp(min=eps)[..., None]
     return axis * theta[..., None]
+
+
+def rigid_align(src: torch.Tensor, tgt: torch.Tensor,
+                weights: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weighted Kabsch: (R, t) minimizing sum w |R src + t - tgt|^2.
+
+    src, tgt: [..., N, 3]; weights [..., N] (all ones when not given).
+    Returns R [..., 3, 3] (a rotation: det +1) and t [..., 3]."""
+    if weights is None:
+        weights = torch.ones(src.shape[:-1], dtype=src.dtype,
+                             device=src.device)
+    w = weights[..., None] / clip(
+        torch.sum(weights, dim=-1, keepdim=True)[..., None], 1e-12,
+        float("inf"))
+    mu_s = torch.sum(w * src, dim=-2, keepdim=True)
+    mu_t = torch.sum(w * tgt, dim=-2, keepdim=True)
+    cov = torch.einsum("...ni,...nj->...ij", w * (tgt - mu_t), src - mu_s)
+    U, _, Vt = torch.linalg.svd(cov)
+    det = torch.linalg.det(U @ Vt)
+    ones = torch.ones_like(det)
+    D = torch.diag_embed(torch.stack([ones, ones, det], dim=-1))
+    R = U @ D @ Vt
+    t = mu_t[..., 0, :] - torch.einsum("...ij,...j->...i", R, mu_s[..., 0, :])
+    return R, t

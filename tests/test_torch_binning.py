@@ -63,8 +63,3 @@ def test_cumsum1d_plain_matches_pallas_interpret():
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(cumsum1d_plain(torch.from_numpy(x)).numpy(),
                                   np.cumsum(x).astype(np.int32))
-
-
-def test_cumsum1d_rejects_other_dtypes():
-    with pytest.raises(ValueError):
-        cumsum1d(torch.zeros(4, dtype=torch.int64))

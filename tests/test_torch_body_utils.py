@@ -14,29 +14,14 @@ positions ~1e2 (3x3 inverses by LAPACK on both sides, in other orders).
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from goliath_torch.convert import params_from_jax
 from goliath_torch.data import synthetic as tsyn
-from goliath_torch.nn import blocks as tb
-from goliath_torch.nn import layers as tl
-from goliath_torch.nn import shadow as tsh
-from goliath_torch.nn import unet as tu
-from goliath_torch.utils import geom as tgeom
-from goliath_torch.utils import image as timage
 from goliath_torch.utils import lbs as tlbs
-from goliath_torch.utils import sampling as tsamp
 from goliath_torch.utils import seams as tseams
 from goliath_tpu.data import synthetic as jsyn
-from goliath_tpu.nn import blocks as jb
-from goliath_tpu.nn import layers as jl
-from goliath_tpu.nn import shadow as jsh
-from goliath_tpu.nn import unet as ju
-from goliath_tpu.utils import geom as jgeom
-from goliath_tpu.utils import image as jimage
 from goliath_tpu.utils import lbs as jlbs
-from goliath_tpu.utils import sampling as jsamp
 from goliath_tpu.utils import seams as jseams
 
 # tiny shapes: more intra-op threads only contend with the other test
@@ -61,112 +46,6 @@ def _module_outputs(jmod, tmod, *xs):
     with torch.no_grad():
         got = tmod(*[torch.from_numpy(x) for x in xs])
     return got, ref
-
-
-@pytest.mark.parametrize("kind", ["conv_wn", "conv_block", "conv_down",
-                                  "up_conv_deep", "unet"])
-def test_blocks_match_jax(kind):
-    rng = np.random.RandomState(0)
-    x = rng.randn(2, 4, 16, 16).astype(np.float32)
-    mods = {
-        "conv_wn": (jl.Conv2dWN(4, 6, 3, 2, 1, groups=2),
-                    tl.Conv2dWN(4, 6, 3, 2, 1, groups=2)),
-        "conv_block": (jb.ConvBlock(4, 6, 16), tb.ConvBlock(4, 6, 16)),
-        "conv_down": (jb.ConvDownBlock(4, 6, 16, groups=2),
-                      tb.ConvDownBlock(4, 6, 16, groups=2)),
-        "up_conv_deep": (jb.UpConvBlockDeep(4, 6, 32, groups=2),
-                         tb.UpConvBlockDeep(4, 6, 32, groups=2)),
-        "unet": (ju.UNetWB(4, 3, 64, n_init_ftrs=4),
-                 tu.UNetWB(4, 3, 64, n_init_ftrs=4)),
-    }
-    if kind == "unet":
-        x = rng.randn(1, 4, 64, 64).astype(np.float32)
-    got, ref = _module_outputs(*mods[kind], x)
-    _close(got, ref)
-
-
-def test_pixel_shuffle_and_tile2d_match_jax():
-    x = np.random.RandomState(1).randn(2, 12, 3, 5).astype(np.float32)
-    _close(tb.pixel_shuffle(torch.from_numpy(x), 2),
-           jb.pixel_shuffle(jnp.asarray(x), 2), atol=0, rtol=0)
-    p = x[:, :, 0, 0]
-    _close(tb.tile2d(torch.from_numpy(p), 4), jb.tile2d(jnp.asarray(p), 4),
-           atol=0, rtol=0)
-
-
-@pytest.mark.parametrize("biases,trainable", [(False, False), (True, True)])
-def test_shadow_unet_matches_jax(biases, trainable):
-    """AO at 64 resized to the 16 grid (by 4), the stored mean at 24
-    nearest-resized to 16 on the host, output upsampled to 32."""
-    rng = np.random.RandomState(2)
-    ao_mean = rng.rand(1, 24, 24).astype(np.float32)
-    ao = rng.rand(2, 1, 64, 64).astype(np.float32)
-    kw = dict(uv_size=32, ao_mean=ao_mean, shadow_size=16, n_dims=4,
-              biases=biases, trainable_mean=trainable)
-    got, ref = _module_outputs(jsh.ShadowUNet(**kw), tsh.ShadowUNet(**kw),
-                               ao)
-    assert set(got) == set(ref)
-    for k in ref:
-        _close(got[k], ref[k])
-
-
-def test_pose_to_shadow_matches_jax():
-    pose = np.random.RandomState(3).randn(1, 5).astype(np.float32)
-    got, ref = _module_outputs(jsh.PoseToShadow(n_pose_dims=5, uv_size=96),
-                               tsh.PoseToShadow(n_pose_dims=5, uv_size=96),
-                               pose)
-    _close(got["shadow_map"], ref["shadow_map"])
-
-
-@pytest.mark.parametrize("size,align", [
-    ((32, 32), False),   # down by 2 (encoder 1024 -> 512)
-    ((16, 16), False),   # down by 4 (ShadowUNet AO 1024 -> 256)
-    ((128, 96), False),  # up by 2 and by 1.5
-    ((64, 64), True),    # the up blocks' align_corners
-    ((21, 166), False),  # ratios that are no power of two (pixel bias)
-])
-def test_interpolate_bilinear_matches_jax(size, align):
-    x = np.random.RandomState(4).randn(2, 3, 64, 64).astype(np.float32)
-    got = tsamp.interpolate_bilinear(torch.from_numpy(x), size=size,
-                                     align_corners=align)
-    _close(got, jsamp.interpolate_bilinear(jnp.asarray(x), size=size,
-                                           align_corners=align))
-    if not align and size == (32, 32):  # torch's own op agrees here
-        _close(got, torch.nn.functional.interpolate(
-            torch.from_numpy(x), size=size, mode="bilinear",
-            align_corners=False))
-
-
-def test_gaussian_blur_np_matches_jax():
-    x = np.random.RandomState(5).rand(1, 3, 40, 40).astype(np.float32)
-    np.testing.assert_array_equal(timage.gaussian_blur_np(x, 11),
-                                  jimage.gaussian_blur_np(x, 11))
-
-
-def test_impaint_view_cos_and_depth_mask_match_jax():
-    v, vi, vt, vti = jsyn.make_sphere_mesh(6, 9)
-    idx = jgeom.make_uv_vert_index(vt, vi, vti, 32, flip_uv=False)
-    fidx, bary = jgeom.make_uv_barys(vt, vti, 32, flip_uv=False)
-    for args in ((idx, bary, 3.0), (fidx, None, 100.0)):
-        got = tgeom.index_image_impaint(*args)
-        ref = jgeom.index_image_impaint(*args)
-        for a, b in zip(got if args[1] is not None else [got],
-                        ref if args[1] is not None else [ref]):
-            np.testing.assert_array_equal(a, b)
-
-    rng = np.random.RandomState(6)
-    verts = (v[None] + rng.randn(2, *v.shape) * 2.0).astype(np.float32)
-    cam = (rng.randn(2, 3) * 300).astype(np.float32)
-    _close(tgeom.compute_view_cos(torch.from_numpy(verts),
-                                  torch.from_numpy(vi), torch.from_numpy(cam)),
-           jax.jit(jgeom.compute_view_cos)(jnp.asarray(verts),
-                                           jnp.asarray(vi), jnp.asarray(cam)))
-    depth = (rng.rand(2, 1, 24, 30) * 20).astype(np.float32)
-    depth[:, :, 8:16, 10:20] += 200.0  # a step of the Sobel's threshold size
-    got = tgeom.depth_discontinuity_mask(torch.from_numpy(depth))
-    ref = jax.jit(jgeom.depth_discontinuity_mask)(jnp.asarray(depth))
-    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    assert 0 < float(got.float().mean()) < 1
 
 
 def _lbs_case():

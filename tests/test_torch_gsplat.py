@@ -9,7 +9,6 @@ last ulp of exp/log. Integer outputs (the processed-block count) are
 compared exactly.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,65 +114,3 @@ def test_compositor_plain_matches_pallas_kernel(opaque, maxpp, chunk):
         counts = np.asarray(b.tile_end - b.tile_start)
         assert counts.max() > maxpp
         assert (np.asarray(ref_cnt) < nchunks).any()
-
-
-@pytest.mark.parametrize("return_depth", [True, False])
-def test_render_matches_jax_pallas_path(monkeypatch, return_depth):
-    """The whole forward render, batch 2, against JAX render(use_pallas=True)
-    with the Pallas kernels interpreted. Inputs keep every tile under
-    max_pairs_per_tile."""
-    monkeypatch.setattr(gsplat_pallas, "INTERPRET", True)
-    rng = np.random.RandomState(4)
-    H, W = 48, 64
-    scene = _scene(rng, 2, 80, H, W)
-    kw = dict(return_depth=return_depth, tile_size=16,
-              max_pairs_per_tile=256, chunk=32, pallas_inner=16,
-              pair_budget_mult=4)
-    ref = jax.jit(lambda *a: jg.render(W, H, *a, use_pallas=True, **kw))(
-        *map(jnp.asarray, scene))
-    got = tg.render(W, H, *map(torch.from_numpy, scene), use_pallas=True,
-                    **kw)
-    assert set(got) == set(ref)
-    for k in ref:
-        assert tuple(got[k].shape) == ref[k].shape, k
-        _close(got[k], ref[k], k)
-    assert float(got["alpha"].max()) > 0.5  # something was rendered
-
-
-def test_render_raises_on_unported_branches(monkeypatch):
-    """The tile-sharded branch still raises; the batch-folded branch (K6)
-    raised until it was ported and now runs where the JAX package takes
-    it: use_pallas, GOLIATH_GSPLAT_FOLD=1, B > 1, no radii
-    (tests/test_torch_gsplat_fold.py holds it against the JAX fold)."""
-    scene = [torch.from_numpy(a) for a in _scene(
-        np.random.RandomState(5), 2, 8, 16, 16)]
-    with pytest.raises(NotImplementedError, match="tile_shard"):
-        tg.render(16, 16, *scene, tile_shard_axis="x")
-    monkeypatch.setenv("GOLIATH_GSPLAT_FOLD", "1")
-    fold, calls = tg._render_folded, []
-
-    def spy(*a):
-        calls.append(a)
-        return fold(*a)
-
-    monkeypatch.setattr(tg, "_render_folded", spy)
-    out = tg.render(16, 16, *scene, use_pallas=True)
-    assert len(calls) == 1 and out["render"].shape == (2, 3, 16, 16)
-    tg.render(16, 16, *scene)                       # XLA window: no fold
-    tg.render(16, 16, *scene, use_pallas=True, return_radii=True)
-    tg.render(16, 16, *[t[:1] for t in scene], use_pallas=True)   # B = 1
-    assert len(calls) == 1
-
-
-def test_compositor_backward_raises_until_k2():
-    """The backward raised until K2 was ported; now it runs (K2's plain
-    version on the CPU) and gives finite, non-zero color gradients
-    (tests/test_torch_gsplat_bwd.py holds them against the JAX package)."""
-    rng = np.random.RandomState(6)
-    scene = [torch.from_numpy(a) for a in _scene(rng, 1, 20, 16, 16)]
-    scene[6].requires_grad_(True)
-    out = tg.render(16, 16, *scene, max_pairs_per_tile=64, chunk=16)
-    out["render"].sum().backward()
-    grad = scene[6].grad
-    assert grad.shape == scene[6].shape
-    assert bool(torch.isfinite(grad).all()) and bool(grad.abs().sum() > 0)

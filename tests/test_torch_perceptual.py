@@ -19,7 +19,6 @@ losses rtol 1e-4; input gradients rtol 1e-3 plus 1e-3 of the largest
 |gradient| (they sum the same float32 terms back through 5 to 13 convs).
 """
 
-import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -184,59 +183,3 @@ def test_losses_and_input_gradients_match_jax(npz, clean_env, name, src_key):
     at_bound = (x == 0.0) | (x == 255.0)
     assert float(np.abs(ref[at_bound]).max()) > 0
     assert float(np.abs(ref[(x < 0) | (x > 255)]).max()) == 0
-
-
-def test_refuses_without_weights_and_reads_no_jax_variable(npz, clean_env):
-    """No weights and no opt-in: every perceptual loss refuses to be built,
-    even with the JAX package's opt-in and weight variables set. A named
-    file that does not exist is an error, not a fall-back."""
-    for k, v in (("GOLIATH_TPU_ALLOW_RANDOM_FEATURES", "1"),
-                 ("GOLIATH_TPU_VGG19_NPZ", npz["vgg"]),
-                 ("GOLIATH_TPU_EFFNET_NPZ", npz["effnet"])):
-        clean_env.setenv(k, v)
-    for name in ("vgg", "effnet", "effnet_phys"):
-        with pytest.raises(RuntimeError, match="allow_random_features"):
-            TModularLoss({name: 1.0})
-        with pytest.raises(FileNotFoundError):
-            TModularLoss({name: {"weight": 1.0,
-                                 "weights_npz": npz["vgg"] + ".missing"}})
-    clean_env.setenv(tp.EFFNET_ENV, npz["effnet"])
-    loss = TModularLoss({"effnet": 1.0}).fns["effnet"]
-    assert loss.weights_path == npz["effnet"]
-    with pytest.raises(RuntimeError):
-        TModularLoss({"vgg": 1.0})
-
-
-def test_random_features_opt_in(npz, clean_env):
-    """The opt-in is per loss object (the environment is left as it was);
-    the features come from the JAX package's seeds, the same on every
-    draw, at the JAX package's shapes and He scales; the environment
-    variable opts every loss in."""
-    cfg = {"effnet": {"weight": 1.0, "allow_random_features": True},
-           "vgg": {"weight": 1.0, "allow_random_features": True}}
-    a = TModularLoss(cfg)
-    assert tp.ALLOW_RANDOM_ENV not in os.environ
-    with pytest.raises(RuntimeError):
-        TModularLoss({"effnet_phys": 1.0})
-    b = TModularLoss(cfg)
-    for name, seed in (("effnet", tp.EFFNET_SEED), ("vgg", tp.VGG19_SEED)):
-        wa, wb = a.fns[name].net._host, b.fns[name].net._host
-        assert a.fns[name].weights_path is None
-        assert set(wa) == set(wb)
-        assert all(torch.equal(wa[k], wb[k]) for k in wa)
-        torch.manual_seed(seed + 1)   # the global generator plays no part
-        draw = (tp.effnet_weights if name == "effnet" else tp.vgg19_weights)()
-        assert all(torch.equal(wa[k], draw[k]) for k in wa)
-        for k, w in wa.items():
-            if k.endswith("_b"):
-                assert float(w.abs().max()) == 0, k
-            else:
-                fan_in = w[0].numel()
-                assert abs(float(w.std()) / np.sqrt(2.0 / fan_in) - 1) < 0.35, k
-    jshapes = {k: v.shape for k, v in {**npz["effnet_w"],
-                                       **npz["vgg_w"]}.items()}
-    ours = {**a.fns["effnet"].net._host, **a.fns["vgg"].net._host}
-    assert {k: tuple(v.shape) for k, v in ours.items()} == jshapes
-    clean_env.setenv(tp.ALLOW_RANDOM_ENV, "1")
-    assert TModularLoss({"effnet_phys": 1.0}).fns[
-        "effnet_phys"].weights_path is None

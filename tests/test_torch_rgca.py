@@ -28,7 +28,6 @@ import torch
 from goliath_torch.config import load_config as t_load_config
 from goliath_torch.config import load_from_config as t_load_from_config
 from goliath_torch.convert import load_params, params_from_jax, save_params
-from goliath_torch.data.synthetic import SyntheticDataset
 from goliath_torch.ops import gsplat_cuda
 from goliath_torch.scripts import run_test as t_run_test
 from goliath_torch.test import to_device
@@ -60,23 +59,6 @@ def _model_cfg(cfg):
     mc.pop("cal")
     mc["learn_blur"] = False
     return mc
-
-
-def test_synthetic_dataset_matches_jax():
-    """The port's fixture draws the JAX fixture's numbers in its order."""
-    t, j = SyntheticDataset(**_data_kwargs()), JSyntheticDataset(**_data_kwargs())
-    assert len(t) == len(j)
-    for k in ("v", "vi", "vt", "vti", "v2uv", "nbs_idxs", "nbs_weights"):
-        np.testing.assert_array_equal(t.static_assets.topology[k],
-                                      j.static_assets.topology[k], err_msg=k)
-    np.testing.assert_array_equal(t.static_assets.color_mean,
-                                  j.static_assets.color_mean)
-    for idx in (0, 7, len(t) - 1):
-        ts, js = t[idx], j[idx]
-        assert set(ts) == set(js)
-        for k in ts:
-            np.testing.assert_array_equal(np.asarray(ts[k]),
-                                          np.asarray(js[k]), err_msg=k)
 
 
 def test_autoencoder_forward_matches_jax(monkeypatch):
@@ -178,11 +160,3 @@ def test_run_test_own_init_and_checkpoints(tmp_path, monkeypatch):
     assert again == means
     with pytest.raises(ValueError, match="orbax"):
         load_params(model.module, str(tmp_path))
-
-
-def test_cuda_entry_points_raise_without_a_card():
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA device is present: the default device works")
-    cfg = t_load_config(_CFG, overrides=["test.ckpt=null"])
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        t_run_test.main(cfg)

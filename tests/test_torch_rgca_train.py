@@ -31,11 +31,8 @@ from goliath_torch.config import load_config as t_load_config
 from goliath_torch.config import load_from_config as t_load_from_config
 from goliath_torch.convert import params_from_jax
 from goliath_torch.data.synthetic import SyntheticDataset
-from goliath_torch.models import rgca as t_rgca
-from goliath_torch.ops import sg as t_sg
 from goliath_torch.optim import build_optimizer
 from goliath_torch.test import to_device
-from goliath_torch.utils import geom as t_geom
 from goliath_tpu.config import load_config, load_from_config
 from goliath_tpu.data.synthetic import SyntheticDataset as JSyntheticDataset
 from goliath_tpu.ops import gsplat_pallas
@@ -268,20 +265,3 @@ def test_decoder_recomputation_keeps_the_gradients():
     for n, g in grads[True][1].items():
         torch.testing.assert_close(g, grads[False][1][n], rtol=1e-5,
                                    atol=1e-7, msg=lambda m: f"{n}: {m}")
-
-
-def test_norms_have_finite_gradients_at_zero_vectors():
-    """Every normalisation on the training path at a zero vector: the
-    model's ``_normalize`` (quaternions, normals, view and light
-    directions), the spherical-Gaussian ``_unit`` and ``vert_normals`` on a
-    degenerate face."""
-    for fn in (t_rgca._normalize, t_sg._unit):
-        v = torch.zeros(2, 3, requires_grad=True)
-        out = fn(v)
-        out.sum().backward()
-        assert torch.isfinite(out).all() and torch.isfinite(v.grad).all(), fn
-    v = torch.zeros(1, 4, 3, requires_grad=True)   # all vertices coincide
-    vi = torch.tensor([[0, 1, 2], [1, 2, 3]])
-    out = t_geom.vert_normals(v, vi)
-    out.sum().backward()
-    assert torch.isfinite(out).all() and torch.isfinite(v.grad).all()

@@ -7,7 +7,6 @@ as a difference of float32 prefix sums over all updates (running sums up to
 ~50 here), the other branch adds directly.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -59,22 +58,3 @@ def test_indexed_add_row_major_and_empty_targets(force_sorted):
                                atol=ATOL)
     untouched = np.setdiff1d(np.arange(N), idx)
     assert len(untouched) > 100 and not got[untouched].any()
-
-
-def test_take_cols_forward_and_backward_match_jax():
-    rng = np.random.RandomState(2)
-    table = rng.standard_normal((4, 50)).astype(np.float32)
-    idx = rng.randint(0, 50, (6, 9)).astype(np.int32)
-    w = rng.standard_normal((4, 6, 9)).astype(np.float32)
-    ref, ref_g = jax.value_and_grad(
-        lambda t: (js.take_cols(t, jnp.asarray(idx)) * w).sum())(
-            jnp.asarray(table))
-    t = torch.from_numpy(table).requires_grad_(True)
-    out = ts.take_cols(t, torch.from_numpy(idx))
-    assert out.shape == (4, 6, 9)
-    assert torch.equal(out, t[:, torch.from_numpy(idx).long()])
-    (out * torch.from_numpy(w)).sum().backward()
-    np.testing.assert_allclose(t.grad.numpy(), np.asarray(ref_g), rtol=RTOL,
-                               atol=ATOL)
-    np.testing.assert_allclose((out * torch.from_numpy(w)).sum().item(),
-                               float(ref), rtol=1e-5)

@@ -10,11 +10,12 @@ runs eagerly, as its script does.
   projection lies within ``EDGE`` pixels of a pixel edge (the two packages'
   float32 projections round differently there, and the nearest pixel
   flips; 22 of the 4,096 texels here).
-- The whole script: the same ``color_mean.png``, byte for byte once
-  decoded (no tolerance: both take the same pixel for every texel here).
-  The JAX script runs with ``data.partially_lit_only=false``: on the
-  config as it stands it renders no view and writes a black mean, which
-  the port's script does not (it clears the flag; ROADMAP queue 3).
+- The whole script, both ways: on the config as it stands, where both
+  render no view and write the same black mean (``partially_lit_only``
+  drops every fully-lit view, ``fully_lit_only`` every OLAT one), and with
+  ``data.partially_lit_only=false``, where both write the same
+  ``color_mean.png``; byte for byte once decoded (no tolerance: both take
+  the same pixel for every texel here).
 """
 
 import jax.numpy as jnp
@@ -127,12 +128,20 @@ def test_view_texture_matches_jax(capture):
 
 def test_run_gen_texmean_matches_jax(capture):
     root, overrides = capture
-    # the JAX script on the config as it stands: every view dropped
+    # the config as it stands: every view dropped, a black mean in both
     j_texmean.main(j_load_config(CFG, overrides=overrides))
-    assert not _read_mean(root).any()
+    ref = _read_mean(root)
+    out = t_texmean.main(t_load_config(CFG, overrides=overrides),
+                         device="cpu")
+    got = _read_mean(root)
+    assert got.shape == ref.shape == (UV, UV, 3)
+    np.testing.assert_array_equal(got, ref)
+    assert not got.any()
+    assert out["rendered"] == [] and len(out["skipped"]) == 6
+    assert out["covered"] == 0.0
 
-    j_texmean.main(j_load_config(
-        CFG, overrides=overrides + ["data.partially_lit_only=false"]))
+    overrides = overrides + ["data.partially_lit_only=false"]
+    j_texmean.main(j_load_config(CFG, overrides=overrides))
     ref = _read_mean(root)
     seconds = []
     out = t_texmean.main(t_load_config(CFG, overrides=overrides),
