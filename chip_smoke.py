@@ -232,7 +232,33 @@ the final result line:
      training steps on a small Head capture (losses and gradients at
      rtol 1e-3) and run_gen_texmean on a small Hands capture (the PNGs
      equal but within 1e-3 px of a pixel edge);
- 29. per kernel (and per mode of a kernel): check result, launches on each
+ 29. parallel/, the band render (tile_shard_eval): run_test.main on
+     configs/rgca.yml at full width, 3 frames, with model.render's
+     tile_shard_mesh a "tile" mesh of 4 shards on the card (4 bands of 512
+     rows, a band's pair budget 786,432), counts set to 0 just before and
+     read just after (K1 12, K4 24, nothing else), then the same frames
+     unsharded: each frame's wall time, its difference from the unsharded
+     frame (max |rgb|, max |T|, the share of pixels beyond 2e-5) and the
+     pairs each band's budget dropped; K1 against its plain version on
+     frame 0's busiest band and K4 on its bands' 8 scans, exactly;
+ 30. the slab render (prim_shard_eval): render_prim_sharded over 4 slabs
+     of 262,144 Gaussians on the unsharded frame 0's render arguments
+     (K1 4, K4 8), reported as above;
+ 31. the data-parallel step (sharded_train): make_sharded_train_step at
+     full width and batch 4 on a "data" mesh of 4 shards for 3 steps (K1,
+     K2, K3 12, K4 24), its losses and parameters after each step held
+     against train.make_train_step's from the same state, batches and
+     draws; then 2 steps on a ("data", "tile") mesh of 2 x 2 with the
+     model's bands on the same mesh (K1, K2, K3 16, K4 32), its losses
+     beside the unsharded ones; step walls and peak memory of all three;
+     K2 (with the step's own upstream gradients) and K3 against their
+     plain versions on the first band of the first 2-D step;
+ 32. the dry run (dryrun): goliath_torch.scripts.dryrun_multichip.main at
+     4 shards on the card (one sharded step of each of the five families
+     at the JAX dry run's tiny shapes, the tile axis on its 2-D mesh
+     against the unsharded render), counts set to 0 just before and read
+     just after (exactly as its mesh sizes give them);
+ 33. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -5254,6 +5280,626 @@ def p1_probe(gc, torch, args, frame, card_line):
     return launches, out
 
 
+# ---------------------------------------------------------------------------
+# parallel/: the band and slab renders and the data-parallel step
+# ---------------------------------------------------------------------------
+
+SHARDS = 4               # bands, slabs and data shards, all on one card
+SHARD_EVAL_FRAMES = 3
+SHARD_TRAIN_STEPS = 3
+SHARD_2D_STEPS = 2
+SHARD_2D = (2, 2)        # ("data", "tile")
+SHARD_DIFF = 2e-5        # the pixels beyond this are counted
+DRYRUN_SHARDS = 4
+DRYRUN_LIGHTS = 2        # the dry run's URHand fixture
+
+
+def shard_mesh(shape, names):
+    """A mesh of ``shape`` shards, every one on the card."""
+    import numpy as np
+
+    from goliath_torch.parallel.sharding import Mesh
+
+    devs = np.empty(shape, dtype=object)
+    devs.fill(DEVICE)
+    return Mesh(devs, names)
+
+
+class RenderTap:
+    """Keeps, while it is entered, what the renders of a run give and take:
+    the outputs of every gsplat.render call (rgb and T, on the card), the
+    arguments of the first call, the pairs each binning wanted (the sum of
+    the first of its two K4 scans) and, for the first ``keep`` binnings,
+    their two K4 inputs and their compositor arguments."""
+
+    def __init__(self, keep=0):
+        self.keep = keep
+        self.outputs, self.first_call, self.wanted = [], None, []
+        self.k4, self.k1 = [], []
+
+    def __enter__(self):
+        from goliath_torch.ops import binning, gsplat, gsplat_cuda
+
+        self._orig = (gsplat.render, binning.cumsum1d,
+                      gsplat_cuda.rasterize_tiled)
+        render, cumsum, raster = self._orig
+        scans = []
+
+        def tap_render(*a, **kw):
+            if self.first_call is None:
+                self.first_call = (a, dict(kw))
+            out = render(*a, **kw)
+            self.outputs.append((out["render"].detach(),
+                                 out["final_T"].detach()))
+            return out
+
+        def tap_cumsum(x):
+            if len(scans) % 2 == 0:
+                self.wanted.append(int(x.long().sum()))
+            if len(scans) < 2 * self.keep:
+                self.k4.append(x.clone())
+            scans.append(None)
+            return cumsum(x)
+
+        def tap_raster(*a, **kw):
+            if len(self.k1) < self.keep:
+                self.k1.append(a)
+            return raster(*a, **kw)
+
+        gsplat.render, binning.cumsum1d = tap_render, tap_cumsum
+        gsplat_cuda.rasterize_tiled = tap_raster
+        return self
+
+    def __exit__(self, *exc):
+        from goliath_torch.ops import binning, gsplat, gsplat_cuda
+
+        (gsplat.render, binning.cumsum1d,
+         gsplat_cuda.rasterize_tiled) = self._orig
+
+
+def frame_difference(got, ref):
+    """(max |rgb| difference, max |T| difference, share of pixels whose rgb
+    or T differs by more than SHARD_DIFF) of two renders' (rgb, T)."""
+    d_rgb = (got[0] - ref[0]).abs()
+    d_T = (got[1] - ref[1]).abs()
+    beyond = (d_rgb.amax(dim=1, keepdim=True) > SHARD_DIFF) | (
+        d_T > SHARD_DIFF)
+    return float(d_rgb.max()), float(d_T.max()), float(beyond.float().mean())
+
+
+def dropped(wanted, budget):
+    return [max(0, w - budget) for w in wanted]
+
+
+def tile_shard_eval(gc, torch, card_line, captured):
+    """(a) run_test.main on configs/rgca.yml at full width (the main path's
+    data and frames) with model.render.tile_shard_mesh a "tile" mesh of
+    SHARDS shards on the card: each frame binned and composited in SHARDS
+    bands of 512 rows (16 tile rows of 64 tiles), each with its pair budget
+    of round(3 N / SHARDS) = 786,432; counts reset just before and read
+    just after (K1 once and K4 twice a band and frame, nothing else); then
+    the same frames unsharded. Per frame: the wall time of both, the
+    sharded frame's difference from the unsharded one and the pairs each
+    band's budget dropped (and the unsharded render's). Keeps frame 0's
+    band with the most pairs for K1 and its bands' K4 scans in
+    ``captured``, and the unsharded frame 0's render arguments."""
+    import inspect
+
+    from goliath_torch.config import load_config
+    from goliath_torch.parallel.tile_shard import (
+        band_geometry,
+        render_tile_sharded,
+    )
+    from goliath_torch.scripts import run_test
+
+    def config(mesh):
+        cfg = load_config(str(ROOT / "configs" / "rgca.yml"), overrides=[
+            f"test.data={yaml_flow(FULL_DATA)}", "test.ckpt=null",
+            f"test.n_test_frames={SHARD_EVAL_FRAMES}", "test.vis_path=null"])
+        if mesh is not None:
+            cfg.model.render.update(tile_shard_mesh=mesh,
+                                    tile_shard_axis="tile")
+        return cfg
+
+    cfg = config(shard_mesh((SHARDS,), ("tile",)))
+    r = cfg.model.render
+    N = cfg.model.uv_size ** 2      # one Gaussian a texel of the uv slab
+    max_tiles = r.get("max_tiles_per_prim", inspect.signature(
+        render_tile_sharded).parameters["max_tiles_per_prim"].default)
+    ntx, band_nty, band_h, band_budget = band_geometry(
+        FULL_DATA["img_w"], FULL_DATA["img_h"], r.tile_size, SHARDS, N,
+        r.pair_budget_mult, max_tiles)
+    full_budget = int(round(r.pair_budget_mult * N))
+    log(f"tile_shard_eval: {SHARDS} bands of {band_h} rows ({band_nty} tile "
+        f"rows of {ntx}), a band's pair budget {band_budget} against the "
+        f"single render's {full_budget}")
+    frames = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with RenderTap(keep=SHARDS) as tap:
+        gc.reset_launch_counts()
+        means = run_test.main(cfg, device=DEVICE, frame_seconds=frames)
+        torch.cuda.synchronize()
+        launches = dict(gc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ref_frames = []
+    torch.cuda.reset_peak_memory_stats()
+    with RenderTap() as ref_tap:
+        ref_means = run_test.main(config(None), device=DEVICE,
+                                  frame_seconds=ref_frames)
+        torch.cuda.synchronize()
+    ref_peak = torch.cuda.max_memory_allocated()
+    log(f"tile_shard_eval launches: {launches}")
+    log(f"tile_shard_eval means: {json.dumps(means)}; unsharded "
+        f"{json.dumps(ref_means)}")
+    report = []
+    for i in range(SHARD_EVAL_FRAMES):
+        diff = frame_difference(tap.outputs[i], ref_tap.outputs[i])
+        band_drops = dropped(tap.wanted[SHARDS * i:SHARDS * (i + 1)],
+                             band_budget)
+        full_drops = dropped(ref_tap.wanted[i:i + 1], full_budget)
+        report.append(dict(frame=i, seconds=frames[i],
+                           unsharded_seconds=ref_frames[i],
+                           max_abs_rgb=diff[0], max_abs_T=diff[1],
+                           share_beyond=diff[2],
+                           band_pairs=tap.wanted[SHARDS * i:SHARDS * (i + 1)],
+                           band_dropped=band_drops,
+                           unsharded_pairs=ref_tap.wanted[i],
+                           unsharded_dropped=full_drops[0]))
+        log(f"tile_shard_eval frame {i}: wall {frames[i]:.4f} s (unsharded "
+            f"{ref_frames[i]:.4f} s) on {card_line}; against the unsharded "
+            f"frame max |rgb| {diff[0]:.3e}, max |T| {diff[1]:.3e}, share "
+            f"of pixels beyond {SHARD_DIFF} {diff[2]:.6f}; pairs wanted by "
+            f"band {tap.wanted[SHARDS * i:SHARDS * (i + 1)]}, dropped by "
+            f"each band's budget {band_drops}; unsharded wanted "
+            f"{ref_tap.wanted[i]}, dropped {full_drops[0]}")
+    log(f"tile_shard_eval peak device memory: {peak / 2**30:.3f} GiB "
+        f"(unsharded {ref_peak / 2**30:.3f} GiB) on {card_line}")
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(compositor_fwd=SHARDS * SHARD_EVAL_FRAMES,
+                cumsum1d=2 * SHARDS * SHARD_EVAL_FRAMES)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if not all(math.isfinite(v) for v in means.values()):
+        raise AssertionError("tile_shard_eval: a loss is not finite")
+    if len(frames) != SHARD_EVAL_FRAMES or len(tap.outputs) != len(frames):
+        raise AssertionError("tile_shard_eval: frames missing")
+    pairs = [int((a[7] - a[6]).sum()) for a in tap.k1]
+    captured["k1"] = tap.k1[pairs.index(max(pairs))]
+    captured["k4"] = tap.k4
+    captured["render_args"] = ref_tap.first_call
+    captured["render_out"] = ref_tap.outputs[0]
+    captured["report"] = report
+    return launches
+
+
+def check_k1_band(gc, torch, args):
+    """K1 against its plain version (check_k1's tolerances) on frame 0's
+    busiest band of the tile_shard_eval path."""
+    log(f"K1 on a band of tile_shard_eval (frame 0; img_h {args[11]}, "
+        f"{args[16]} x {args[17]} tiles):")
+    return check_k1(gc, torch, args, {})
+
+
+def prim_shard_eval(gc, torch, card_line, captured):
+    """(b) render_prim_sharded over a "slab" mesh of SHARDS shards on the
+    card, on the unsharded frame 0's render arguments of tile_shard_eval
+    (1,048,576 Gaussians: SHARDS slabs of 262,144, each with its own pair
+    budget), counts reset just before and read just after (K1 once and K4
+    twice a slab); its difference from the unsharded frame, the pairs each
+    slab's budget dropped, and both renders' times."""
+    from goliath_torch.ops import gsplat
+    from goliath_torch.parallel.tile_shard import render_prim_sharded
+
+    args, kw = captured["render_args"]
+    kw = {k: v for k, v in kw.items()
+          if k not in ("tile_shard_mesh", "tile_shard_axis")}
+    mesh = shard_mesh((SHARDS,), ("slab",))
+    N = args[4].shape[1]
+    slab = -(-N // SHARDS)
+    budget = int(round(kw["pair_budget_mult"] * slab))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), RenderTap() as tap:
+        gc.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = render_prim_sharded(mesh, "slab", *args, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(gc.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        gsplat.render(*args, **kw)
+        torch.cuda.synchronize()
+        ref_seconds = time.perf_counter() - t0
+    diff = frame_difference((out["render"], out["final_T"]),
+                            captured["render_out"])
+    slab_drops = dropped(tap.wanted, budget)
+    log(f"prim_shard_eval launches: {launches}")
+    log(f"prim_shard_eval: {SHARDS} slabs of {slab} of {N} Gaussians, a "
+        f"slab's pair budget {budget}; render {seconds:.4f} s (unsharded "
+        f"{ref_seconds:.4f} s) on {card_line}; against the unsharded frame "
+        f"max |rgb| {diff[0]:.3e}, max |T| {diff[1]:.3e}, share of pixels "
+        f"beyond {SHARD_DIFF} {diff[2]:.6f}; pairs wanted by slab "
+        f"{tap.wanted}, dropped by each slab's budget {slab_drops}; peak "
+        f"{peak / 2**30:.3f} GiB")
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(compositor_fwd=SHARDS, cumsum1d=2 * SHARDS)
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    if not (torch.isfinite(out["render"]).all()
+            and torch.isfinite(out["final_T"]).all()):
+        raise AssertionError("prim_shard_eval: the render is not finite")
+    captured["prim_report"] = dict(
+        seconds=seconds, unsharded_seconds=ref_seconds, max_abs_rgb=diff[0],
+        max_abs_T=diff[1], share_beyond=diff[2], slab_pairs=tap.wanted,
+        slab_dropped=slab_drops)
+    return launches
+
+
+def shard_train_batches(ds, torch, n, batch):
+    """``n`` batches of ``batch`` samples of ``ds`` in index order, on the
+    card (strings dropped)."""
+    import numpy as np
+
+    from goliath_torch.test import to_device
+
+    out = []
+    for i in range(n):
+        samples = [ds[(i * batch + j) % len(ds)] for j in range(batch)]
+        out.append(to_device({k: np.stack([s[k] for s in samples])
+                              for k in samples[0]
+                              if not isinstance(samples[0][k], str)},
+                             torch.device(DEVICE)))
+    return out
+
+
+def hold_sharded_step(got, ref, spread, label):
+    """One sharded step (``got``: its loss, per-parameter gradients after
+    the optimizer's scrub and clip, and parameters after the update)
+    against the unsharded step from the same state (``ref``). Gradients
+    at rtol SMALL_RTOL plus SMALL_RTOL of each one's largest |ref| entry,
+    or else that plus SPREAD_MULT times its spread under one-ulp moves of
+    the state (``spread()``, measured on first need; at full width the
+    render's alpha and early-out thresholds make a dozen of the decoder's
+    gradients move by percents under such moves, so their number is
+    reported, not capped). Parameters: the norm over all of them at rtol
+    SMALL_RTOL (as tests/test_parallel.py holds the JAX sharded step), and
+    every entry whose gradients agree within rtol SMALL_RTOL at rtol
+    SMALL_RTOL plus SMALL_RTOL of its tensor's largest entry. The other
+    entries, which the gradient rule holds through its absolute term only,
+    are counted, not held: Adam's update does not see a gradient's scale
+    (lr g / (|g| + eps) on a first step), so it moves them by up to lr
+    whatever their size. Returns (the gradients that needed the spread,
+    the entries not held, their largest parameter difference)."""
+    need, loose, worst_loose, sq_got, sq_ref = [], 0, 0.0, 0.0, 0.0
+    for name, r in ref["grads"].items():
+        g = got["grads"][name]
+        scale = float(r.abs().max())
+        diff = (g - r).abs()
+        usual = SMALL_RTOL * r.abs() + SMALL_RTOL * scale
+        if not bool((diff <= usual).all()):
+            moves = spread()
+            note = (f"{name} (error {float(diff.max()) / scale:.3e}, spread "
+                    f"{moves[name] / scale:.3e} of its largest entry)")
+            need.append(note)
+            if not bool((diff <= usual + SPREAD_MULT * moves[name]).all()):
+                raise AssertionError(f"{label}: gradient {note} is beyond "
+                                     f"the rule")
+        p, pr = got["params"][name], ref["params"][name]
+        sq_got += float(p.double().square().sum())
+        sq_ref += float(pr.double().square().sum())
+        held = diff <= SMALL_RTOL * r.abs()
+        loose += int((~held).sum())
+        if not bool(held.all()):
+            worst_loose = max(worst_loose,
+                              float((p - pr).abs()[~held].max()))
+        bad = held & ((p - pr).abs() > SMALL_RTOL * pr.abs()
+                      + SMALL_RTOL * float(pr.abs().max()))
+        if bool(bad.any()):
+            raise AssertionError(f"{label}: {int(bad.sum())} entries of "
+                                 f"{name} differ beyond the rule")
+    if abs(sq_got ** 0.5 - sq_ref ** 0.5) > SMALL_RTOL * sq_ref ** 0.5:
+        raise AssertionError(f"{label}: the parameters' norm is "
+                             f"{sq_got ** 0.5}, unsharded {sq_ref ** 0.5}")
+    return need, loose, worst_loose
+
+
+class KernelArgsTap:
+    """Keeps in ``store`` (when one is given) the arguments of the first
+    K2 and the first K3 call made while it is entered, copied."""
+
+    def __init__(self, gc, store):
+        self.gc, self.store = gc, store
+
+    def __enter__(self):
+        if self.store is None:
+            return self
+        gc, store = self.gc, self.store
+        self._orig = gc.pair_grads, gc.cumsum_cols
+
+        def keep(name, fn):
+            def wrapped(*a, **kw):
+                if name not in store:
+                    store[name] = (tuple(x.clone() if hasattr(x, "clone")
+                                         else x for x in a), dict(kw))
+                return fn(*a, **kw)
+            return wrapped
+
+        gc.pair_grads = keep("k2", self._orig[0])
+        gc.cumsum_cols = keep("k3", self._orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        if self.store is not None:
+            self.gc.pair_grads, self.gc.cumsum_cols = self._orig
+
+
+def band_train_kernels(gc, torch, captured, card_line):
+    """K2 (with the step's own upstream gradients) and K3 against their
+    plain versions on the arguments of the first band of sharded_train's
+    first 2-D step, at the tolerances of the earlier phases; both timed
+    there."""
+    from goliath_torch.utils.timing import cuda_ms
+
+    (ba, bkw), (ca, _) = captured["k2"], captured["k3"]
+    (x,) = ca
+    got = gc.pair_grads(*ba, **bkw)
+    ref = gc.pair_grads_plain(*ba, **bkw)
+    torch.cuda.synchronize()
+    C = ba[4].shape[-3]
+    H, W = ba[6].shape[-2:]
+    err_b = compare_pair_grads(gc, torch, got, ref, C,
+                               f"K2, a {W}x{H} band of the 2-D step")
+    check_same_bits(torch, got, gc.pair_grads(*ba, **bkw), "K2 (band)")
+    k3 = gc.cumsum_cols(x)
+    ref3 = torch.cumsum(x.double(), dim=1)
+    f32 = gc.cumsum_cols_plain(x)
+    torch.cuda.synchronize()
+    scale = ref3.abs().amax(dim=1, keepdim=True).clamp(min=1e-30)
+    e64 = float(((k3.double() - ref3).abs() / scale).max())
+    e32 = float(((k3 - f32).abs().double() / scale).max())
+    del ref3, scale
+    log(f"K3 band {list(x.shape)}: error as a fraction of each row's "
+        f"largest running sum: against a float64 scan {e64:.3e} "
+        f"(tolerance {K3_TOL_F64}), against torch.cumsum float32 {e32:.3e} "
+        f"(tolerance {K3_TOL_F32})")
+    if not (e64 <= K3_TOL_F64 and e32 <= K3_TOL_F32):
+        raise AssertionError("K3 differs on the band")
+    check_same_bits(torch, k3, gc.cumsum_cols(x), "K3 (band)")
+    ms2 = cuda_ms(lambda: gc.pair_grads(*ba, **bkw), reps=10)
+    ms3 = cuda_ms(lambda: gc.cumsum_cols(x), reps=50)
+    log(f"band kernels of the 2-D step: K2 {ms2:.4f} ms, K3 {list(x.shape)} "
+        f"{ms3:.4f} ms on {card_line}")
+    return dict(k2_err=err_b, k2_ms=ms2, k3_err=e64, k3_ms=ms3)
+
+
+def sharded_train(gc, torch, card_line, captured):
+    """(c) make_sharded_train_step at full width (configs/rgca.yml on
+    FULL_DATA, weights and draws from seed 0, batch 4): SHARD_TRAIN_STEPS
+    steps on a "data" mesh of SHARDS shards on the card (K1, K2, K3 once a
+    sample and step, K4 twice), each held (hold_sharded_step) against
+    train.make_train_step from the same state (parameters, Adam's moments,
+    the generator) and batch; then SHARD_2D_STEPS steps from the initial
+    state on a 2-D ("data", "tile") mesh of SHARD_2D with the model's
+    render on the same mesh (K1, K2, K3 once and K4 twice a band and
+    sample), its losses beside the unsharded chain's (the per-band pair
+    budgets make it another render where pairs overflow: reported, not
+    held). Step walls and peak memory of each; keeps the first band's K2
+    and K3 arguments of the first 2-D step in ``captured``."""
+    import copy
+
+    from goliath_torch import train as train_lib
+    from goliath_torch.config import load_from_config
+    from goliath_torch.optim import build_optimizer
+    from goliath_torch.parallel import make_sharded_train_step
+    from goliath_torch.scripts.run_train import build_dataset
+
+    cfg = rgca_config()
+    if cfg.dataloader.batch_size != TRAIN_BATCH:
+        raise AssertionError("the config no longer trains at batch 4")
+    dev = torch.device(DEVICE)
+    ds = build_dataset(cfg.data, device=dev)
+    model = load_from_config(cfg.model, assets=ds.static_assets, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    module = model.module
+    loss_fn = load_from_config(cfg.loss, assets=ds.static_assets)
+    opt_cfg = dict(cfg.optimizer)
+    opt_cfg.setdefault("lr", cfg.get("lr", 1e-3))
+    optimizer = build_optimizer(opt_cfg, module)
+    lr = max(g["lr"] for g in optimizer.inner.param_groups)
+    batches = shard_train_batches(ds, torch, SHARD_TRAIN_STEPS, TRAIN_BATCH)
+    data_mesh = shard_mesh((SHARDS,), ("data",))
+    sharded = make_sharded_train_step(model, loss_fn, optimizer, data_mesh)
+    unsharded = train_lib.make_train_step(model, loss_fn, optimizer)
+
+    def snapshot():
+        return ({k: v.clone() for k, v in module.state_dict().items()},
+                copy.deepcopy(optimizer.state_dict()),
+                module.generator.get_state())
+
+    def restore(snap, params=None):
+        module.load_state_dict(params or snap[0])
+        optimizer.load_state_dict(copy.deepcopy(snap[1]))
+        module.generator.set_state(snap[2])
+
+    def take(step, batch, i, tap=None):
+        """One step: its wall, loss, gradients, parameters after it,
+        launches, and its peak memory above what was allocated before it
+        (the model, Adam's moments and this check's copies)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        before = dict(gc.LAUNCHES)
+        t0 = time.perf_counter()
+        with KernelArgsTap(gc, tap):
+            total, _ = step(dict(batch), i)
+        torch.cuda.synchronize()
+        return dict(
+            seconds=time.perf_counter() - t0, total=float(total),
+            peak=torch.cuda.max_memory_allocated() - resident,
+            grads={n: p.grad.detach().clone()
+                   for n, p in module.named_parameters()},
+            params={n: p.detach().clone()
+                    for n, p in module.named_parameters()},
+            launches={k: gc.LAUNCHES[k] - before[k] for k in before})
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    state0 = snapshot()
+    n_entries = sum(p.numel() for p in module.parameters())
+    got, ref, needs, loose = [], [], [], []
+    for i in range(SHARD_TRAIN_STEPS):
+        snap = snapshot()
+        ref.append(take(unsharded, batches[i], i))
+        restore(snap)
+        got.append(take(sharded, batches[i], i))
+        after = snapshot()
+        moves = {}
+
+        def spread(snap=snap, i=i, moves=moves):
+            if not moves:
+                moves.update((n, 0.0) for n in ref[i]["grads"])
+                for seed in SPREAD_SEEDS:
+                    gen = torch.Generator().manual_seed(seed)
+                    restore(snap, {k: v * (1 + 1e-7 * torch.randn(
+                        v.shape, generator=gen).to(v.device))
+                        if v.is_floating_point() else v
+                        for k, v in snap[0].items()})
+                    res = take(unsharded, batches[i], i)
+                    for n, g in res["grads"].items():
+                        moves[n] = max(moves[n], float(
+                            (g - ref[i]["grads"][n]).abs().max()))
+            return moves
+
+        need, n_loose, worst_loose = hold_sharded_step(
+            got[i], ref[i], spread, f"sharded_train step {i}")
+        restore(after)
+        for r in (got[i], ref[i]):
+            del r["grads"], r["params"]
+        needs.append(need)
+        loose.append(n_loose)
+        log(f"sharded_train data x{SHARDS} step {i}: wall "
+            f"{got[i]['seconds']:.4f} s (unsharded {ref[i]['seconds']:.4f} "
+            f"s), loss {got[i]['total']:.6f} (unsharded "
+            f"{ref[i]['total']:.6f}); gradients that need their one-ulp "
+            f"spread beyond rtol {SMALL_RTOL} + {SMALL_RTOL} of the largest "
+            f"entry: {need}; parameter entries whose gradients differ by "
+            f"more than rtol {SMALL_RTOL} (not held): {n_loose} of "
+            f"{n_entries}, their largest parameter difference "
+            f"{worst_loose:.3e} ({worst_loose / lr:.3f} lr) on {card_line}")
+
+    restore(state0)
+    mesh2 = shard_mesh(SHARD_2D, ("data", "tile"))
+    module.render_cfg.update(tile_shard_mesh=mesh2, tile_shard_axis="tile")
+    two_d_step = make_sharded_train_step(model, loss_fn, optimizer, mesh2)
+    two_d = []
+    try:
+        for i in range(SHARD_2D_STEPS):
+            two_d.append(take(two_d_step, batches[i], i,
+                              captured if i == 0 else None))
+    finally:
+        module.render_cfg.pop("tile_shard_mesh")
+        module.render_cfg.pop("tile_shard_axis")
+    peaks = {label: max(r["peak"] for r in runs) / 2**30
+             for label, runs in (("unsharded", ref), ("data", got),
+                                 ("two_d", two_d))}
+    rel = [abs(g["total"] - r["total"]) / abs(r["total"])
+           for g, r in zip(got, ref)]
+    rel2 = [abs(g["total"] - r["total"]) / abs(r["total"])
+            for g, r in zip(two_d, ref)]
+    log(f"sharded_train data x tile {SHARD_2D}: walls "
+        f"{[round(r['seconds'], 4) for r in two_d]} s, losses "
+        f"{[r['total'] for r in two_d]}, against the unsharded chain's "
+        f"{[r['total'] for r in ref[:SHARD_2D_STEPS]]}: rel diff "
+        f"{[f'{r:.3e}' for r in rel2]} (per-band pair budgets; reported, "
+        f"not held)")
+    log(f"sharded_train peak device memory of a step (batch {TRAIN_BATCH}) "
+        f"above the model, Adam's moments and this check's copies: "
+        f"unsharded {peaks['unsharded']:.3f}, data x{SHARDS} "
+        f"{peaks['data']:.3f}, data x tile {SHARD_2D} {peaks['two_d']:.3f} "
+        f"GiB ({n_entries * 4 / 2**30:.3f} GiB of parameters) on "
+        f"{card_line}")
+
+    def total_launches(runs):
+        return {k: sum(r["launches"][k] for r in runs) for k in gc.LAUNCHES}
+
+    data_l, two_d_l = total_launches(got), total_launches(two_d)
+    n = TRAIN_BATCH * SHARD_TRAIN_STEPS
+    n2 = TRAIN_BATCH * SHARD_2D_STEPS * SHARD_2D[1]
+    for label, have, k in (("data mesh", data_l, n), ("2-D mesh", two_d_l,
+                                                      n2)):
+        want = {name: 0 for name in gc.LAUNCHES}
+        want.update(compositor_fwd=k, pair_grads=k, cumsum_cols=k,
+                    cumsum1d=2 * k)
+        log(f"sharded_train {label} launches: {have}")
+        if have != want:
+            raise AssertionError(f"{label}: launch counts {have} != {want}")
+    totals = [r["total"] for r in got + two_d]
+    if not all(math.isfinite(v) for v in totals):
+        raise AssertionError("sharded_train: a loss is not finite")
+    if max(rel) > SMALL_RTOL:
+        raise AssertionError(f"sharded_train: losses rel diff {rel}")
+    if two_d[-1]["total"] == two_d[0]["total"]:
+        raise AssertionError("sharded_train: the 2-D mesh's loss did not "
+                             "move")
+    launches = {k: data_l[k] + two_d_l[k] for k in gc.LAUNCHES}
+    return launches, dict(
+        data=data_l, two_d=two_d_l,
+        seconds=[r["seconds"] for r in got],
+        unsharded_seconds=[r["seconds"] for r in ref],
+        two_d_seconds=[r["seconds"] for r in two_d],
+        peak_gib=peaks, loss_rel=rel,
+        two_d_loss_rel=rel2, need_spread=[len(n) for n in needs],
+        loose_entries=loose)
+
+
+def dryrun_expected(n):
+    """The dry run's launches at ``n`` shards: RGCA (the XLA window) K1,
+    K2, K3 once and K4 twice a sample; the MVP hand and the teacher K4
+    twice a sample; URHand K5 2L + 3 times a sample (its light views and
+    renders), K4 twice each; mesh_vae K5 once and K4 twice a sample; the
+    tile axis K1 once a band and sample and once a sample for the
+    unsharded render, K2 and K3 once a band and sample, K4 twice a
+    render."""
+    from goliath_torch.scripts.dryrun_multichip import TILE_AXIS
+
+    b = max(n, 2)
+    n_tile = 4 if n % 4 == 0 else 2
+    bands, B = n_tile * TILE_AXIS["B"], TILE_AXIS["B"]
+    k5 = b * (2 * DRYRUN_LIGHTS + 3) + b
+    want = dict(compositor_fwd_xla=b + bands + B, pair_grads_xla=b + bands,
+                cumsum_cols=b + bands, zbuffer=k5,
+                cumsum1d=2 * b * 4 + 2 * b * (2 * DRYRUN_LIGHTS + 3)
+                + 2 * (bands + B))
+    return want
+
+
+def dryrun_path(gc, torch, card_line):
+    """(d) goliath_torch.scripts.dryrun_multichip.main at DRYRUN_SHARDS
+    shards on the card: one sharded step of each family at the JAX dry
+    run's tiny shapes, the tile axis on its 2-D mesh against the unsharded
+    render; counts reset just before and read just after (dryrun_expected,
+    exactly)."""
+    from goliath_torch.scripts import dryrun_multichip
+
+    torch.cuda.synchronize()
+    gc.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = dryrun_multichip.main(DRYRUN_SHARDS, device=DEVICE)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(gc.LAUNCHES)
+    log(f"dryrun launches: {launches}; losses {json.dumps(losses)}; "
+        f"{seconds:.1f} s on {card_line}")
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(dryrun_expected(DRYRUN_SHARDS))
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5504,10 +6150,32 @@ def main() -> int:
     del texmean_inputs
     torch.cuda.empty_cache()
     phase("capture_small_reference", capture_small_reference, torch)
+    shard_inputs = {}
+    phase("tile_shard_eval", tile_shard_eval, gc, torch, card_line,
+          shard_inputs)
+    if "k1" in shard_inputs:
+        phase("k1_band", check_k1_band, gc, torch, shard_inputs.pop("k1"))
+    if len(shard_inputs.get("k4", ())) == 2 * SHARDS:
+        phase("k4_band", k4_mesh_check, gc, torch, shard_inputs.pop("k4"),
+              2 * SHARDS, "tile_shard_eval frame 0, its bands")
+    if "render_args" in shard_inputs:
+        phase("prim_shard_eval", prim_shard_eval, gc, torch, card_line,
+              shard_inputs)
+    del shard_inputs
+    torch.cuda.empty_cache()
+    band_inputs = {}
+    phase("sharded_train", sharded_train, gc, torch, card_line, band_inputs)
+    if {"k2", "k3"} <= set(band_inputs):
+        phase("band_train_kernels", band_train_kernels, gc, torch,
+              band_inputs, card_line)
+    del band_inputs
+    torch.cuda.empty_cache()
+    phase("dryrun", dryrun_path, gc, torch, card_line)
 
     # the phases that return (launches, measurements) of several kernels
     split = {}
-    for name in ("xla_window_check", "k7_check", "p1_probe", "capture_path"):
+    for name in ("xla_window_check", "k7_check", "p1_probe", "capture_path",
+                 "sharded_train"):
         if name in phases:
             split[name], phases[name] = phases[name]
     xla_eval, xla_train = split.get("xla_window_check", ({}, {}))
@@ -5534,22 +6202,30 @@ def main() -> int:
              "capture_train": phases.get("capture_path", {}),
              "capture_eval": split.get("capture_path", {}),
              "texmean": phases.get("texmean_path", {}),
+             "tile_shard_eval": phases.get("tile_shard_eval", {}),
+             "prim_shard_eval": phases.get("prim_shard_eval", {}),
+             "sharded_train": split.get("sharded_train", {}),
+             "dryrun": phases.get("dryrun", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
-    checks = {"compositor_fwd": ("K1", ["k1_check", "k1_relight"]),
+    checks = {"compositor_fwd": ("K1", ["k1_check", "k1_relight",
+                                        "k1_band"]),
               "compositor_fwd_xla": ("K1 xla", [
                   "xla_window_check:compositor_fwd_xla", "quality_kernels"]),
-              "pair_grads": ("K2", ["k2_check", "backward_check"]),
+              "pair_grads": ("K2", ["k2_check", "backward_check",
+                                    "band_train_kernels"]),
               "pair_grads_xla": ("K2 xla", [
                   "xla_window_check:pair_grads_xla", "quality_kernels"]),
               "cumsum_cols": ("K3", ["k3_check", "backward_check",
-                                     "quality_kernels"]),
+                                     "quality_kernels",
+                                     "band_train_kernels"]),
               "cumsum1d": ("K4", ["k4_timing", "k4_exact", "k4_mesh",
                                   "k4_drivable", "k4_drivable_train",
                                   "k4_urhand", "k4_urhand_train", "k4_mvp",
                                   "k4_teacher", "k4_mvp_train",
                                   "k4_teacher_train", "k4_relight",
-                                  "k4_quality", "k4_capture", "k4_texmean"]),
+                                  "k4_quality", "k4_capture", "k4_texmean",
+                                  "k4_band"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
                                  "k5_drivable", "k5_drivable_train",
                                  "k5_urhand_shadow", "k5_urhand_render",

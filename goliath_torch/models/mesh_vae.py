@@ -365,6 +365,24 @@ class _MeshVAENet(nn.Module):
                                         uv_size=uv_size, generator=generator,
                                         **encoder_face_cfg)
 
+    def training_draws(self, batch_size: int, device: torch.device,
+                       given: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A training batch's draws from the model's generator, in this
+        order: the encoders' noise [B, encoder n_embs] and [B, face encoder
+        n_embs], each unless ``given`` holds it (then it is returned as
+        given); none when ``given`` says ``encode`` is false.
+        parallel/sharding.py draws them once for the global batch."""
+        if not given.get("encode", True):
+            return {}
+        noise, face_noise = given.get("noise"), given.get("face_noise")
+        if noise is None:
+            noise = torch.randn((batch_size, self.encoder.n_embs),
+                                generator=self.generator).to(device)
+        if face_noise is None:
+            face_noise = torch.randn((batch_size, self.encoder_face.encoder.n_embs),
+                                     generator=self.generator).to(device)
+        return {"noise": noise, "face_noise": face_noise}
+
     def forward(
         self,
         pose: torch.Tensor,
@@ -388,15 +406,10 @@ class _MeshVAENet(nn.Module):
         enc_preds: Dict[str, torch.Tensor] = {}
         if encode:
             if train:
-                B, dev = pose.shape[0], pose.device
-                if noise is None:
-                    noise = torch.randn(
-                        (B, self.encoder.n_embs),
-                        generator=self.generator).to(dev)
-                if face_noise is None:
-                    face_noise = torch.randn(
-                        (B, self.encoder_face.encoder.n_embs),
-                        generator=self.generator).to(dev)
+                drawn = self.training_draws(
+                    pose.shape[0], pose.device,
+                    {"noise": noise, "face_noise": face_noise})
+                noise, face_noise = drawn["noise"], drawn["face_noise"]
             else:
                 noise = face_noise = None
             verts_unposed = self.lbs_fn.unpose(registration_vertices,

@@ -140,6 +140,24 @@ class _DrivableNet(mv._MeshVAENet):
         self.encoder_face = FaceEncoder(mugsy_mask=mugsy_mask, generator=g,
                                         **encoder_face_cfg)
 
+    def training_draws(self, batch_size: int, device: torch.device,
+                       given: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A training batch's draws from the model's generator, in this
+        order: the encoders' noise [B, encoder n_embs] and [B, face encoder
+        n_embs], each unless ``given`` holds it (then it is returned as
+        given); none when ``given`` says ``encode`` is false.
+        parallel/sharding.py draws them once for the global batch."""
+        if not given.get("encode", True):
+            return {}
+        noise, face_noise = given.get("noise"), given.get("face_noise")
+        if noise is None:
+            noise = torch.randn((batch_size, self.encoder.n_embs),
+                                generator=self.generator).to(device)
+        if face_noise is None:
+            face_noise = torch.randn((batch_size, self.encoder_face.n_embs),
+                                     generator=self.generator).to(device)
+        return {"noise": noise, "face_noise": face_noise}
+
     def forward(
         self,
         lbs_motion: torch.Tensor,
@@ -165,15 +183,10 @@ class _DrivableNet(mv._MeshVAENet):
         enc_preds: Dict[str, Any] = {}
         if encode:
             if train:
-                B, dev = lbs_motion.shape[0], lbs_motion.device
-                if noise is None:
-                    noise = torch.randn(
-                        (B, self.encoder.n_embs),
-                        generator=self.generator).to(dev)
-                if face_noise is None:
-                    face_noise = torch.randn(
-                        (B, self.encoder_face.n_embs),
-                        generator=self.generator).to(dev)
+                drawn = self.training_draws(
+                    lbs_motion.shape[0], lbs_motion.device,
+                    {"noise": noise, "face_noise": face_noise})
+                noise, face_noise = drawn["noise"], drawn["face_noise"]
             else:
                 noise = face_noise = None
             verts_unposed = self.lbs_fn.unpose(geom, lbs_motion).detach()

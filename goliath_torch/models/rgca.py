@@ -334,6 +334,22 @@ class _RGCANet(nn.Module):
         self.learn_blur = (LearnableBlur(cameras=camera_ids)
                            if learn_blur_enabled else None)
 
+    def training_draws(self, batch_size: int, device: torch.device,
+                       given: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A training batch's draws from the model's generator, in this
+        order: the encoder noise [B, n_embs] and the backlit direction
+        [B, 1, 3], each unless ``given`` holds it (then it is returned as
+        given). parallel/sharding.py draws them once for the global batch."""
+        noise, light_dir = given.get("noise"), given.get("light_dir")
+        if noise is None:
+            noise = torch.randn((batch_size, self.n_embs),
+                                generator=self.generator).to(device)
+        if light_dir is None:
+            light_dir = (torch.rand((batch_size, 1, 3),
+                                    generator=self.generator)
+                         - 0.5).to(device)
+        return {"noise": noise, "light_dir": light_dir}
+
     def forward(
         self,
         head_pose: torch.Tensor,
@@ -361,12 +377,9 @@ class _RGCANet(nn.Module):
         B = head_pose.shape[0]
         dev = head_pose.device
         if train:
-            if noise is None:
-                noise = torch.randn((B, self.n_embs),
-                                    generator=self.generator).to(dev)
-            if light_dir is None:
-                light_dir = (torch.rand((B, 1, 3), generator=self.generator)
-                             - 0.5).to(dev)
+            drawn = self.training_draws(
+                B, dev, {"noise": noise, "light_dir": light_dir})
+            noise, light_dir = drawn["noise"], drawn["light_dir"]
         else:
             noise = light_dir = None
         light_intensity = light_intensity.expand(

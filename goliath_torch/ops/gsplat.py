@@ -248,21 +248,32 @@ def prepare_sample(
     z_near: float = 0.1, global_scale: float = 1.0,
     max_tiles_per_prim: int = 64, pair_budget: int | None = None,
     return_depth: bool = True,
+    y_offset_px: float = 0.0,
+    bin_img_h: int | None = None,
 ):
     """Project one sample's gaussians and bin them to screen tiles.
 
     Returns (xys, conics, op_s, chan, valid, radii, binning). Per-tile
     depth order comes from the composite (tile << bits | quantized log
-    depth) sort key inside the binning; there is no global depth sort."""
+    depth) sort key inside the binning; there is no global depth sort.
+
+    ``y_offset_px`` moves the projected centers up by that many rows (after
+    projection: conics do not change under a translation) and
+    ``bin_img_h`` cuts the tile grid, and so the depth bits, to that
+    height, so that a caller renders a horizontal band of the image as if
+    it were a small image (parallel/tile_shard.py). Projection (the
+    Jacobian's limits, validity, the depth range) always uses the full
+    ``cam_img_h``, so per-prim quantities are the same in every band."""
     ntx = -(-cam_img_w // tile_size)
-    nty = -(-cam_img_h // tile_size)
+    nty = -(-(bin_img_h if bin_img_h is not None else cam_img_h)
+            // tile_size)
     N = pos.shape[0]
     if pair_budget is None:
         pair_budget = 4 * N
     (xys, conics, op_s, chan, valid, radii, ld,
      t_min, t_max) = _project_sample(
         K_b, Rt_b, pos, quat, scale, op, col, cam_img_h, cam_img_w,
-        tile_size, z_near, global_scale, return_depth)
+        tile_size, z_near, global_scale, return_depth, y_offset_px)
 
     num_tiles = ntx * nty
     dbits = 31 - int(num_tiles + 1).bit_length()
@@ -276,17 +287,20 @@ def prepare_sample(
 
 def _project_sample(K_b, Rt_b, pos, quat, scale, op, col, cam_img_h,
                     cam_img_w, tile_size, z_near, global_scale,
-                    return_depth):
+                    return_depth, y_offset_px=0.0):
     """Per-prim projection half of prepare_sample.
 
     Returns (xys, conics, op_s, chan, valid, radii, log_depth, t_min,
-    t_max); the tile AABBs are unclipped (bin_to_tiles clips)."""
+    t_max); the tile AABBs are unclipped (bin_to_tiles clips). The centers
+    are moved up by ``y_offset_px`` rows before the AABBs."""
     proj = project_gaussians(
         pos, scale, quat, Rt_b,
         K_b[0, 0], K_b[1, 1], K_b[0, 2], K_b[1, 2],
         cam_img_h, cam_img_w, z_near, global_scale,
     )
     xys = proj["xys"]
+    if y_offset_px:
+        xys = xys - xys.new_tensor([0.0, float(y_offset_px)])
     conics = proj["conics"]
     radii = proj["radii"]
     op_s = (op.reshape(-1) * proj["compensation"])[:, None]
@@ -415,12 +429,30 @@ def render(
     ``use_pallas`` selects the compositor's block window and, with
     ``GOLIATH_GSPLAT_FOLD=1``, the batch-folded path; ``pallas_inner`` is
     accepted for config compatibility and selects nothing (see the module
-    docstring)."""
+    docstring).
+
+    With ``tile_shard_axis`` set, the screen's tile rows are split in bands
+    over that axis of ``tile_shard_mesh``
+    (``parallel.tile_shard.render_tile_sharded``; the fold does not apply
+    there). ``return_radii`` is refused on that route, as in the JAX
+    package."""
+    if tile_shard_axis is not None:
+        from goliath_torch.parallel.tile_shard import render_tile_sharded
+
+        if return_radii:
+            raise ValueError("return_radii is not supported by the "
+                             "tile-sharded render (tile_shard_axis)")
+        return render_tile_sharded(
+            tile_shard_mesh, tile_shard_axis, cam_img_w, cam_img_h,
+            K, Rt, primpos, primqvec, primscale, opacity, colors,
+            return_depth=return_depth, bg_color=bg_color,
+            tile_size=tile_size, global_scale=global_scale, z_near=z_near,
+            max_tiles_per_prim=max_tiles_per_prim,
+            max_pairs_per_tile=max_pairs_per_tile, chunk=chunk,
+            pair_budget_mult=pair_budget_mult, use_pallas=use_pallas,
+            pallas_inner=pallas_inner,
+        )
     del pallas_inner
-    if tile_shard_axis is not None or tile_shard_mesh is not None:
-        raise NotImplementedError(
-            "tile-sharded rendering is not ported yet "
-            "(ROADMAP queue 1, parallel/tile_shard.py)")
     ntx = -(-cam_img_w // tile_size)
     nty = -(-cam_img_h // tile_size)
     B, N = primpos.shape[:2]

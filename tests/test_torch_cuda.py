@@ -32,7 +32,12 @@ shadow integrals at rtol 1e-5 plus 1e-5, the small teacher forward at rtol
 PyTorch on both sides) at rtol 1e-4 plus 1e-4 of the largest value; the
 small relight spin frame as chip_smoke.py's reference (rtol 1e-3 plus 1e-3
 of each part's largest entry; the composite panel's mirrorball inset and
-the rest of it are held apart).
+the rest of it are held apart). parallel/: K1 and K4 at a band's shapes as
+above; the band and slab renders, outputs and gradients, card against CPU
+as render's gradients; the sharded RGCA step card against CPU at rtol 1e-3
+with atol 1e-3 of each gradient's largest entry, or within 4 times its
+spread (its one-ulp move on the card, or the unsharded step's own
+card-to-CPU distance).
 """
 
 import numpy as np
@@ -1163,3 +1168,146 @@ def test_relight_spin_frame_on_the_card_matches_the_cpu(cuda):
     for err, largest in errs.values():
         assert largest > 0
         assert err <= 2 * chip_smoke.SMALL_RTOL * largest
+
+
+@pytest.mark.parametrize("band", [0, 1, 2])
+def test_band_kernels_match_plain(cuda, band, monkeypatch):
+    """K1 and K4 at a band's shapes: the 72-row frame split in 3 bands of
+    2 tile rows (the last cropped), each binned with its y offset and
+    height (parallel/tile_shard.py): K1 against its plain version as
+    above, K4 exactly on the band's two scans."""
+    from goliath_torch.ops import binning
+    from goliath_torch.parallel.tile_shard import band_geometry
+
+    H, W, ts, maxpp, chunk = 72, 100, 16, 64, 16
+    arrays = [torch.from_numpy(a).to(cuda) for a in _scene(
+        np.random.RandomState(band), 400, H, W, True)]
+    ntx, band_nty, band_h, budget = band_geometry(W, H, ts, 3, 400, 4, 64)
+    scans, orig = [], binning.cumsum1d
+
+    def record(x):
+        scans.append(x.clone())
+        return orig(x)
+
+    monkeypatch.setattr(binning, "cumsum1d", record)
+    xys, conics, op_s, chan, valid, _r, b = tg.prepare_sample(
+        *arrays, H, W, ts, pair_budget=budget, y_offset_px=band * band_h,
+        bin_img_h=band_h)
+    assert (b.num_tiles_x, b.num_tiles_y) == (ntx, band_nty) == (7, 2)
+    assert len(scans) == 2 and int(b.tile_end[-1]) > 0
+    for x in scans:
+        assert torch.equal(gc.cumsum1d(x), gc.cumsum1d_plain(x))
+    rows = gc.pack_pair_rows(xys, conics, op_s, chan, valid.float(),
+                             b.sorted_prim, (maxpp // chunk + 1) * chunk)
+    kw = dict(img_h=band_h, img_w=W, tile_size=ts, ntx=ntx, nty=band_nty,
+              chunk=chunk, max_pairs_per_tile=maxpp)
+    img, T, cnt = gc.compositor_fwd(rows, b.tile_start, b.tile_end, **kw)
+    p_img, p_T, p_cnt = gc.compositor_fwd_plain(rows, b.tile_start,
+                                                b.tile_end, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(img, p_img, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(T, p_T, atol=1e-4, rtol=1e-4)
+    assert torch.equal(cnt, p_cnt)
+
+
+@pytest.mark.parametrize("axis_kind", ["tile", "slab"])
+def test_sharded_renders_on_the_card_match_the_cpu(cuda, axis_kind):
+    """The band render (3 bands) and the slab render (3 slabs) of a small
+    batch, outputs and gradients, on the card (K1, K4, K2, K3) against the
+    CPU (plain versions): rtol 1e-3 with atol 1e-3 of each entry's
+    largest; the kernels launched once a band or slab and sample."""
+    from goliath_torch.parallel.sharding import Mesh
+    from goliath_torch.parallel.tile_shard import (
+        render_prim_sharded,
+        render_tile_sharded,
+    )
+
+    H, W = 72, 100
+    arrays = [torch.from_numpy(np.stack(pair)) for pair in zip(
+        _scene(np.random.RandomState(9), 300, H, W, False),
+        _scene(np.random.RandomState(10), 300, H, W, False))]
+    fn = render_tile_sharded if axis_kind == "tile" else render_prim_sharded
+    kw = dict(tile_size=16, max_pairs_per_tile=128, chunk=32,
+              pair_budget_mult=4, use_pallas=True)
+
+    def run(dev):
+        ins = [t.to(dev) for t in arrays]
+        leaves = [ins[i].clone().requires_grad_(True) for i in (2, 5, 6)]
+        ins[2], ins[5], ins[6] = leaves
+        out = fn(Mesh([dev] * 3, ("x",)), "x", W, H, *ins, **kw)
+        ((out["render"] ** 2).mean() + out["alpha"].mean()).backward()
+        return ({k: v.detach().cpu() for k, v in out.items()},
+                [t.grad.cpu() for t in leaves])
+
+    gc.reset_launch_counts()
+    got, g_got = run(cuda)
+    torch.cuda.synchronize()
+    launches = dict(gc.LAUNCHES)
+    ref, g_ref = run(torch.device("cpu"))
+    assert launches["compositor_fwd"] == launches["pair_grads"] == 6
+    assert launches["cumsum_cols"] == 6 and launches["cumsum1d"] == 12
+    for k in ref:
+        scale = float(ref[k].abs().max())
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-3,
+                                   atol=1e-3 * scale, msg=lambda m: f"{k}: {m}")
+    for g, r in zip(g_got, g_ref):
+        scale = float(r.abs().max())
+        assert scale > 0
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3 * scale)
+
+
+def test_sharded_step_on_the_card_matches_the_cpu(cuda):
+    """One sharded RGCA step of the dry run (48x48, uv 32, batch 4 on 4
+    shards) on the card against the CPU, from the same parameters and
+    draws: the losses at rtol 1e-3, every gradient at rtol 1e-3 with atol
+    1e-3 of its largest entry or else within 4 times its spread beyond
+    that. The spread of a gradient is the larger of its largest move on the
+    card when every parameter is scaled by 1 + 1e-7 N(0, 1) (seeds 1-3)
+    and the unsharded step's own distance between the card and the CPU:
+    sharding adds nothing to what the card and the CPU differ by."""
+    from goliath_torch import train as train_lib
+    from goliath_torch.parallel import make_sharded_train_step
+    from goliath_torch.parallel.sharding import Mesh
+    from goliath_torch.scripts import dryrun_multichip as dr
+
+    def run(dev, seed=None, shards=4):
+        ds, model, batch = dr.build_rgca(48, 32, 2, 4, dev)
+        if seed is not None:
+            gen = torch.Generator().manual_seed(seed)
+            with torch.no_grad():
+                for p in model.module.parameters():
+                    p.mul_(1 + 1e-7 * torch.randn(
+                        p.shape, generator=gen).to(p.device))
+        loss_fn, opt = dr.family_loss_and_optimizer("rgca", ds, model)
+        step = (make_sharded_train_step(model, loss_fn, opt,
+                                        Mesh([dev] * shards, ("data",)))
+                if shards else train_lib.make_train_step(model, loss_fn, opt))
+        total, ldict = step({k: torch.as_tensor(v).to(dev)
+                             for k, v in batch.items()}, 0)
+        return ({k: float(v) for k, v in ldict.items()},
+                {n: p.grad.cpu() for n, p in model.module.named_parameters()})
+
+    got, g_got = run(cuda)
+    ref, g_ref = run(torch.device("cpu"))
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k] == pytest.approx(ref[k], rel=1e-3), k
+    spread, need = {}, []
+    for n, r in g_ref.items():
+        scale = float(r.abs().max())
+        diff = (g_got[n] - r).abs()
+        usual = 1e-3 * r.abs() + 1e-3 * scale
+        if bool((diff <= usual).all()):
+            continue
+        if not spread:
+            card1 = run(cuda, shards=0)[1]
+            cpu1 = run(torch.device("cpu"), shards=0)[1]
+            spread = {k: float((card1[k] - cpu1[k]).abs().max())
+                      for k in g_got}
+            for seed in (1, 2, 3):
+                for k, g in run(cuda, seed)[1].items():
+                    spread[k] = max(spread[k],
+                                    float((g - g_got[k]).abs().max()))
+        need.append((n, float(diff.max()) / scale, spread[n] / scale))
+        assert bool((diff <= usual + 4.0 * spread[n]).all()), need[-1]
+    print(f"gradients that need their spread: {need}")

@@ -42,15 +42,41 @@ def test_render_matches_jax_pallas_path(monkeypatch, return_depth):
 
 
 def test_render_raises_on_unported_branches(monkeypatch):
-    """The tile-sharded branch still raises; the batch-folded branch (K6)
-    raised until it was ported and now runs where the JAX package takes
-    it: use_pallas, GOLIATH_GSPLAT_FOLD=1, B > 1, no radii
+    """Both branches raised until they were ported. The tile-sharded
+    branch now routes ``render(..., tile_shard_mesh=, tile_shard_axis=)``
+    to ``parallel.tile_shard.render_tile_sharded`` with the render's
+    arguments, also under GOLIATH_GSPLAT_FOLD=1 (the band path never
+    folds), and refuses ``return_radii`` as the JAX package's assert does
+    (tests/test_torch_parallel_tile.py holds the band render against the
+    JAX one). The batch-folded branch (K6) runs where the JAX package
+    takes it: use_pallas, GOLIATH_GSPLAT_FOLD=1, B > 1, no radii
     (tests/test_torch_gsplat_fold.py holds it against the JAX fold)."""
+    from goliath_torch.parallel import tile_shard
+    from goliath_torch.parallel.sharding import Mesh
+
     scene = [torch.from_numpy(a) for a in _scene(
         np.random.RandomState(5), 2, 8, 16, 16)]
-    with pytest.raises(NotImplementedError, match="tile_shard"):
-        tg.render(16, 16, *scene, tile_shard_axis="x")
+    mesh = Mesh(["cpu"] * 2, ("x",))
+    banded, routed = tile_shard.render_tile_sharded, []
+
+    def band_spy(*a, **kw):
+        routed.append((a[:4], kw))
+        return banded(*a, **kw)
+
+    monkeypatch.setattr(tile_shard, "render_tile_sharded", band_spy)
+    with pytest.raises(ValueError, match="return_radii"):
+        tg.render(16, 16, *scene, tile_shard_mesh=mesh, tile_shard_axis="x",
+                  return_radii=True)
+    assert not routed
     monkeypatch.setenv("GOLIATH_GSPLAT_FOLD", "1")
+    out = tg.render(16, 16, *scene, tile_shard_mesh=mesh,
+                    tile_shard_axis="x", use_pallas=True, chunk=32)
+    ref = tg.render(16, 16, *scene, use_pallas=False, chunk=32)
+    assert len(routed) == 1 and routed[0][0] == (mesh, "x", 16, 16)
+    assert routed[0][1]["use_pallas"] and routed[0][1]["chunk"] == 32
+    assert set(out) == set(ref) - {"radii"}
+    for k in out:
+        assert out[k].shape == ref[k].shape, k
     fold, calls = tg._render_folded, []
 
     def spy(*a):

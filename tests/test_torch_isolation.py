@@ -38,6 +38,8 @@ def test_the_port_has_sources_to_check():
     assert len(SOURCES) > 40
     assert (ROOT / "goliath_torch" / "__init__.py") in SOURCES
     assert (ROOT / "goliath_torch" / "native" / "zipio.py") in SOURCES
+    for name in ("__init__", "sharding", "tile_shard"):
+        assert (ROOT / "goliath_torch" / "parallel" / f"{name}.py") in SOURCES
 
 
 @pytest.mark.parametrize("path", SOURCES,
