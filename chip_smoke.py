@@ -44,7 +44,7 @@ the final result line:
      size 4 and 3 steps, counts again set to 0 just before and read just
      after: finite losses, moving parameters, a gradient in every parameter
      group, the expected launch counts, step times, peak memory and one
-     profiled step;
+     profiled step; its checkpoints are kept for phase 33;
  10. the batch-folded training path: the same run with
      GOLIATH_GSPLAT_FOLD=1 (one binning, K6 forward and backward and one
      reduce for the 4 samples), the same checks, its own launch counts, and
@@ -258,7 +258,26 @@ the final result line:
      at the JAX dry run's tiny shapes, the tile axis on its 2-D mesh
      against the unsharded render), counts set to 0 just before and read
      just after (exactly as its mesh sizes give them);
- 33. per kernel (and per mode of a kernel): check result, launches on each
+ 33. the checkpoint-render example (run right after phase 9):
+     goliath_torch.examples.render_example.render on configs/rgca.yml at
+     full width (FULL_DATA) from phase 9's last checkpoint (.pt), then on
+     configs/mesh_vae.yml at the mesh eval path's width (MESH_DATA, the
+     mesh cuts) from fresh weights, 4 samples each, counts set to 0 just
+     before each run and read just after (K1 4 and K4 8; K5 4 and K4 8,
+     exactly): each run's wall time and peak memory, its PNG read back at
+     the grid's size, the grid within 1 LSB of uint8 of the grid of a
+     model built here from the same weights on the run's batch; then K1
+     on the RGCA run's first sample against its plain version, K5 on the
+     mesh run's first sample bit for bit, and K4 on each run's 8 scans
+     against torch.cumsum, exactly;
+ 34. the rest of the layer library (library_path): each module of
+     library_cases forward and backward at its full width on the card
+     against the same module with the same state_dict on the CPU on the
+     first sample (lib_card_vs_cpu: float32 outputs at LIB_TOL, gradients
+     at LIB_GRAD_TOL, or for a module with leaky ReLUs outputs and
+     gradients in float64 at LIB_F64_TOL), its float32 time at the whole
+     batch by CUDA events and its peak memory;
+ 35. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -509,9 +528,10 @@ def report_k1_work(counts, evals, label):
                              f"{evals}")
 
 
-def check_k1(gc, torch, args, frame):
+def check_k1(gc, torch, args, frame, timed=True):
     """Phase 4: K1 against its plain version on a full-width frame. Leaves
-    the pair rows, K1's outputs and the evaluation count in ``frame``."""
+    the pair rows, K1's outputs and the evaluation count in ``frame``.
+    Untimed, it returns the error alone."""
     from goliath_torch.utils.timing import cuda_ms
 
     (xys, conics, op_s, chan, valid, sorted_prim, tile_start, tile_end,
@@ -549,6 +569,9 @@ def check_k1(gc, torch, args, frame):
 
     evals = processed_evals(tile_start, tile_end, cnt, chunk, nchunks, ts)
     report_k1_work(counts, evals, "K1")
+    frame.update(rows=rows, img=img, T=T, cnt=cnt, evals=evals)
+    if not timed:
+        return dict(max_abs_err=max(err_img, err_T))
     ops = 16 * evals  # the alpha test of each (pair, pixel) evaluated
     nbytes = (rows.numel() * 4 + 2 * tile_start.numel() * 4
               + img.numel() * 4 + T.numel() * 4 + cnt.numel() * 4)
@@ -560,7 +583,6 @@ def check_k1(gc, torch, args, frame):
     log(f"K1 timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms by {b_by} ({evals} pair-pixel evaluations, "
         f"{nbytes} bytes)")
-    frame.update(rows=rows, img=img, T=T, cnt=cnt, evals=evals)
     return dict(max_abs_err=max(err_img, err_T), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -1253,14 +1275,23 @@ def check_decay(watched, steps, label):
                              f"AdamW decays parameters with zero gradients")
 
 
-def train_path(gc, torch, card_line, record):
+def train_path(gc, torch, card_line, record, run_dir=None):
     """Phase 8: the per-sample training path. K2 and K3 once per sample per
     step; K1 also once per sample of the train=False forward the loop's
-    summary takes at iteration 0; K4 twice per render."""
+    summary takes at iteration 0; K4 twice per render. Its checkpoints stay
+    in ``run_dir`` where it is given (the render example reads them)."""
     n = TRAIN_BATCH * TRAIN_STEPS
     return run_training(gc, torch, card_line, "train path", dict(
         pair_grads=n, cumsum_cols=n, compositor_fwd=n + TRAIN_BATCH,
-        cumsum1d=2 * (n + TRAIN_BATCH)), record)
+        cumsum1d=2 * (n + TRAIN_BATCH)), record, run_dir=run_dir)
+
+
+def latest_checkpoint(run_dir):
+    """The .pt file that run_dir/checkpoints/latest names, or None."""
+    ckpt_dir = Path(run_dir) / "checkpoints"
+    if not (ckpt_dir / "latest").is_file():
+        return None
+    return str(ckpt_dir / (ckpt_dir / "latest").read_text().strip())
 
 
 class FoldEnv:
@@ -5900,6 +5931,400 @@ def dryrun_path(gc, torch, card_line):
     return launches
 
 
+# The checkpoint-render example (goliath_torch/examples/render_example.py):
+# its render() on configs/rgca.yml at FULL_DATA from the per-sample training
+# path's checkpoint (K1 once and K4 twice a sample), then on
+# configs/mesh_vae.yml at the mesh eval path's width from fresh weights (K5
+# once and K4 twice a sample); EXAMPLE_SAMPLES samples each, as the example
+# takes. Its grid against chip_smoke's own grid of a model it builds from
+# the same checkpoint: within 1 LSB of uint8.
+EXAMPLE_SAMPLES = 4
+EXAMPLE_LSB = 1
+
+
+def example_grid(rgb):
+    """[B, 3, H, W] float (B <= 4) -> the example's [H, B W, 3] uint8 grid,
+    the body models' 0..255 divided by 255."""
+    import numpy as np
+
+    scale = 255.0 if rgb.max() > 2.0 else 1.0
+    grid = np.concatenate(list(rgb), axis=2).transpose(1, 2, 0)
+    return (np.clip(grid / scale, 0, 1) * 255).astype(np.uint8)
+
+
+def example_run(gc, torch, card_line, label, cfg, ckpt, expected, out_dir,
+                captured):
+    """One render() of the example, counts reset just before and read just
+    after (exactly ``expected``, every other kernel 0): its wall time and
+    peak memory; the PNG read back at the grid's size; the grid against a
+    model built here from ``ckpt`` (or fresh) on the run's batch. Keeps the
+    run's first K1 arguments (``captured["k1"]``), its first K5 arguments
+    (``"k5"``) and every K4 input (``"k4"``), copied to the host without a
+    synchronise."""
+    from goliath_torch.config import Config, load_from_config
+    from goliath_torch.convert import load_params
+    from goliath_torch.examples import render_example as rex
+    from goliath_torch.ops import binning, rasterizer
+
+    seen, k4 = {}, []
+    orig_rt, orig_zb, orig_cs = (gc.rasterize_tiled, rasterizer.zbuffer,
+                                 binning.cumsum1d)
+    orig_data = rex.build_dataset
+
+    def to_host(x):   # pinned memory, no synchronise
+        return x.to("cpu", non_blocking=True) \
+            if isinstance(x, torch.Tensor) else x
+
+    def rt(*args, **kw):
+        seen.setdefault("k1", args)
+        return orig_rt(*args, **kw)
+
+    def zb(*args):
+        seen.setdefault("k5", tuple(to_host(a) for a in args))
+        return orig_zb(*args)
+
+    def cs(x):
+        k4.append(to_host(x))
+        return orig_cs(x)
+
+    def data(*a, **kw):
+        seen["dataset"] = orig_data(*a, **kw)
+        return seen["dataset"]
+
+    out_path = str(Path(out_dir) / f"{label}.png")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gc.rasterize_tiled, rasterizer.zbuffer, binning.cumsum1d = rt, zb, cs
+    rex.build_dataset = data
+    gc.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        res = rex.render(cfg, ckpt, out_path, device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(gc.LAUNCHES)
+    finally:
+        gc.rasterize_tiled, rasterizer.zbuffer, binning.cumsum1d = (
+            orig_rt, orig_zb, orig_cs)
+        rex.build_dataset = orig_data
+    peak = torch.cuda.max_memory_allocated()
+    log(f"render example ({label}): launches {launches}; wall {wall:.3f} s "
+        f"(data, model build, checkpoint, forward, PNG), peak device memory "
+        f"{peak / 2**30:.3f} GiB on {card_line}")
+    want = {name: 0 for name in gc.LAUNCHES}
+    want.update(expected)
+    if launches != want:
+        raise AssertionError(f"render example ({label}): launch counts "
+                             f"{launches} != {want}")
+    grid, batch = res["grid"], res["batch"]
+    n = batch["image"].shape[0]
+    size = cfg.model.get("renderer", cfg.model)   # mesh_vae's, RGCA's
+    h, w = size["image_height"], size["image_width"]
+    png = read_png(out_path)
+    log(f"render example ({label}): {n} samples, grid {grid.shape}, PNG "
+        f"{png.shape}, pixels above 0: {float((grid > 0).mean()):.4f}")
+    if n != EXAMPLE_SAMPLES or grid.shape != (h, n * w, 3) or not (
+            png == grid).all():
+        raise AssertionError(f"render example ({label}): the PNG is not the "
+                             f"grid of {EXAMPLE_SAMPLES} {h}x{w} renders")
+
+    # the same forward from a model built here from the same weights
+    del res
+    mc = Config.wrap(dict(cfg.model))
+    for key in ("cal", "pixel_cal"):
+        mc.pop(key, None)
+    mc["learn_blur"] = False
+    model = load_from_config(mc, assets=seen.pop("dataset").static_assets,
+                             device=DEVICE)
+    if ckpt:
+        load_params(model.module, ckpt)
+    with torch.no_grad():
+        rgb = model.apply(batch, train=False)["rgb"]
+    direct = example_grid(rgb.float().cpu().numpy())
+    diff = int(abs(direct.astype("int16") - grid.astype("int16")).max())
+    log(f"render example ({label}): grid against a direct model(batch, "
+        f"train=False) from the same weights: max difference {diff} of "
+        f"uint8 (tolerance {EXAMPLE_LSB})")
+    if diff > EXAMPLE_LSB:
+        raise AssertionError(f"render example ({label}): its grid differs "
+                             f"from the direct forward's by {diff}")
+    captured.update({k: v for k, v in seen.items() if k in ("k1", "k5")})
+    captured["k4"] = k4
+    return launches
+
+
+def render_example_path(gc, torch, card_line, ckpt, captured):
+    """The example on configs/rgca.yml at FULL_DATA from the training
+    path's checkpoint ``ckpt`` (K1 4, K4 8), then on configs/mesh_vae.yml
+    at MESH_DATA from fresh weights (K5 4, K4 8); each run's kernel
+    arguments in ``captured["rgca"]`` / ``captured["mesh"]``."""
+    if not ckpt:
+        raise AssertionError("the training path wrote no checkpoint")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_example_") as out:
+        captured["rgca"], captured["mesh"] = {}, {}
+        rgca = example_run(gc, torch, card_line, "rgca", rgca_config(), ckpt,
+                           dict(compositor_fwd=EXAMPLE_SAMPLES,
+                                cumsum1d=2 * EXAMPLE_SAMPLES), out,
+                           captured["rgca"])
+        torch.cuda.empty_cache()
+        mesh = example_run(gc, torch, card_line, "mesh_vae", mesh_config(),
+                           None, dict(zbuffer=EXAMPLE_SAMPLES,
+                                      cumsum1d=2 * EXAMPLE_SAMPLES), out,
+                           captured["mesh"])
+    return rgca, mesh
+
+
+# The rest of the layer library (nn/layers.py, blocks.py, unet.py,
+# shadow.py, color_cal.py: plain PyTorch, no hand kernel) at full width on
+# the card against the same modules with the same state_dict on the CPU.
+# Widths: the shadow variants at configs/mesh_vae.yml's shadow_net (uv 2048,
+# shadow 256, n_dims 4) from a 1024^2 AO map (mesh_vae's uv), batch 4; the
+# floor decoder at its fixed 512 from a 1024^2 AO map; the UNets at
+# decoder_view (4 -> 3 channels, 1024, n_init_ftrs 8); the blocks'
+# UpscaleNet at upscale_net (n_ftrs 4, 1024 -> 2048); the colour-cal
+# variants on 4 images of 2048x1334 (identity camera 400870); the layers at
+# 64 channels, 512^2 (the upsampling layers' output), batch 4.
+LIB_BATCH = 4
+LIB_DIST_JOINTS = 16   # DistMapShadowUNet's input maps: no config names one
+LIB_CAMERAS = ["400870", "400883", "401031", "401168"]
+LIB_GRAY_CAMERA = "410001"   # CalV5's grayscale branch (v6 refuses it)
+# card against CPU on the first sample of each batch, in float32 (TF32
+# off): outputs held at rtol and atol of the largest entry LIB_TOL, and
+# gradients at LIB_GRAD_TOL (float32 sums in other orders: 2.1e-06-8.2e-05
+# of the largest entry measured on the modules without leaky ReLUs). Where
+# a module has leaky ReLUs, its float32 gradients are not held card against
+# CPU: a leaky ReLU whose input lies within rounding of 0 takes slope 1 on
+# one device and 0.2 on the other, which moves every gradient behind it
+# over its receptive field (at full width the UNets' and the floor
+# decoder's differ so in 2,480-12,697 entries, up to 0.11 of the largest
+# entry, while their float64 gradients agree to 5e-14). There the same
+# module in float64 holds outputs and every gradient at LIB_F64_TOL:
+# float64 sums in other orders, the weight norm's projection cancelling
+# (6e-3 of the largest in float32 on the floor decoder's first layer,
+# tests/test_torch_library_floor.py).
+LIB_TOL, LIB_GRAD_TOL, LIB_F64_TOL = 1e-4, 1e-3, 1e-8
+
+
+def library_cases():
+    """(name, width, make(generator) -> module, float input shapes, integer
+    inputs as numpy arrays, whether the module has leaky ReLUs)."""
+    import numpy as np
+
+    from goliath_torch.nn import blocks, color_cal, layers, shadow, unet
+
+    B = LIB_BATCH
+    ao_mean = np.random.RandomState(9).rand(1, 1024, 1024).astype(np.float32)
+    # sample 0 (the one held against the CPU) on a camera with an affine;
+    # the identity camera in the batch too
+    idx = np.asarray([3, 1, 2, 0], np.int32)
+    cases = [
+        ("ShadowUNet_PoseCond", "uv 2048, shadow 256, n_dims 4, pose 6 -> 32",
+         lambda g: shadow.ShadowUNet_PoseCond(
+             2048, ao_mean, 256, n_dims=4, n_pose_dims=6,
+             n_pose_enc_dims=32, generator=g),
+         [(B, 1, 1024, 1024), (B, 6)], [], True),
+        ("DistMapShadowUNet", f"uv 2048, shadow 256, n_dims 4, "
+         f"{LIB_DIST_JOINTS} joints",
+         lambda g: shadow.DistMapShadowUNet(2048, 256, LIB_DIST_JOINTS,
+                                            n_dims=4, generator=g),
+         [(B, LIB_DIST_JOINTS, 1024, 1024)], [], True),
+        ("FloorShadowDecoder", "512 from 1024^2",
+         lambda g: shadow.FloorShadowDecoder(512, generator=g),
+         [(B, 1, 1024, 1024)], [], True),
+        ("UNetW", "4 -> 3, 1024, n_init_ftrs 8",
+         lambda g: unet.UNetW(4, 3, 8, generator=g), [(B, 4, 1024, 1024)],
+         [], True),
+        ("UNetWBConcat", "4 -> 3, 1024, n_init_ftrs 8",
+         lambda g: unet.UNetWBConcat(4, 3, 1024, 8, generator=g),
+         [(B, 4, 1024, 1024)], [], True),
+        ("blocks.UpscaleNet", "3 -> 3, n_ftrs 4, 1024 -> 2048",
+         lambda g: blocks.UpscaleNet(3, 3, 4, 1024, generator=g),
+         [(B, 3, 1024, 1024)], [], True),
+    ]
+    for ver in ("identity", "v3", "v5", "v6"):
+        cams = LIB_CAMERAS if ver == "v6" else LIB_CAMERAS[:3] + [
+            LIB_GRAY_CAMERA]
+        cases.append((f"make_cal({ver})", "4 images of 2048x1334",
+                      lambda g, v=ver, c=cams: color_cal.make_cal(
+                          v, cameras=c, identity_camera="400870"),
+                      [(B, 3, 2048, 1334)], [idx], False))
+    C = 64
+    cases += [
+        ("ConvTranspose2dWN", "64 -> 64, 256^2 -> 512^2",
+         lambda g: layers.ConvTranspose2dWN(C, C, 4, 2, 1, generator=g),
+         [(B, C, 256, 256)], [], False),
+        ("UpConv2dWN", "64 -> 64, 256^2 -> 512^2",
+         lambda g: layers.UpConv2dWN(C, C, 3, 1, 1, generator=g),
+         [(B, C, 256, 256)], [], False),
+        ("Sequential(make_conv)", "64 -> 64 -> 64, 512^2, a tied 3x3 conv "
+         "and an untied 1x1",
+         lambda g: layers.Sequential([
+             *layers.make_conv(C, C, 3, 1, 1, act=layers.LeakyReLU(),
+                               generator=g),
+             *layers.make_conv(C, C, 1, 1, 0, ub=(512, 512), generator=g)]),
+         [(B, C, 512, 512)], [], True),
+        ("Conv2dELR", "64 -> 64, 512^2",
+         lambda g: layers.Conv2dELR(C, C, 3, 1, 1, lr_mul=0.5, generator=g),
+         [(B, C, 512, 512)], [], False),
+        ("LinearELR", "64 -> 64 at each of 512^2 pixels",
+         lambda g: layers.LinearELR(C, C, lr_mul=0.5, generator=g),
+         [(B, 512 * 512, C)], [], False),
+        ("Downsample", "64 channels, 512^2 -> 256^2",
+         lambda g: layers.Downsample(), [(B, C, 512, 512)], [], False),
+        ("ConcatPyramid", "64 (+3) channels, 128^2 -> 512^2, y at 512^2, "
+         "transposed",
+         lambda g: layers.ConcatPyramid([
+             layers.ConvTranspose2dWN(C + 3, C, 4, 2, 1, generator=g),
+             layers.LeakyReLU(),
+             layers.ConvTranspose2dWN(C + 3, C, 4, 2, 1, generator=g)],
+             n_concat_in=3, transposed=True),
+         [(B, C, 128, 128), (B, 3, 512, 512)], [], True),
+    ]
+    return cases
+
+
+def lib_card_vs_cpu(torch, make, shapes, ints, kinks):
+    """Build ``make``'s module on the CPU (generator seed 0; biases and
+    cal_params moved off their initial values so that they show) and copy
+    it to the card; draw float inputs of ``shapes`` on the card (seeded;
+    they take gradients) beside the integer inputs ``ints``; the loss is a
+    seeded projection of the outputs. The card's float32 forward and
+    backward run at the whole batch; its first sample is held against the
+    CPU's: in float32, outputs at LIB_TOL and, for a module without leaky
+    ReLUs (``kinks`` false), every gradient (parameters and inputs) at
+    LIB_GRAD_TOL; with ``kinks``, outputs and every gradient in float64 at
+    LIB_F64_TOL instead. Returns a dict: the largest errors as fractions
+    of the largest entry (``out32``, ``grad32``: the card's float32
+    gradients against the CPU's, or with ``kinks`` against the card's
+    float64 ones, reported; with ``kinks`` also ``out64``, ``grad64``),
+    whether all holds (``holds``), the float32 run's peak device memory
+    (``peak``) and ``step``, which runs the card's float32 forward and
+    backward again."""
+    import copy
+
+    cpu = make(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for pname, p in cpu.named_parameters():
+            if pname.endswith("bias") or "cal_params" in pname:
+                p.add_(0.1 * torch.randn(p.shape, generator=torch
+                                         .Generator().manual_seed(1)))
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    xs = [torch.rand(s, generator=gen, device=DEVICE) for s in shapes]
+    ints = [torch.from_numpy(i).to(DEVICE) for i in ints]
+
+    def leaves(tensors, dtype, device):
+        return [t.to(device=device, dtype=dtype).detach().requires_grad_(True)
+                for t in tensors]
+
+    def outputs(out):
+        return [out[k] for k in sorted(out)] if isinstance(out, dict) \
+            else [out]
+
+    def run(mod, tx, ti, cots):
+        outs = outputs(mod(*tx, *ti))
+        sum((o * c[:o.shape[0]].to(o.dtype)).sum()
+            for o, c in zip(outs, cots)).backward()
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for _, p in mod.named_parameters()]
+        return [o.detach() for o in outs], grads + [t.grad for t in tx]
+
+    def errors(got, ref, tol):
+        worst, beyond = 0.0, 0
+        for g, r in zip(got, ref):
+            g, r = g.cpu().to(r.dtype), r.cpu()
+            scale = float(r.abs().max()) if r.numel() else 0.0
+            d = (g - r).abs()
+            worst = max(worst, float(d.max()) / scale if scale
+                        else float(d.max()))
+            beyond += int((d > tol * scale + tol * r.abs()).sum())
+        return worst, beyond
+
+    first = [x[:1] for x in xs], [i[:1] for i in ints]
+    card = copy.deepcopy(cpu).to(DEVICE)
+    tx = leaves(xs, torch.float32, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        shapes_out = [o.shape for o in outputs(card(*tx, *ints))]
+    cots = [torch.randn(s, generator=gen, device=DEVICE) for s in shapes_out]
+    got32 = run(card, tx, ints, cots)[0]
+    torch.cuda.synchronize()
+    res = dict(peak=torch.cuda.max_memory_allocated())
+    one32 = run(copy.deepcopy(cpu).to(DEVICE),
+                leaves(first[0], torch.float32, DEVICE), first[1], cots)[1]
+    ref32 = run(cpu, leaves(first[0], torch.float32, "cpu"),
+                [i.cpu() for i in first[1]], [c[:1].cpu() for c in cots])
+    res["out32"], beyond = errors([o[:1] for o in got32], ref32[0], LIB_TOL)
+    del got32
+    if kinks:
+        ref64 = run(copy.deepcopy(cpu).double(),
+                    leaves(first[0], torch.float64, "cpu"),
+                    [i.cpu() for i in first[1]], [c[:1].cpu() for c in cots])
+        got64 = run(copy.deepcopy(cpu).double().to(DEVICE),
+                    leaves(first[0], torch.float64, DEVICE), first[1], cots)
+        res["out64"], b_out = errors(got64[0], ref64[0], LIB_F64_TOL)
+        res["grad64"], b_grad = errors(got64[1], ref64[1], LIB_F64_TOL)
+        res["grad32"], _ = errors(one32, got64[1], LIB_F64_TOL)
+        beyond += b_out + b_grad
+        del ref64, got64
+    else:
+        res["grad32"], b_grad = errors(one32, ref32[1], LIB_GRAD_TOL)
+        beyond += b_grad
+    res["holds"] = beyond == 0
+    del ref32, one32
+    torch.cuda.empty_cache()
+
+    def step():
+        card.zero_grad(set_to_none=True)
+        for t in tx:
+            t.grad = None
+        run(card, tx, ints, cots)
+
+    res["step"] = step
+    return res
+
+
+def library_path(torch, card_line):
+    """Each new module of the layer library forward and backward on the
+    card at its full width (library_cases) against the same module, with
+    the same state_dict, on the CPU (lib_card_vs_cpu: the first sample's
+    outputs, every parameter's gradient and every input's gradient of a
+    seeded projection of the outputs); the card's float32 forward and
+    backward at the whole batch by CUDA events, and its peak memory."""
+    from goliath_torch.utils.timing import cuda_ms
+
+    failed, report = [], {}
+    for name, width, make, shapes, ints, kinks in library_cases():
+        t0 = time.perf_counter()
+        res = lib_card_vs_cpu(torch, make, shapes, ints, kinks)
+        ms = cuda_ms(res.pop("step"), reps=3, warmup=1)
+        peak = res["peak"] / 2**30
+        report[name] = dict(ms=ms, peak_gib=peak,
+                            seconds=time.perf_counter() - t0)
+        log(f"library {name} ({width}, batch {LIB_BATCH}): forward and "
+            f"backward {ms:.3f} ms (float32), peak device memory {peak:.3f} "
+            f"GiB on {card_line}; card vs CPU on sample 0 as fractions of the "
+            f"largest entry: float32 outputs {res['out32']:.3e} (tolerance "
+            f"{LIB_TOL}), " + (
+                f"float64 outputs {res['out64']:.3e}, gradients "
+                f"{res['grad64']:.3e} (tolerance {LIB_F64_TOL}; leaky ReLUs), "
+                f"the card's float32 gradients {res['grad32']:.3e} from its "
+                f"float64 ones (reported)" if kinks else
+                f"float32 gradients {res['grad32']:.3e} (tolerance "
+                f"{LIB_GRAD_TOL})") + ": "
+            f"{'ok' if res['holds'] else 'FAILED'} "
+            f"({report[name]['seconds']:.1f} s with the CPU's runs)")
+        if not res["holds"]:
+            failed.append(name)
+        del res
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"library modules off their CPU result: "
+                             f"{failed}")
+    return report
+
 def main() -> int:
     import torch
 
@@ -5970,7 +6395,29 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase("main_path", main_path, gc, torch, card_line)
     totals, fold_inputs = {}, {}
-    phase("train_path", train_path, gc, torch, card_line, totals)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as run_dir:
+        phase("train_path", train_path, gc, torch, card_line, totals,
+              run_dir)
+        torch.cuda.empty_cache()
+        example = {}
+        phase("render_example_path", render_example_path, gc, torch,
+              card_line, latest_checkpoint(run_dir), example)
+    if "k1" in example.get("rgca", {}):
+        log("K1 on the render example (configs/rgca.yml, sample 0):")
+        phase("k1_example", check_k1, gc, torch, example["rgca"]["k1"], {},
+              False)
+    if "k4" in example.get("rgca", {}):
+        phase("k4_example_rgca", k4_mesh_check, gc, torch,
+              example["rgca"]["k4"], 2 * EXAMPLE_SAMPLES,
+              "render example (rgca)")
+    if "k5" in example.get("mesh", {}):
+        phase("k5_example", check_k5, gc, torch, example["mesh"]["k5"],
+              "K5 (render example, mesh_vae sample 0)")
+    if "k4" in example.get("mesh", {}):
+        phase("k4_example_mesh", k4_mesh_check, gc, torch,
+              example["mesh"]["k4"], 2 * EXAMPLE_SAMPLES,
+              "render example (mesh_vae)")
+    del example
     torch.cuda.empty_cache()
     phase("fold_train_path", fold_train_path, gc, torch, card_line, totals,
           fold_inputs)
@@ -6171,11 +6618,13 @@ def main() -> int:
     del band_inputs
     torch.cuda.empty_cache()
     phase("dryrun", dryrun_path, gc, torch, card_line)
+    torch.cuda.empty_cache()
+    phase("library_path", library_path, torch, card_line)
 
     # the phases that return (launches, measurements) of several kernels
     split = {}
     for name in ("xla_window_check", "k7_check", "p1_probe", "capture_path",
-                 "sharded_train"):
+                 "sharded_train", "render_example_path"):
         if name in phases:
             split[name], phases[name] = phases[name]
     xla_eval, xla_train = split.get("xla_window_check", ({}, {}))
@@ -6206,10 +6655,12 @@ def main() -> int:
              "prim_shard_eval": phases.get("prim_shard_eval", {}),
              "sharded_train": split.get("sharded_train", {}),
              "dryrun": phases.get("dryrun", {}),
+             "render_example_rgca": split.get("render_example_path", {}),
+             "render_example_mesh": phases.get("render_example_path", {}),
              "profile_reduce": split.get("k7_check", {}),
              "probe_kernel": split.get("p1_probe", {})}
     checks = {"compositor_fwd": ("K1", ["k1_check", "k1_relight",
-                                        "k1_band"]),
+                                        "k1_band", "k1_example"]),
               "compositor_fwd_xla": ("K1 xla", [
                   "xla_window_check:compositor_fwd_xla", "quality_kernels"]),
               "pair_grads": ("K2", ["k2_check", "backward_check",
@@ -6225,12 +6676,13 @@ def main() -> int:
                                   "k4_teacher", "k4_mvp_train",
                                   "k4_teacher_train", "k4_relight",
                                   "k4_quality", "k4_capture", "k4_texmean",
-                                  "k4_band"]),
+                                  "k4_band", "k4_example_rgca",
+                                  "k4_example_mesh"]),
               "zbuffer": ("K5", ["k5_check", "k5_train_check",
                                  "k5_drivable", "k5_drivable_train",
                                  "k5_urhand_shadow", "k5_urhand_render",
                                  "k5_urhand_train", "k5_quality",
-                                 "k5_texmean"]),
+                                 "k5_texmean", "k5_example"]),
               "compositor_fwd_fold": ("K6 fwd", [
                   "k6_check:compositor_fwd_fold", "fold_train_path"]),
               "pair_grads_fold": ("K6 bwd", [

@@ -25,7 +25,10 @@ hand's without ``rgbdecoder``, with ``poseencoder2`` and
 included). Flax's ``nn.remat`` wrappers of the two slab decoders and of the
 teacher's UNet add no level to the tree: their parameters sit under
 ``geomdecoder.alphadecoder``, ``rgbdecoder.texdecoder`` and
-``relightdecoder.unet`` as the port's do.
+``relightdecoder.unet`` as the port's do. The list modules of nn/layers.py
+(``Sequential``, ``ConcatPyramid``) register their members under flax's
+names for a list attribute (``layers_0``, ``branch_2``; the index counts
+plain callables too), so their trees flatten alike.
 """
 
 from __future__ import annotations

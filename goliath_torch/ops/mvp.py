@@ -67,6 +67,10 @@ def prim_world_aabb(primpos: torch.Tensor, primrot: torch.Tensor,
     return primpos - half, primpos + half
 
 
+class MVPRenderOut(NamedTuple):
+    rgba: torch.Tensor  # [R, 4]
+
+
 class PackedVolume(NamedTuple):
     """Voxel rows packed for trilinear taps: row ((k*D + z)*H + y)*W + x
     holds vol[k, :, z, y, x] then vol[k, :, z, y, min(x+1, W-1)], so one

@@ -252,6 +252,19 @@ class LinearBlendSkinning:
         return self.skinning(self.bind_state, verts, states)
 
 
+def compute_normalized_pose_quat(lbs: LinearBlendSkinning, local_pose,
+                                 scale) -> torch.Tensor:
+    """Per-joint local rotation deltas against the bind pose: [B, J, 4]."""
+    B = local_pose.shape[0]
+    zeros = local_pose.new_zeros((B, 6))
+    params = lbs.param_transform(
+        torch.cat([zeros, local_pose, scale], dim=-1)).reshape(B, -1, 7)
+    rot = quat.quat_mul(lbs.joint_rotation[None],
+                        quat.quat_from_xyz(params[:, :, 3:6]))
+    bind_inv = quat.quat_invert(lbs.bind_state[:, :, 3:7])
+    return quat.quat_mul(rot, bind_inv)
+
+
 class LBSModule:
     """Facade: pose/unpose/template_pose with global scaling."""
 

@@ -81,3 +81,8 @@ def dir2sh(deg: int, dirs: torch.Tensor) -> torch.Tensor:
         for m in range(-l, l + 1)
     ]
     return torch.stack(shs, dim=-1)
+
+
+def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """Evaluate SH coefficients sh [..., C, (deg+1)^2] at dirs [..., 3]."""
+    return torch.einsum("...ck,...k->...c", sh, dir2sh(deg, dirs))

@@ -37,7 +37,11 @@ above; the band and slab renders, outputs and gradients, card against CPU
 as render's gradients; the sharded RGCA step card against CPU at rtol 1e-3
 with atol 1e-3 of each gradient's largest entry, or within 4 times its
 spread (its one-ulp move on the card, or the unsharded step's own
-card-to-CPU distance).
+card-to-CPU distance). The layer library's modules card against CPU as
+chip_smoke.py's lib_card_vs_cpu holds them (float32 outputs at LIB_TOL and
+gradients at LIB_GRAD_TOL; with leaky ReLUs, float64 outputs and gradients
+at LIB_F64_TOL); the render example's grid on the card within 1 LSB of
+uint8 of the CPU's.
 """
 
 import numpy as np
@@ -1311,3 +1315,85 @@ def test_sharded_step_on_the_card_matches_the_cpu(cuda):
         need.append((n, float(diff.max()) / scale, spread[n] / scale))
         assert bool((diff <= usual + 4.0 * spread[n]).all()), need[-1]
     print(f"gradients that need their spread: {need}")
+
+
+def _library_small_cases():
+    """The modules of chip_smoke.library_cases at small widths."""
+    from goliath_torch.nn import blocks, color_cal, layers, shadow, unet
+
+    B, C = 2, 8
+    mean = np.random.RandomState(9).rand(1, 64, 64).astype(np.float32)
+    idx = np.asarray([1, 0], np.int32)   # sample 0 not the identity camera
+    cams = ["400870", "410001", "401031"]
+    return {
+        "pose_cond": (lambda g: shadow.ShadowUNet_PoseCond(
+            128, mean, 32, n_dims=4, n_pose_dims=6, n_pose_enc_dims=8,
+            generator=g), [(B, 1, 64, 64), (B, 6)], []),
+        "dist_map": (lambda g: shadow.DistMapShadowUNet(
+            128, 32, 3, n_dims=4, biases=False, generator=g),
+            [(B, 3, 64, 64)], []),
+        "floor": (lambda g: shadow.FloorShadowDecoder(512, generator=g),
+                  [(1, 1, 256, 256)], []),
+        "unet_w": (lambda g: unet.UNetW(4, 3, 4, generator=g),
+                   [(B, 4, 64, 96)], []),
+        "unet_wb_concat": (lambda g: unet.UNetWBConcat(4, 3, 64, 4,
+                                                       generator=g),
+                           [(B, 4, 64, 64)], []),
+        "upscale_net": (lambda g: blocks.UpscaleNet(3, 3, 4, 32, generator=g),
+                        [(B, 3, 32, 32)], []),
+        **{f"cal_{v}": (lambda g, v=v: color_cal.make_cal(
+            v, cameras=cams if v != "v6" else cams[::2],
+            identity_camera="400870"), [(B, 3, 20, 12)], [idx])
+           for v in ("identity", "v3", "v5", "v6")},
+        "layers": (lambda g: layers.Sequential([
+            layers.ConvTranspose2dWN(C, C, 4, 2, 1, generator=g),
+            layers.LeakyReLU(),
+            layers.UpConv2dWN(C, C, 3, 1, 1, generator=g),
+            layers.Conv2dELR(C, C, 3, 2, 1, lr_mul=0.5, generator=g),
+            layers.Downsample(),
+            *layers.make_conv(C, C, 3, 1, 1, ub=(16, 16), generator=g)]),
+            [(B, C, 16, 16)], []),
+        "linear_elr": (lambda g: layers.LinearELR(C, 5, generator=g),
+                       [(B, 40, C)], []),
+        "concat_pyramid": (lambda g: layers.ConcatPyramid([
+            layers.ConvTranspose2dWN(C + 3, C, 4, 2, 1, generator=g),
+            layers.LeakyReLU(),
+            layers.ConvTranspose2dWN(C + 3, C, 4, 2, 1, generator=g)],
+            n_concat_in=3, transposed=True), [(B, C, 8, 8), (B, 3, 32, 32)],
+            []),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_library_small_cases()))
+def test_library_module_on_the_card_matches_the_cpu(cuda, name):
+    """chip_smoke.py's library check (lib_card_vs_cpu) at small widths."""
+    import chip_smoke
+
+    make, shapes, ints = _library_small_cases()[name]
+    kinks = not name.startswith(("cal_", "linear_elr"))
+    res = chip_smoke.lib_card_vs_cpu(torch, make, shapes, ints, kinks)
+    res.pop("step")
+    assert res["holds"], res
+
+
+def test_render_example_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """render() on configs/rgca_synthetic.yml (use_pallas unset: K1 in the
+    XLA window), on the card and on the CPU: K1 4 and K4 8 launches, the
+    grids within 1 LSB of uint8."""
+    from pathlib import Path
+
+    from goliath_torch.config import load_config
+    from goliath_torch.examples import render_example as rex
+
+    cfg = load_config(str(Path(__file__).resolve().parents[1] / "configs"
+                          / "rgca_synthetic.yml"))
+    gc.reset_launch_counts()
+    card = rex.render(cfg, out_path=str(tmp_path / "card.png"),
+                      device="cuda")["grid"]
+    torch.cuda.synchronize()
+    assert gc.LAUNCHES["compositor_fwd_xla"] == 4
+    assert gc.LAUNCHES["cumsum1d"] == 8
+    host = rex.render(cfg, out_path=str(tmp_path / "cpu.png"),
+                      device="cpu")["grid"]
+    assert card.shape == host.shape == (64, 256, 3)
+    assert np.abs(card.astype(np.int16) - host.astype(np.int16)).max() <= 1
