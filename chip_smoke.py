@@ -258,7 +258,26 @@ the final result line:
      at the JAX dry run's tiny shapes, the tile axis on its 2-D mesh
      against the unsharded render), counts set to 0 just before and read
      just after (exactly as its mesh sizes give them);
- 33. the checkpoint-render example (run right after phase 9):
+ 33. parallel/ across distinct devices, the card and the host
+     (cross_device): one step of each of the dry run's five families at
+     its shapes and batch 2 on a "data" mesh of (cuda:0, cpu), the model
+     on the card and its replica on the host, each held against
+     train.make_train_step on the card from the same state and batch (a
+     gradient's spread taking in the unsharded step's own card-to-host
+     distance), the replica equal to the model after the step, bit for
+     bit, and the card's shard launching the kernels of its sample
+     exactly; then the tile axis in 2 bands and a frame in 2 depth slabs
+     over the same pair against the unsharded renders on the card;
+ 34. parallel/ across cards (multi_card_train), where two or more are
+     visible (else one line says so): make_sharded_train_step on
+     make_mesh(4), or make_mesh(2), at full width and batch 4 for 3 steps,
+     each held against the unsharded step on cuda:0 from the same state,
+     the replicas equal to the model after each; each card's launches,
+     peak memory, and busy time against the wall of one more step under
+     torch.profiler; then one eval frame in a band a card, its render
+     bit for bit against the same bands on cuda:0 on the same arguments
+     and beside the unsharded render;
+ 35. the checkpoint-render example (run right after phase 9):
      goliath_torch.examples.render_example.render on configs/rgca.yml at
      full width (FULL_DATA) from phase 9's last checkpoint (.pt), then on
      configs/mesh_vae.yml at the mesh eval path's width (MESH_DATA, the
@@ -270,14 +289,14 @@ the final result line:
      on the RGCA run's first sample against its plain version, K5 on the
      mesh run's first sample bit for bit, and K4 on each run's 8 scans
      against torch.cumsum, exactly;
- 34. the rest of the layer library (library_path): each module of
+ 36. the rest of the layer library (library_path): each module of
      library_cases forward and backward at its full width on the card
      against the same module with the same state_dict on the CPU on the
      first sample (lib_card_vs_cpu: float32 outputs at LIB_TOL, gradients
      at LIB_GRAD_TOL, or for a module with leaky ReLUs outputs and
      gradients in float64 at LIB_F64_TOL), its float32 time at the whole
      batch by CUDA events and its peak memory;
- 35. per kernel (and per mode of a kernel): check result, launches on each
+ 37. per kernel (and per mode of a kernel): check result, launches on each
      path, time, the plain version's time, the least time the card could
      take (bound) and the library call's time, as one JSON line.
 The last line is {"ok": true, "device": {...}}.
@@ -338,12 +357,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card() -> str:
+def card_lines():
+    """nvidia-smi's name and power limit of each visible card."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def card() -> str:
+    return card_lines()[0]
 
 
 def tensorstore_line() -> str:
@@ -1532,6 +1556,14 @@ def small_reference(torch):
 SPREAD_MULT = 4.0
 SPREAD_SEEDS = (1, 2, 3)
 MAX_SPREAD_PARAMS = 5
+# The sharded steps' holds sample the reference's own noise more widely:
+# at full width the card's atomic sums and the render's thresholds move some
+# decoder gradients by per-mille to percents of their largest entry from one
+# run to the next, with heavy tails, and a sharded run is one more draw of
+# that noise. So their spread takes one-ulp moves from SHARD_SPREAD_SEEDS and
+# REFERENCE_RERUNS reruns from the very same state, all of the reference.
+SHARD_SPREAD_SEEDS = (1, 2, 3, 4, 5, 6)
+REFERENCE_RERUNS = 2
 
 
 def urhand_small_train_reference(torch):
@@ -5706,6 +5738,189 @@ def band_train_kernels(gc, torch, captured, card_line):
     return dict(k2_err=err_b, k2_ms=ms2, k3_err=e64, k3_ms=ms3)
 
 
+def full_width_training(torch, n_steps):
+    """(model, loss, optimizer, batches, largest lr) of configs/rgca.yml
+    at full width (FULL_DATA), the model on the card with weights and
+    draws from seed 0, and ``n_steps`` batches of TRAIN_BATCH on the
+    card."""
+    from goliath_torch.config import load_from_config
+    from goliath_torch.optim import build_optimizer
+    from goliath_torch.scripts.run_train import build_dataset
+
+    cfg = rgca_config()
+    if cfg.dataloader.batch_size != TRAIN_BATCH:
+        raise AssertionError("the config no longer trains at batch 4")
+    dev = torch.device(DEVICE)
+    ds = build_dataset(cfg.data, device=dev)
+    model = load_from_config(cfg.model, assets=ds.static_assets, device=dev,
+                             generator=torch.Generator().manual_seed(0))
+    loss_fn = load_from_config(cfg.loss, assets=ds.static_assets)
+    opt_cfg = dict(cfg.optimizer)
+    opt_cfg.setdefault("lr", cfg.get("lr", 1e-3))
+    optimizer = build_optimizer(opt_cfg, model.module)
+    lr = max(g["lr"] for g in optimizer.inner.param_groups)
+    batches = shard_train_batches(ds, torch, n_steps, TRAIN_BATCH)
+    return model, loss_fn, optimizer, batches, lr
+
+
+def train_snapshot(module, optimizer):
+    """The training state a step changes: the module's state_dict, the
+    optimizer's state and the training draws' generator (None where the
+    module has none), copied."""
+    import copy
+
+    gen = getattr(module, "generator", None)
+    return ({k: v.clone() for k, v in module.state_dict().items()},
+            copy.deepcopy(optimizer.state_dict()),
+            None if gen is None else gen.get_state())
+
+
+def train_restore(module, optimizer, snap, params=None):
+    """Puts back ``snap`` (``train_snapshot``), with ``params`` in place of
+    its state_dict when given."""
+    import copy
+
+    module.load_state_dict(params or snap[0])
+    optimizer.load_state_dict(copy.deepcopy(snap[1]))
+    if snap[2] is not None:
+        module.generator.set_state(snap[2])
+
+
+def sync_cards(torch, cards):
+    for c in cards:
+        torch.cuda.synchronize(c)
+
+
+def take_step(gc, torch, module, step, batch, i, cards=(0,), tap=None):
+    """One step: its wall (ending in a synchronise of every card of
+    ``cards``), loss, gradients, parameters after it, its launches in all
+    and on each card, and each card's peak memory above what it held
+    before the step (``peak``: the largest of them)."""
+    resident = {}
+    for c in cards:
+        torch.cuda.synchronize(c)
+        torch.cuda.reset_peak_memory_stats(c)
+        resident[c] = torch.cuda.memory_allocated(c)
+    before = dict(gc.LAUNCHES)
+    before_card = {c: dict(v) for c, v in gc.CARD_LAUNCHES.items()}
+    t0 = time.perf_counter()
+    with KernelArgsTap(gc, tap):
+        total, _ = step(dict(batch), i)
+    sync_cards(torch, cards)
+    seconds = time.perf_counter() - t0
+    peaks = {c: torch.cuda.max_memory_allocated(c) - resident[c]
+             for c in cards}
+    return dict(
+        seconds=seconds, total=float(total), peaks=peaks,
+        peak=max(peaks.values(), default=0),
+        grads={n: p.grad.detach().clone()
+               for n, p in module.named_parameters()},
+        params={n: p.detach().clone() for n, p in module.named_parameters()},
+        launches={k: gc.LAUNCHES[k] - before[k] for k in before},
+        card_launches={c: {k: v - before_card.get(c, {}).get(k, 0)
+                           for k, v in n.items()}
+                       for c, n in gc.CARD_LAUNCHES.items()})
+
+
+def check_replicas(step, model, before, label):
+    """Every replica of a sharded step holds, bit for bit, the parameters
+    the step ran with (``before``: the module's state_dict before the
+    step, which copies them in first) and the model's buffers after it (a
+    buffer that a replica's forward moved would differ)."""
+    from goliath_torch.parallel.sharding import replica_mismatches
+
+    module = model.module
+    want = {n: before[n] for n, _ in module.named_parameters()}
+    want.update(module.named_buffers())
+    for dev, replica in step.replicas.items():
+        bad = replica_mismatches(want, replica)
+        if bad:
+            raise AssertionError(f"{label}: the replica on {dev} differs "
+                                 f"from the model in {bad[:8]}")
+
+
+def held_sharded_steps(gc, torch, card_line, model, optimizer, sharded,
+                       reference, batches, label, lr, cards=(0,),
+                       elsewhere=(), ref_name="unsharded", unsharded=None):
+    """One step of ``sharded`` per batch, each held (hold_sharded_step)
+    against ``reference`` from the same state (parameters, the optimizer's
+    state, the generator) and batch, the replicas checked after it
+    (check_replicas); the model is left in the sharded step's state. A
+    gradient's spread is measured on the reference alone, on first need:
+    its largest move under one-ulp moves of the state (SHARD_SPREAD_SEEDS),
+    over REFERENCE_RERUNS reruns from the same state (the card's atomic sums
+    are not bit-reproducible), and against each of ``elsewhere``: fn(i)
+    computes the reference's gradients from the same state on another
+    device. With ``unsharded``, that step too runs from the same state, for
+    its wall and loss. Returns (sharded runs, reference runs, unsharded
+    runs, the gradients that needed their spread, the entries not held)
+    per step; the runs keep their wall, loss, peaks and launches."""
+    module = model.module
+    n_entries = sum(p.numel() for p in module.parameters())
+    got, ref, plain, needs, loose = [], [], [], [], []
+    for i, batch in enumerate(batches):
+        snap = train_snapshot(module, optimizer)
+        if unsharded is not None:
+            plain.append(take_step(gc, torch, module, unsharded, batch, i,
+                                   cards))
+            del plain[i]["grads"], plain[i]["params"]
+            train_restore(module, optimizer, snap)
+        ref.append(take_step(gc, torch, module, reference, batch, i, cards))
+        train_restore(module, optimizer, snap)
+        got.append(take_step(gc, torch, module, sharded, batch, i, cards))
+        check_replicas(sharded, model, snap[0], f"{label} step {i}")
+        after = train_snapshot(module, optimizer)
+        moves = {}
+
+        def spread(snap=snap, i=i, moves=moves, batch=batch):
+            if moves:
+                return moves
+            base = ref[i]["grads"]
+            moves.update((n, 0.0) for n in base)
+
+            def widen(grads):
+                for n, g in grads.items():
+                    moves[n] = max(moves[n], float(
+                        (g.to(base[n].device) - base[n]).abs().max()))
+
+            for seed in SHARD_SPREAD_SEEDS:
+                gen = torch.Generator().manual_seed(seed)
+                train_restore(module, optimizer, snap, {
+                    k: v * (1 + 1e-7 * torch.randn(
+                        v.shape, generator=gen).to(v.device))
+                    if v.is_floating_point() else v
+                    for k, v in snap[0].items()})
+                widen(take_step(gc, torch, module, reference, batch, i,
+                                cards)["grads"])
+            for _ in range(REFERENCE_RERUNS):
+                train_restore(module, optimizer, snap)
+                widen(take_step(gc, torch, module, reference, batch, i,
+                                cards)["grads"])
+            for fn in elsewhere:
+                train_restore(module, optimizer, snap)
+                widen(fn(i))
+            return moves
+
+        need, n_loose, worst_loose = hold_sharded_step(
+            got[i], ref[i], spread, f"{label} step {i}")
+        train_restore(module, optimizer, after)
+        for r in (got[i], ref[i]):
+            del r["grads"], r["params"]
+        needs.append(need)
+        loose.append(n_loose)
+        also = (f", unsharded {plain[i]['seconds']:.4f} s, loss "
+                f"{plain[i]['total']:.6f}" if plain else "")
+        log(f"{label} step {i}: wall {got[i]['seconds']:.4f} s ({ref_name} "
+            f"{ref[i]['seconds']:.4f} s), loss {got[i]['total']:.6f} "
+            f"({ref_name} {ref[i]['total']:.6f}{also}); gradients that need "
+            f"their spread beyond rtol {SMALL_RTOL} + {SMALL_RTOL} of the "
+            f"largest entry: {need}; parameter entries whose gradients "
+            f"differ by more than rtol {SMALL_RTOL} (not held): {n_loose} of "
+            f"{n_entries}, their largest parameter difference "
+            f"{worst_loose:.3e} ({worst_loose / lr:.3f} lr) on {card_line}")
+    return got, ref, plain, needs, loose
+
+
 def sharded_train(gc, torch, card_line, captured):
     """(c) make_sharded_train_step at full width (configs/rgca.yml on
     FULL_DATA, weights and draws from seed 0, batch 4): SHARD_TRAIN_STEPS
@@ -5717,119 +5932,38 @@ def sharded_train(gc, torch, card_line, captured):
     render on the same mesh (K1, K2, K3 once and K4 twice a band and
     sample), its losses beside the unsharded chain's (the per-band pair
     budgets make it another render where pairs overflow: reported, not
-    held). Step walls and peak memory of each; keeps the first band's K2
-    and K3 arguments of the first 2-D step in ``captured``."""
-    import copy
-
+    held). The card's forward and backward are not bit-reproducible
+    (atomic sums), so a gradient's spread also takes reruns of the
+    unsharded step from the same state. Step walls and peak memory of each;
+    keeps the first band's K2 and K3 arguments of the first 2-D step in
+    ``captured``."""
     from goliath_torch import train as train_lib
-    from goliath_torch.config import load_from_config
-    from goliath_torch.optim import build_optimizer
     from goliath_torch.parallel import make_sharded_train_step
-    from goliath_torch.scripts.run_train import build_dataset
 
-    cfg = rgca_config()
-    if cfg.dataloader.batch_size != TRAIN_BATCH:
-        raise AssertionError("the config no longer trains at batch 4")
-    dev = torch.device(DEVICE)
-    ds = build_dataset(cfg.data, device=dev)
-    model = load_from_config(cfg.model, assets=ds.static_assets, device=dev,
-                             generator=torch.Generator().manual_seed(0))
+    model, loss_fn, optimizer, batches, lr = full_width_training(
+        torch, SHARD_TRAIN_STEPS)
     module = model.module
-    loss_fn = load_from_config(cfg.loss, assets=ds.static_assets)
-    opt_cfg = dict(cfg.optimizer)
-    opt_cfg.setdefault("lr", cfg.get("lr", 1e-3))
-    optimizer = build_optimizer(opt_cfg, module)
-    lr = max(g["lr"] for g in optimizer.inner.param_groups)
-    batches = shard_train_batches(ds, torch, SHARD_TRAIN_STEPS, TRAIN_BATCH)
     data_mesh = shard_mesh((SHARDS,), ("data",))
     sharded = make_sharded_train_step(model, loss_fn, optimizer, data_mesh)
     unsharded = train_lib.make_train_step(model, loss_fn, optimizer)
 
-    def snapshot():
-        return ({k: v.clone() for k, v in module.state_dict().items()},
-                copy.deepcopy(optimizer.state_dict()),
-                module.generator.get_state())
-
-    def restore(snap, params=None):
-        module.load_state_dict(params or snap[0])
-        optimizer.load_state_dict(copy.deepcopy(snap[1]))
-        module.generator.set_state(snap[2])
-
-    def take(step, batch, i, tap=None):
-        """One step: its wall, loss, gradients, parameters after it,
-        launches, and its peak memory above what was allocated before it
-        (the model, Adam's moments and this check's copies)."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated()
-        before = dict(gc.LAUNCHES)
-        t0 = time.perf_counter()
-        with KernelArgsTap(gc, tap):
-            total, _ = step(dict(batch), i)
-        torch.cuda.synchronize()
-        return dict(
-            seconds=time.perf_counter() - t0, total=float(total),
-            peak=torch.cuda.max_memory_allocated() - resident,
-            grads={n: p.grad.detach().clone()
-                   for n, p in module.named_parameters()},
-            params={n: p.detach().clone()
-                    for n, p in module.named_parameters()},
-            launches={k: gc.LAUNCHES[k] - before[k] for k in before})
-
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    state0 = snapshot()
+    state0 = train_snapshot(module, optimizer)
     n_entries = sum(p.numel() for p in module.parameters())
-    got, ref, needs, loose = [], [], [], []
-    for i in range(SHARD_TRAIN_STEPS):
-        snap = snapshot()
-        ref.append(take(unsharded, batches[i], i))
-        restore(snap)
-        got.append(take(sharded, batches[i], i))
-        after = snapshot()
-        moves = {}
+    got, ref, _, needs, loose = held_sharded_steps(
+        gc, torch, card_line, model, optimizer, sharded, unsharded, batches,
+        f"sharded_train data x{SHARDS}", lr)
 
-        def spread(snap=snap, i=i, moves=moves):
-            if not moves:
-                moves.update((n, 0.0) for n in ref[i]["grads"])
-                for seed in SPREAD_SEEDS:
-                    gen = torch.Generator().manual_seed(seed)
-                    restore(snap, {k: v * (1 + 1e-7 * torch.randn(
-                        v.shape, generator=gen).to(v.device))
-                        if v.is_floating_point() else v
-                        for k, v in snap[0].items()})
-                    res = take(unsharded, batches[i], i)
-                    for n, g in res["grads"].items():
-                        moves[n] = max(moves[n], float(
-                            (g - ref[i]["grads"][n]).abs().max()))
-            return moves
-
-        need, n_loose, worst_loose = hold_sharded_step(
-            got[i], ref[i], spread, f"sharded_train step {i}")
-        restore(after)
-        for r in (got[i], ref[i]):
-            del r["grads"], r["params"]
-        needs.append(need)
-        loose.append(n_loose)
-        log(f"sharded_train data x{SHARDS} step {i}: wall "
-            f"{got[i]['seconds']:.4f} s (unsharded {ref[i]['seconds']:.4f} "
-            f"s), loss {got[i]['total']:.6f} (unsharded "
-            f"{ref[i]['total']:.6f}); gradients that need their one-ulp "
-            f"spread beyond rtol {SMALL_RTOL} + {SMALL_RTOL} of the largest "
-            f"entry: {need}; parameter entries whose gradients differ by "
-            f"more than rtol {SMALL_RTOL} (not held): {n_loose} of "
-            f"{n_entries}, their largest parameter difference "
-            f"{worst_loose:.3e} ({worst_loose / lr:.3f} lr) on {card_line}")
-
-    restore(state0)
+    train_restore(module, optimizer, state0)
     mesh2 = shard_mesh(SHARD_2D, ("data", "tile"))
     module.render_cfg.update(tile_shard_mesh=mesh2, tile_shard_axis="tile")
     two_d_step = make_sharded_train_step(model, loss_fn, optimizer, mesh2)
     two_d = []
     try:
         for i in range(SHARD_2D_STEPS):
-            two_d.append(take(two_d_step, batches[i], i,
-                              captured if i == 0 else None))
+            two_d.append(take_step(gc, torch, module, two_d_step, batches[i],
+                                   i, tap=captured if i == 0 else None))
     finally:
         module.render_cfg.pop("tile_shard_mesh")
         module.render_cfg.pop("tile_shard_axis")
@@ -5886,25 +6020,50 @@ def sharded_train(gc, torch, card_line, captured):
         loose_entries=loose)
 
 
+def family_launches(name, samples):
+    """The launches of one training step of the dry run's family ``name``
+    over ``samples`` samples on the card: RGCA (the XLA window) K1, K2, K3
+    once and K4 twice a sample; the MVP hand and the teacher K4 twice a
+    sample; URHand K5 2L + 3 times a sample (its light views and renders),
+    K4 twice each; mesh_vae K5 once and K4 twice a sample."""
+    k5 = 2 * DRYRUN_LIGHTS + 3
+    per = {"rgca": dict(compositor_fwd_xla=1, pair_grads_xla=1,
+                        cumsum_cols=1, cumsum1d=2),
+           "hand_mvp": dict(cumsum1d=2), "hand_teacher": dict(cumsum1d=2),
+           "urhand": dict(zbuffer=k5, cumsum1d=2 * k5),
+           "mesh_vae": dict(zbuffer=1, cumsum1d=2)}[name]
+    return {k: v * samples for k, v in per.items()}
+
+
+def splat_launches(trained, forward_only=0):
+    """The launches of ``trained`` per-sample renders of the dry run's tile
+    axis under autograd (K1, K2, K3 once and K4 twice each, the XLA
+    window) and ``forward_only`` without it (K1 once and K4 twice)."""
+    n = trained + forward_only
+    return dict(compositor_fwd_xla=n, pair_grads_xla=trained,
+                cumsum_cols=trained, cumsum1d=2 * n)
+
+
+def add_launches(*parts):
+    out = {}
+    for part in parts:
+        for k, v in part.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 def dryrun_expected(n):
-    """The dry run's launches at ``n`` shards: RGCA (the XLA window) K1,
-    K2, K3 once and K4 twice a sample; the MVP hand and the teacher K4
-    twice a sample; URHand K5 2L + 3 times a sample (its light views and
-    renders), K4 twice each; mesh_vae K5 once and K4 twice a sample; the
-    tile axis K1 once a band and sample and once a sample for the
-    unsharded render, K2 and K3 once a band and sample, K4 twice a
-    render."""
-    from goliath_torch.scripts.dryrun_multichip import TILE_AXIS
+    """The dry run's launches at ``n`` shards: one step of each family at
+    batch max(n, 2) (``family_launches``); the tile axis K1 once a band
+    and sample and once a sample for the unsharded render, K2 and K3 once
+    a band and sample, K4 twice a render (``splat_launches``)."""
+    from goliath_torch.scripts.dryrun_multichip import FAMILIES, TILE_AXIS
 
     b = max(n, 2)
     n_tile = 4 if n % 4 == 0 else 2
-    bands, B = n_tile * TILE_AXIS["B"], TILE_AXIS["B"]
-    k5 = b * (2 * DRYRUN_LIGHTS + 3) + b
-    want = dict(compositor_fwd_xla=b + bands + B, pair_grads_xla=b + bands,
-                cumsum_cols=b + bands, zbuffer=k5,
-                cumsum1d=2 * b * 4 + 2 * b * (2 * DRYRUN_LIGHTS + 3)
-                + 2 * (bands + B))
-    return want
+    return add_launches(
+        *(family_launches(name, b) for name in FAMILIES),
+        splat_launches(n_tile * TILE_AXIS["B"], TILE_AXIS["B"]))
 
 
 def dryrun_path(gc, torch, card_line):
@@ -5929,6 +6088,437 @@ def dryrun_path(gc, torch, card_line):
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# parallel/ across distinct devices: the card and the host on every
+# machine, every visible card where there are two or more
+# ---------------------------------------------------------------------------
+
+CROSS_BATCH = 2          # the dry run's batch at 2 shards: a sample a device
+MULTI_CARD_STEPS = 3
+
+
+def card_counts(by_card):
+    """{card: {kernel: launches}} (gsplat_cuda.CARD_LAUNCHES, or a step's
+    ``card_launches``) with the kernels and cards that launched nothing
+    left out."""
+    return {c: {k: v for k, v in n.items() if v}
+            for c, n in by_card.items() if any(n.values())}
+
+
+def expect_on_cards(devices, per_shard):
+    """{card: launches} when each shard on a card launches
+    ``per_shard``'s counts (the host's shards launch nothing)."""
+    out = {}
+    for d in devices:
+        if d.type == "cuda":
+            out[d.index] = add_launches(out.get(d.index, {}), {
+                k: v for k, v in per_shard.items() if v})
+    return out
+
+
+def unbanded(render_cfg, bands, step):
+    """``step`` run with ``bands``' keys taken out of ``render_cfg`` (the
+    model's render unbanded), then put back."""
+    def run(batch, i):
+        for k in bands:
+            render_cfg.pop(k)
+        try:
+            return step(batch, i)
+        finally:
+            render_cfg.update(bands)
+    return run
+
+
+def cross_device_family(gc, torch, name, devices, card_line="", rows=None):
+    """One step of the dry run's family ``name`` at its shapes, held
+    (held_sharded_steps, the replicas checked bit for bit after it)
+    against train.make_train_step on the model's device from the same
+    state and batch. The mesh is "data" over ``devices`` at batch
+    CROSS_BATCH; or, with ``rows`` (RGCA), ("data", "tile") over those
+    rows at a batch of one sample a mesh position (the batch must divide
+    by the mesh's size to be split), with the model's render banded over
+    the mesh: each data shard (the rows' first column) renders its bands
+    on its own row, and the reference renders unbanded. The model lies on
+    the first data shard's device, a replica on each other. Besides
+    hold_sharded_step's one-ulp moves and reruns of the reference, where
+    the mesh holds the host a gradient's spread takes the reference's
+    distance from the same step on the host (the family built there with
+    the model's state: its plain versions against the kernels). Each card
+    launches family_launches for each sample of a data shard whose band or
+    shard it holds, exactly. Returns (each card's launches, the step's
+    report)."""
+    from goliath_torch import train as train_lib
+    from goliath_torch.parallel import make_sharded_train_step
+    from goliath_torch.parallel.sharding import Mesh
+    from goliath_torch.scripts import dryrun_multichip as dr
+
+    if rows is None:
+        mesh = Mesh([torch.device(d) for d in devices], ("data",))
+        n_batch = CROSS_BATCH
+    else:
+        mesh = Mesh([[torch.device(d) for d in r] for r in rows],
+                    ("data", "tile"))
+        n_batch = mesh.size
+    data = mesh.axis_devices("data")
+    everywhere = list(mesh.devices.flat)
+    home, host = data[0], torch.device("cpu")
+    cards = sorted({d.index for d in everywhere if d.type == "cuda"})
+    ds, model, batch = dr.build_family(name, n_batch, home)
+    loss_fn, optimizer = dr.family_loss_and_optimizer(name, ds, model)
+    batch = {k: torch.as_tensor(v).to(home) for k, v in batch.items()}
+    module = model.module
+    unsharded = train_lib.make_train_step(model, loss_fn, optimizer)
+    if rows is not None:
+        bands = dict(tile_shard_mesh=mesh, tile_shard_axis="tile")
+        # set before the step is made: its replicas copy the render's
+        # settings
+        module.render_cfg.update(bands)
+        unsharded = unbanded(module.render_cfg, bands, unsharded)
+    sharded = make_sharded_train_step(model, loss_fn, optimizer, mesh)
+
+    def on_host(i):
+        """The reference's gradients on the host: the family built there
+        with the model's state and generator, a fresh optimizer (the
+        family's first step)."""
+        _, host_model, _ = dr.build_family(name, n_batch, host)
+        host_model.module.load_state_dict(
+            {k: v.to(host) for k, v in module.state_dict().items()})
+        if getattr(module, "generator", None) is not None:
+            host_model.module.generator.set_state(module.generator.get_state())
+        h_loss, h_opt = dr.family_loss_and_optimizer(name, ds, host_model)
+        train_lib.make_train_step(host_model, h_loss, h_opt)(
+            {k: v.to(host) for k, v in batch.items()}, i)
+        return {n: p.grad for n, p in host_model.module.named_parameters()}
+
+    lr = max(g["lr"] for g in optimizer.inner.param_groups)
+    where = ([str(d) for d in everywhere] if rows is None
+             else [[str(d) for d in r] for r in mesh.devices])
+    label = f"cross_device {name} over {where}"
+    got, ref, _, needs, loose = held_sharded_steps(
+        gc, torch, card_line, model, optimizer, sharded, unsharded, [batch],
+        label, lr, cards, [on_host] if host in everywhere else [])
+    rel = abs(got[0]["total"] - ref[0]["total"]) / abs(ref[0]["total"])
+    if not (math.isfinite(got[0]["total"]) and rel <= SMALL_RTOL):
+        raise AssertionError(f"{label}: loss {got[0]['total']} against the "
+                             f"unsharded {ref[0]['total']}")
+    have = card_counts(got[0]["card_launches"])
+    want = expect_on_cards(everywhere, family_launches(
+        name, n_batch // len(data)))
+    if have != want:
+        raise AssertionError(f"{label}: launches by card {have} != {want}")
+    return have, dict(seconds=got[0]["seconds"],
+                      unsharded_seconds=ref[0]["seconds"], loss_rel=rel,
+                      need_spread=needs[0], loose_entries=loose[0])
+
+
+def cross_device_renders(gc, torch, devices):
+    """The dry run's tile axis in len(devices) bands over ``devices`` (the
+    scene on the first) against the unsharded render there: the loss
+    within the dry run's 1e-4 of max(1, |loss|), finite gradients; then
+    the same scene in len(devices) depth slabs (render_prim_sharded) over
+    ``devices`` against the single render with its gradients on the first,
+    as tests/test_torch_parallel_prim.py holds the slab render: outputs
+    atol 5e-5, the loss rtol 2e-4, the gradients (pos, op, col) within
+    2e-4 of their largest entry. Each card's bands and slabs launch K1, K2,
+    K3 once and K4 twice a sample (the XLA window) exactly. Returns each
+    part's launches on each card (the sharded renders', then the
+    references')."""
+    from goliath_torch.ops import gsplat
+    from goliath_torch.parallel.sharding import Mesh
+    from goliath_torch.parallel.tile_shard import render_prim_sharded
+    from goliath_torch.scripts import dryrun_multichip as dr
+
+    devices = [torch.device(d) for d in devices]
+    H, W, kw = dr.TILE_AXIS["H"], dr.TILE_AXIS["W"], dr.TILE_AXIS["render"]
+    B = dr.TILE_AXIS["B"]
+    scene = dr.tile_axis_scene(devices[0])
+    K, Rt, pos, quat, scale, op, col = scene
+    counts = {}
+    gc.reset_launch_counts()
+    v, grads = dr.tile_axis_loss(Mesh([devices], ("data", "tile")), scene)
+    counts["bands"] = card_counts(gc.CARD_LAUNCHES)
+    gc.reset_launch_counts()
+    with torch.no_grad():
+        ref = gsplat.render(W, H, K, Rt, pos, quat, scale, op, col, **kw)
+        v_ref = float((ref["render"] ** 2).mean() + ref["alpha"].mean())
+    counts["unsharded"] = card_counts(gc.CARD_LAUNCHES)
+    log(f"cross_device tile axis in {len(devices)} bands over "
+        f"{[str(d) for d in devices]}: loss {v} (unsharded {v_ref})")
+    if abs(v - v_ref) >= 1e-4 * max(1.0, abs(v_ref)):
+        raise AssertionError(f"band loss {v} != unsharded {v_ref}")
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("the bands' gradients are not finite")
+
+    def slab_loss(render, *mesh):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (pos, op, col)]
+        r = render(*mesh, W, H, K, Rt, leaves[0], quat, scale, leaves[1],
+                   leaves[2], **kw)
+        loss = (r["render"] ** 2).mean() + r["alpha"].mean()
+        return (float(loss.detach()),
+                {k: x.detach() for k, x in r.items()},
+                torch.autograd.grad(loss, leaves))
+
+    gc.reset_launch_counts()
+    s_v, s_out, s_g = slab_loss(render_prim_sharded,
+                                Mesh(devices, ("slab",)), "slab")
+    counts["slabs"] = card_counts(gc.CARD_LAUNCHES)
+    gc.reset_launch_counts()
+    r_v, r_out, r_g = slab_loss(gsplat.render)
+    counts["single"] = card_counts(gc.CARD_LAUNCHES)
+    errs = {k: float((s_out[k] - r_out[k]).abs().max())
+            for k in sorted(set(s_out) & set(r_out))}
+    g_errs = {n: float((g - r).abs().max()) / float(r.abs().max())
+              for n, g, r in zip(("pos", "op", "col"), s_g, r_g)}
+    log(f"cross_device slabs: loss {s_v} (single {r_v}); outputs max abs "
+        f"error {errs}; gradients' error over their largest entry {g_errs}")
+    if not (errs and max(errs.values()) <= 5e-5
+            and abs(s_v - r_v) <= 2e-4 * abs(r_v)
+            and max(g_errs.values()) <= 2e-4):
+        raise AssertionError("the slab render differs from the single one")
+    trained = expect_on_cards(devices, splat_launches(B))
+    want = {"bands": trained, "unsharded": expect_on_cards(
+        devices[:1], splat_launches(0, B)), "slabs": trained,
+        "single": expect_on_cards(devices[:1], splat_launches(B))}
+    if counts != want:
+        raise AssertionError(f"launches by card {counts} != {want}")
+    return counts
+
+
+# the 2-D meshes of cross_device's band step: each data shard (the first
+# column) renders its bands on its own row; on the second the host's shard
+# leaves the card out, which the card's launch counts show
+CROSS_ROWS = ((("cuda:0", "cpu"), ("cpu", "cuda:0")),
+              (("cuda:0", "cpu"), ("cpu", "cpu")))
+
+
+def cross_device(gc, torch, card_line):
+    """(e) parallel/ over the card and the host, which every machine with
+    a card has: one step of each family of the dry run at its shapes and
+    batch CROSS_BATCH on a "data" mesh of (cuda:0, cpu), the model on the
+    card and its replica on the host (cross_device_family); one RGCA step
+    on each 2-D ("data", "tile") mesh of CROSS_ROWS with the render banded
+    over it; then the tile axis in 2 bands and a frame in 2 slabs over
+    (cuda:0, cpu) (cross_device_renders). Returns the sharded runs'
+    launches on the card (the references' left out)."""
+    from goliath_torch.scripts.dryrun_multichip import FAMILIES
+
+    devices = (torch.device("cuda", 0), torch.device("cpu"))
+    launches = {name: 0 for name in gc.LAUNCHES}
+    runs = [(name, devices, None) for name in FAMILIES]
+    runs += [("rgca", None, rows) for rows in CROSS_ROWS]
+    for name, devs, rows in runs:
+        t0 = time.perf_counter()
+        have, rep = cross_device_family(gc, torch, name, devs, card_line,
+                                        rows)
+        launches = add_launches(launches, have.get(0, {}))
+        log(f"cross_device {name} over "
+            f"{'(cuda:0, cpu)' if rows is None else f'the rows {rows}'}: "
+            f"step {rep['seconds']:.4f} s (unsharded on the card "
+            f"{rep['unsharded_seconds']:.4f} s), loss rel diff "
+            f"{rep['loss_rel']:.3e}, gradients held by their spread "
+            f"{rep['need_spread']}, launches on the card {have}, the "
+            f"replica on the host holding the step's parameters and the "
+            f"model's buffers after it; {time.perf_counter() - t0:.1f} s "
+            f"with its references, on {card_line}")
+    counts = cross_device_renders(gc, torch, devices)
+    for part in ("bands", "slabs"):
+        launches = add_launches(launches, counts[part].get(0, {}))
+    log(f"cross_device launches on the card: {launches}")
+    return launches
+
+
+def union_ms(spans):
+    """The length in ms of the union of (start, end) spans in us."""
+    total, end = 0.0, -math.inf
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total / 1e3
+
+
+def card_busy(prof):
+    """({card: ms during which it ran device work}, ms during which any
+    card did) from a torch.profiler run's device events ({} and 0 where
+    the profiler saw none)."""
+    from torch.autograd import DeviceType
+
+    spans = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.setdefault(e.device_index, []).append(
+                (e.time_range.start, e.time_range.end))
+    return ({c: union_ms(s) for c, s in sorted(spans.items())},
+            union_ms([x for s in spans.values() for x in s]))
+
+
+def multi_card_band_frame(gc, torch, cards, card_line):
+    """One run_test frame of configs/rgca.yml at full width in one band a
+    card (model.render's tile_shard_mesh a "tile" mesh of ``cards``), each
+    card launching K1 once and K4 twice; then, on that frame's render
+    arguments, the same bands on cuda:0 alone, bit for bit (the band
+    render is deterministic; the decoder's forward is not, so two frames
+    are compared on the same inputs), and the unsharded render beside it
+    (frame_difference)."""
+    from goliath_torch.config import load_config
+    from goliath_torch.ops import gsplat
+    from goliath_torch.parallel.sharding import Mesh
+    from goliath_torch.scripts import run_test
+
+    mesh = Mesh([torch.device("cuda", c) for c in cards], ("tile",))
+    cfg = load_config(str(ROOT / "configs" / "rgca.yml"), overrides=[
+        f"test.data={yaml_flow(FULL_DATA)}", "test.ckpt=null",
+        "test.n_test_frames=1", "test.vis_path=null"])
+    cfg.model.render.update(tile_shard_mesh=mesh, tile_shard_axis="tile")
+    seconds = []
+    with RenderTap() as tap:
+        gc.reset_launch_counts()
+        run_test.main(cfg, device=DEVICE, frame_seconds=seconds)
+        sync_cards(torch, cards)
+        counts = card_counts(gc.CARD_LAUNCHES)
+    args, kw = tap.first_call
+    spread = tap.outputs[0]
+    renders = {}
+    for label, m in (("alone", Mesh([torch.device("cuda", 0)] * len(cards),
+                                    ("tile",))), ("unsharded", None)):
+        kw_m = {k: v for k, v in kw.items()
+                if k not in ("tile_shard_mesh", "tile_shard_axis")}
+        if m is not None:
+            kw_m.update(tile_shard_mesh=m, tile_shard_axis="tile")
+        with torch.no_grad():
+            sync_cards(torch, cards)
+            t0 = time.perf_counter()
+            out = gsplat.render(*args, **kw_m)
+            sync_cards(torch, cards)
+            renders[label] = ((out["render"], out["final_T"]),
+                              time.perf_counter() - t0)
+    diff = frame_difference(spread, renders["unsharded"][0])
+    log(f"multi_card_train band frame: {len(cards)} bands on cards {cards}, "
+        f"the frame {seconds[0]:.4f} s; on its render arguments the same "
+        f"bands on cuda:0 {renders['alone'][1]:.4f} s, unsharded "
+        f"{renders['unsharded'][1]:.4f} s; against the unsharded render "
+        f"max |rgb| {diff[0]:.3e}, max |T| {diff[1]:.3e}, share of pixels "
+        f"beyond {SHARD_DIFF} {diff[2]:.6f}; pairs wanted by band "
+        f"{tap.wanted}; launches by card {counts} on {card_line}")
+    if not all(torch.equal(a, b) for a, b in zip(spread,
+                                                 renders["alone"][0])):
+        raise AssertionError("the bands on distinct cards differ from the "
+                             "same bands on one card")
+    if not all(bool(torch.isfinite(x).all()) for x in spread):
+        raise AssertionError("the band frame is not finite")
+    want = {c: dict(compositor_fwd=1, cumsum1d=2) for c in cards}
+    if counts != want:
+        raise AssertionError(f"band frame launches {counts} != {want}")
+    return dict(seconds=seconds[0], max_abs_rgb=diff[0], max_abs_T=diff[1],
+                share_beyond=diff[2], launches=counts)
+
+
+def multi_card_train(gc, torch, card_line):
+    """(f) make_sharded_train_step on make_mesh(4) where four cards are
+    visible, else make_mesh(2), at full width (configs/rgca.yml on
+    FULL_DATA, batch 4): MULTI_CARD_STEPS steps, each held
+    (held_sharded_steps) against the same shards on cuda:0 alone (the
+    same-device path, which sharded_train holds against the unsharded
+    step) from the same state, its loss against train.make_train_step's
+    from the same state. The one-card step's batch-1 shards round as these
+    do, so its one-ulp moves and reruns make the spread. Each card launches
+    K1, K2, K3 once and K4 twice a sample of its shard; one more step under
+    torch.profiler for each card's busy time against the wall; then the
+    band frame (multi_card_band_frame). With one card it logs so and runs
+    nothing. Returns (the launches in all, the report)."""
+    from goliath_torch import train as train_lib
+    from goliath_torch.parallel import make_mesh, make_sharded_train_step
+    from goliath_torch.parallel.sharding import Mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"multi_card_train: one card is visible "
+            f"(torch.cuda.device_count() = {n_cards}); the phase did not "
+            f"run")
+        return {}, {"cards": n_cards}
+    k = 4 if n_cards >= 4 else 2
+    mesh = make_mesh(k)
+    cards = list(range(k))
+    lines = card_lines()[:k]
+    log(f"multi_card_train: make_mesh({k}) over "
+        f"{[str(d) for d in mesh.devices.flat]}: {lines}")
+    model, loss_fn, optimizer, batches, lr = full_width_training(
+        torch, MULTI_CARD_STEPS)
+    module = model.module
+    sharded = make_sharded_train_step(model, loss_fn, optimizer, mesh)
+    unsharded = train_lib.make_train_step(model, loss_fn, optimizer)
+    one_card = make_sharded_train_step(model, loss_fn, optimizer, Mesh(
+        [torch.device("cuda", 0)] * k, ("data",)))
+
+    n_entries = sum(p.numel() for p in module.parameters())
+    got, ref, plain, needs, loose = held_sharded_steps(
+        gc, torch, card_line, model, optimizer, sharded, one_card, batches,
+        f"multi_card_train data x{k} cards", lr, cards,
+        ref_name=f"{k} shards on cuda:0", unsharded=unsharded)
+    per_card = {c: {name: sum(r["card_launches"].get(c, {}).get(name, 0)
+                              for r in got) for name in gc.LAUNCHES}
+                for c in cards}
+    n = MULTI_CARD_STEPS * TRAIN_BATCH // k
+    for c in cards:
+        want = {name: 0 for name in gc.LAUNCHES}
+        want.update(compositor_fwd=n, pair_grads=n, cumsum_cols=n,
+                    cumsum1d=2 * n)
+        if per_card[c] != want:
+            raise AssertionError(f"card {c}: launches {per_card[c]} != "
+                                 f"{want}")
+    peaks = {c: max(r["peaks"][c] for r in got) / 2**30 for c in cards}
+    rel = [abs(g["total"] - r["total"]) / abs(r["total"])
+           for g, r in zip(got, plain)]
+    if not all(math.isfinite(r["total"]) for r in got) or max(rel) > \
+            SMALL_RTOL:
+        raise AssertionError(f"multi_card_train: losses rel diff {rel}")
+    log(f"multi_card_train data x{k} cards: step walls "
+        f"{[round(r['seconds'], 4) for r in got]} s, {k} shards on cuda:0 "
+        f"{[round(r['seconds'], 4) for r in ref]} s, unsharded on cuda:0 "
+        f"{[round(r['seconds'], 4) for r in plain]} s; loss rel diff "
+        f"against the unsharded step "
+        f"{[f'{r:.3e}' for r in rel]}; peak memory of a step above what "
+        f"each card held before it (GiB): "
+        f"{ {c: round(p, 3) for c, p in peaks.items()} } "
+        f"({n_entries * 4 / 2**30:.3f} GiB of parameters); launches by card "
+        f"{card_counts(per_card)} on {lines}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sync_cards(torch, cards)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sharded(dict(batches[0]), MULTI_CARD_STEPS)
+        sync_cards(torch, cards)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, union = card_busy(prof)
+    overlap = sum(busy.values()) - union
+    log(f"multi_card_train overlap (one more step under torch.profiler, "
+        f"wall {wall:.3f} ms): device busy by card "
+        f"{ {c: round(b, 3) for c, b in busy.items()} } ms, some card busy "
+        f"{union:.3f} ms, two or more at once {overlap:.3f} ms "
+        f"({overlap / union if union else 0.0:.3f} of it); idle share of "
+        f"the wall with no card busy {max(0.0, 1 - union / wall):.3f}"
+        if busy else "multi_card_train overlap: the profiler saw no device "
+        "work (not measured)")
+    del model, module, optimizer, sharded, unsharded, one_card, batches
+    torch.cuda.empty_cache()
+    band = multi_card_band_frame(gc, torch, cards, lines)
+    launches = {name: sum(per_card[c][name] for c in cards)
+                for name in gc.LAUNCHES}
+    launches = add_launches(launches, *band["launches"].values())
+    return launches, dict(
+        cards=k, card_lines=lines, seconds=[r["seconds"] for r in got],
+        one_card_seconds=[r["seconds"] for r in ref],
+        unsharded_seconds=[r["seconds"] for r in plain], loss_rel=rel,
+        peak_gib=peaks, launches_by_card=per_card,
+        need_spread=[len(x) for x in needs], loose_entries=loose,
+        profiled_wall_ms=wall, busy_ms=busy, any_busy_ms=union,
+        overlap_ms=overlap, band_frame=band)
 
 
 # The checkpoint-render example (goliath_torch/examples/render_example.py):
@@ -6619,12 +7209,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("dryrun", dryrun_path, gc, torch, card_line)
     torch.cuda.empty_cache()
+    phase("cross_device", cross_device, gc, torch, card_line)
+    torch.cuda.empty_cache()
+    phase("multi_card_train", multi_card_train, gc, torch, card_line)
+    torch.cuda.empty_cache()
     phase("library_path", library_path, torch, card_line)
 
     # the phases that return (launches, measurements) of several kernels
     split = {}
     for name in ("xla_window_check", "k7_check", "p1_probe", "capture_path",
-                 "sharded_train", "render_example_path"):
+                 "sharded_train", "render_example_path", "multi_card_train"):
         if name in phases:
             split[name], phases[name] = phases[name]
     xla_eval, xla_train = split.get("xla_window_check", ({}, {}))
@@ -6655,6 +7249,8 @@ def main() -> int:
              "prim_shard_eval": phases.get("prim_shard_eval", {}),
              "sharded_train": split.get("sharded_train", {}),
              "dryrun": phases.get("dryrun", {}),
+             "cross_device": phases.get("cross_device", {}),
+             "multi_card": split.get("multi_card_train", {}),
              "render_example_rgca": split.get("render_example_path", {}),
              "render_example_mesh": phases.get("render_example_path", {}),
              "profile_reduce": split.get("k7_check", {}),

@@ -46,8 +46,9 @@ are unchanged.
   ``rasterize_tiled_pl_fold``).
 
 Each wrapper takes the kernel for a CUDA tensor and the plain version for a
-CPU tensor (ops/backend.py), and adds one to ``LAUNCHES[name]`` each time it
-launches its kernel. Nothing here builds or loads a kernel at import time.
+CPU tensor (ops/backend.py), and adds one to ``LAUNCHES[name]`` (and to
+``CARD_LAUNCHES[card][name]``) each time it launches its kernel
+(``count_launch``). Nothing here builds or loads a kernel at import time.
 """
 
 from __future__ import annotations
@@ -108,14 +109,25 @@ REPLACES = {
     **{f"probe_{v}": "scripts/probe_kernel.py:49" for v in PROBE_VARIANTS},
 }
 
-# launches of each kernel since the last reset_launch_counts()
+# launches of each kernel since the last reset_launch_counts(): in all, and
+# by the index of the card that ran them
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+CARD_LAUNCHES: Dict[Optional[int], Dict[str, int]] = {}
 _EXT = None
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    CARD_LAUNCHES.clear()
+
+
+def count_launch(name: str, t: torch.Tensor) -> None:
+    """One launch of kernel ``name`` on the card that holds ``t``."""
+    LAUNCHES[name] += 1
+    card = CARD_LAUNCHES.setdefault(t.device.index,
+                                    {n: 0 for n in SOURCES})
+    card[name] += 1
 
 
 def load_kernels(verbose: bool = False):
@@ -162,7 +174,7 @@ def cumsum1d(x: torch.Tensor) -> torch.Tensor:
         return cumsum1d_plain(x)
     out = load_kernels().cumsum_i32(x.contiguous())
     if x.numel():  # the binding launches nothing for an empty input
-        LAUNCHES["cumsum1d"] += 1
+        count_launch("cumsum1d", x)
     return out
 
 
@@ -192,7 +204,7 @@ def cumsum_cols(x: torch.Tensor) -> torch.Tensor:
         return cumsum_cols_plain(x)
     out = load_kernels().cumsum_cols_f32(x.contiguous())
     if x.numel():  # the binding launches nothing for an empty input
-        LAUNCHES["cumsum_cols"] += 1
+        count_launch("cumsum_cols", x)
     return out
 
 
@@ -222,7 +234,7 @@ def cumsum_rows(x: torch.Tensor) -> torch.Tensor:
         return cumsum_rows_plain(x)
     out = load_kernels().cumsum_rows_f32(x.contiguous())
     if x.numel():  # the binding launches nothing for an empty input
-        LAUNCHES["cumsum_rows"] += 1
+        count_launch("cumsum_rows", x)
     return out
 
 
@@ -510,8 +522,8 @@ def compositor_fwd(rows, tile_start, tile_end, img_h: int, img_w: int,
                                     max_pairs_per_tile, n_imgs, window)
     out = _launch_fwd(rows, tile_start, tile_end, None, img_h, img_w,
                       tile_size, ntx, chunk, nchunks, n_imgs, window, "full")
-    LAUNCHES["compositor_fwd" + ("_fold" if n_imgs > 1 else "")
-             + ("_xla" if window == "xla" else "")] += 1
+    count_launch("compositor_fwd" + ("_fold" if n_imgs > 1 else "")
+                 + ("_xla" if window == "xla" else ""), rows)
     return out
 
 
@@ -537,7 +549,7 @@ def probe_fwd(rows, tile_start, tile_end, cnt, img_h: int, img_w: int,
                                     replay_cnt=cnt)
     out = _launch_fwd(rows, tile_start, tile_end, cnt, img_h, img_w,
                       tile_size, ntx, chunk, nchunks, 1, "pallas", variant)
-    LAUNCHES[f"probe_{variant}"] += 1
+    count_launch(f"probe_{variant}", rows)
     return out
 
 
@@ -766,8 +778,8 @@ def pair_grads(rows, tile_start, tile_end, cnt, dL_dout, dL_dT, T_final,
         rows.contiguous(), tile_start.contiguous(), tile_end.contiguous(),
         cnt.contiguous(), *planes, ntx, tile_size, chunk, n_pairs,
         WINDOWS.index(window))
-    LAUNCHES["pair_grads" + ("_fold" if n_imgs > 1 else "")
-             + ("_xla" if window == "xla" else "")] += 1
+    count_launch("pair_grads" + ("_fold" if n_imgs > 1 else "")
+                 + ("_xla" if window == "xla" else ""), rows)
     return grads
 
 

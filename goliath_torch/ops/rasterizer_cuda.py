@@ -19,7 +19,8 @@ holds that the cull never skips a hit).
 
 The wrapper takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor (ops/backend.py), and adds one to
-``gsplat_cuda.LAUNCHES["zbuffer"]`` each time it launches the kernel. The
+``gsplat_cuda.LAUNCHES["zbuffer"]`` (``gsplat_cuda.count_launch``) each
+time it launches the kernel. The
 op returns indices and takes no gradient.
 """
 
@@ -236,5 +237,5 @@ def zbuffer(rows, sorted_prim, tile_start, tile_end, img_h: int, img_w: int,
         rows.contiguous(), sorted_prim.contiguous(), tile_start.contiguous(),
         tile_end.contiguous(), ntx, tile_size, img_h, img_w, chunk,
         max_faces_per_tile // chunk + 1)
-    gsplat_cuda.LAUNCHES["zbuffer"] += 1
+    gsplat_cuda.count_launch("zbuffer", rows)
     return index_img, z_img

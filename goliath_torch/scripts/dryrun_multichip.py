@@ -5,9 +5,12 @@ each model family at tiny shapes, and the tile axis of the render on a 2-D
 
     python -m goliath_torch.scripts.dryrun_multichip [n_shards] [--device cpu]
 
-The JAX dry run runs on n virtual CPU devices; here the n shards are
-repeated on one device, the card unless ``--device cpu`` asks for the host
-(``parallel.sharding.Mesh``). Each family takes one step of
+The JAX dry run runs on n virtual CPU devices. Here the n shards lie on the
+first min(n, count) visible cards in turn (``shard_devices``; as the JAX
+``make_mesh(n)`` takes the first n devices), so on one card all n repeat
+it, or all on the host when ``--device cpu`` asks for it
+(``parallel.sharding.Mesh``); the model lives on the first. Each family
+takes one step of
 ``make_sharded_train_step`` at batch max(n, 2) with the JAX entry's loss
 terms (rgb_l1 x 10; RGCA also geom_l2, kl and learn_blur) and Adam at
 lr 1e-3, and must give a finite loss.
@@ -18,7 +21,7 @@ from __future__ import annotations
 import argparse
 import logging
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -151,12 +154,25 @@ def family_loss_and_optimizer(name: str, ds, model):
             build_optimizer(opt_cfg, model.module))
 
 
+def shard_devices(n_shards: int, device: torch.device
+                  ) -> List[torch.device]:
+    """The devices of ``n_shards`` shards: on the card, the first
+    min(n_shards, count) visible cards in turn; on the host, the CPU n
+    times."""
+    if device.type != "cuda":
+        return [device] * n_shards
+    k = min(n_shards, torch.cuda.device_count())
+    return [torch.device("cuda", i % k) for i in range(n_shards)]
+
+
 def dryrun_one(name: str, n_shards: int, device: torch.device) -> float:
     """One sharded step of family ``name`` on a "data" mesh of
-    ``n_shards`` shards on ``device``; returns its finite loss."""
-    ds, model, batch = build_family(name, max(n_shards, 2), device)
+    ``n_shards`` shards (``shard_devices``), the model on the first shard's
+    device; returns its finite loss."""
+    devices = shard_devices(n_shards, device)
+    ds, model, batch = build_family(name, max(n_shards, 2), devices[0])
     loss_fn, optimizer = family_loss_and_optimizer(name, ds, model)
-    mesh = Mesh([device] * n_shards, ("data",))
+    mesh = Mesh(devices, ("data",))
     step = make_sharded_train_step(model, loss_fn, optimizer, mesh)
     total, _ = step(batch, 0)
     loss = float(total)
@@ -203,13 +219,16 @@ def tile_axis_loss(mesh, scene, axis: str = "tile"):
 def dryrun_tile_axis(n_shards: int, device: torch.device
                      ) -> Tuple[float, float, Tuple[int, int]]:
     """The band render on a 2-D ("data", "tile") mesh of ``n_shards``
-    shards (4 bands when n divides by 4, else 2): its loss against the
-    unsharded render's, within 1e-4 of max(1, |loss|), and finite
-    gradients. Returns (loss, unsharded loss, (n_data, n_tile))."""
+    shards (``shard_devices`` in row-major order; 4 bands when n divides by
+    4, else 2), the scene on the first: its loss against the unsharded
+    render's, within 1e-4 of max(1, |loss|), and finite gradients. Returns
+    (loss, unsharded loss, (n_data, n_tile))."""
     n_tile = 4 if n_shards % 4 == 0 else 2
     n_data = n_shards // n_tile
-    mesh = Mesh([[device] * n_tile] * n_data, ("data", "tile"))
-    scene = tile_axis_scene(device)
+    devices = shard_devices(n_shards, device)
+    mesh = Mesh(np.asarray(devices, dtype=object).reshape(n_data, n_tile),
+                ("data", "tile"))
+    scene = tile_axis_scene(devices[0])
     v, grads = tile_axis_loss(mesh, scene)
     K, Rt, pos, quat, scale, op, col = scene
     with torch.no_grad():
@@ -230,6 +249,8 @@ def main(n_shards: int = 4, device: str | torch.device = "cuda"
     loss."""
     dev = resolve_device(device)
     t0 = time.time()
+    print(f"dryrun_multichip({n_shards}): mesh devices "
+          f"{[str(d) for d in shard_devices(n_shards, dev)]}", flush=True)
     losses = {}
     for name in ("rgca", "tile_axis") + FAMILIES[1:]:
         if name == "tile_axis":

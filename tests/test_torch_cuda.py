@@ -37,7 +37,18 @@ above; the band and slab renders, outputs and gradients, card against CPU
 as render's gradients; the sharded RGCA step card against CPU at rtol 1e-3
 with atol 1e-3 of each gradient's largest entry, or within 4 times its
 spread (its one-ulp move on the card, or the unsharded step's own
-card-to-CPU distance). The layer library's modules card against CPU as
+card-to-CPU distance); across distinct devices (the card and the host,
+and two cards where there are), each family's step of the dry run against
+the unsharded step on the card by chip_smoke.py's rule (hold_sharded_step:
+the same rtol 1e-3 rule and spread, the spread measured on the unsharded
+step alone: its one-ulp moves, its reruns and, with the host in the mesh,
+its card-to-host distance; the replicas holding the step's parameters and
+the model's buffers bit for bit, the card's launches exact; the same for
+the RGCA step on 2-D meshes whose data shards band their renders over
+their own rows), the bands' loss within the dry run's
+1e-4 and the slabs as tests/test_torch_parallel_prim.py holds them
+(outputs atol 5e-5, gradients 2e-4 of their largest entry). The layer
+library's modules card against CPU as
 chip_smoke.py's lib_card_vs_cpu holds them (float32 outputs at LIB_TOL and
 gradients at LIB_GRAD_TOL; with leaky ReLUs, float64 outputs and gradients
 at LIB_F64_TOL); the render example's grid on the card within 1 LSB of
@@ -1397,3 +1408,58 @@ def test_render_example_on_the_card_matches_the_cpu(cuda, tmp_path):
                       device="cpu")["grid"]
     assert card.shape == host.shape == (64, 256, 3)
     assert np.abs(card.astype(np.int16) - host.astype(np.int16)).max() <= 1
+
+
+@pytest.mark.parametrize("name", ["rgca", "hand_mvp", "hand_teacher",
+                                  "urhand", "mesh_vae"])
+def test_cross_device_step_matches_the_card(cuda, name):
+    """The dry run's step of ``name`` at batch 2 on a "data" mesh of
+    (cuda:0, cpu): the model on the card, its replica on the host, held
+    against the unsharded step on the card (chip_smoke.cross_device_family:
+    the losses, the gradients, the parameters after the update, the
+    replica after the step and the card's launches)."""
+    import chip_smoke
+
+    have, rep = chip_smoke.cross_device_family(gc, torch, name,
+                                               ["cuda:0", "cpu"])
+    assert list(have) == [0]
+    assert rep["loss_rel"] <= chip_smoke.SMALL_RTOL
+
+
+@pytest.mark.parametrize("which", [0, 1])
+def test_cross_device_band_step_matches_the_card(cuda, which):
+    """The dry run's RGCA step on a ("data", "tile") mesh of the card and
+    the host (chip_smoke.CROSS_ROWS[which]), the model's render banded over
+    each data shard's row, against the unsharded step on the card
+    (chip_smoke.cross_device_family with rows)."""
+    import chip_smoke
+
+    have, rep = chip_smoke.cross_device_family(
+        gc, torch, "rgca", None, rows=chip_smoke.CROSS_ROWS[which])
+    assert list(have) == [0]
+    assert rep["loss_rel"] <= chip_smoke.SMALL_RTOL
+
+
+def test_cross_device_renders_match_the_card(cuda):
+    """The dry run's tile axis in 2 bands and its scene in 2 slabs over
+    (cuda:0, cpu) against the unsharded renders on the card
+    (chip_smoke.cross_device_renders), the card's launches exact."""
+    import chip_smoke
+
+    counts = chip_smoke.cross_device_renders(gc, torch, ["cuda:0", "cpu"])
+    assert counts["bands"][0]["compositor_fwd_xla"] == 2
+
+
+def test_two_card_step_and_renders_match_one_card(cuda):
+    """The same over two cards (cuda:0, cuda:1): the RGCA step against the
+    unsharded step on cuda:0, the bands and the slabs against the renders
+    on cuda:0; each card launching its shard's kernels."""
+    import chip_smoke
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs two cards, {torch.cuda.device_count()} visible")
+    have, _ = chip_smoke.cross_device_family(gc, torch, "rgca",
+                                             ["cuda:0", "cuda:1"])
+    assert sorted(have) == [0, 1]
+    counts = chip_smoke.cross_device_renders(gc, torch, ["cuda:0", "cuda:1"])
+    assert sorted(counts["bands"]) == [0, 1]
