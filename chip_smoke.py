@@ -123,19 +123,23 @@ the final result line:
      configs/hand_mvp.yml at full width (uv 1024, 4,096 prims of 8x16x16
      voxels, 2048x1334, window 16; the same sphere, n_pose_dims 6 and
      global_scaling 1), 3 test frames, counts set to 0 just before and read
-     just after (K4 twice a frame, in the march's binning): finite losses,
-     images and prims, a render that is not empty, frame and march times,
-     peak memory and one profiled frame; then K4 against torch.cumsum on
-     frame 0's two scans, exactly; the march's drops on frame 0, the
-     card's march against the CPU's on the whole frame, and
-     march_reference against the tiled march on a 32x32 window with
-     nothing dropped;
+     just after (K4 twice a frame, in the march's binning, and K8 once, the
+     march's tiles): finite losses, images and prims, a render that is not
+     empty, frame and march times, peak memory and one profiled frame; then
+     K4 against torch.cumsum on frame 0's two scans, exactly; the march's
+     drops on frame 0, the card's march against the CPU's on the whole
+     frame, and march_reference against the tiled march on a 32x32 window
+     with nothing dropped; then K8 against its plain version on the card on
+     frame 0's march (k8_check: rgba at rtol 1e-4 plus 1e-6 of the
+     largest, both routes' deposited taps and in-group drops, both times
+     and K8's bound);
  20. the OLAT teacher's eval path: goliath_torch.scripts.run_test.main on
      configs/hand_teacher_mvp.yml at full width (hand_mvp's widths and
      cuts, 5 lights, the 64^3 deep-shadow density grid, 32 shadow steps,
      the UNet at uv 1024 over 5 slabs; mask_l1 on image_mask), 3 test
      frames, counts set to 0 just before and read just after (K4 twice a
-     frame, in the march's binning, and no other kernel): finite losses,
+     frame, in the march's binning, K8 once and K9 once a light, 15 in
+     all, and no other kernel): finite losses,
      images, prim colours and shadows in [0, 1], a render that is not
      empty, each frame's march, density grid, shadow integrals and UNet by
      CUDA events, peak memory and one profiled frame; then K4 against
@@ -145,14 +149,19 @@ the final result line:
      prims are an eighth of a cell) and on the frame's alpha-carrying
      prims grown 32x (whose shadows must be neither all 0 nor all 1), the
      march's drops, and the exact per-prim shadow against the grid path
-     on 1,024 points (logged);
+     on 1,024 points (logged); then K8 against its plain version on frame
+     0's march as in phase 19, and K9 against its plain version on the card
+     for each light on all 8,388,608 points, on the run's grid and on the
+     grown prims' (k9_check: rtol 1e-5 plus 1e-5), timed beside its bound
+     and beside F.grid_sample over the same positions;
  21. the MVP hand training path: goliath_torch.scripts.run_train.main on
      configs/hand_mvp.yml at full width (the eval path's widths and cuts,
      cal kept), the config's batch 4, all six of its losses (vgg on
      fixed-seed random features) and 3 steps, counts set to 0 just before
      and read just after (K4 twice a sample a forward, in the march's
      binning, which the backward does not run again: 32 launches with the
-     summary's forward at iteration 0; no other kernel): finite losses that
+     summary's forward at iteration 0; K8 4, the summary's forward, the
+     only march without gradient; no other kernel): finite losses that
      move, a finite, non-zero gradient in all five parameter groups, each
      step's wall time and its marches' forward and backward (each tile
      group marched again) by CUDA events, peak memory and one profiled
@@ -164,7 +173,8 @@ the final result line:
  22. the OLAT teacher's training path: run_train.main on
      configs/hand_teacher_mvp.yml at full width (its eval widths and cuts,
      5 lights, cal kept), the config's batch 1, its three losses and 3
-     steps (K4 8 times, nothing else): its four groups' gradients finite
+     steps (K4 8 times, K8 once, K9 20 times, nothing else): its four
+     groups' gradients finite
      and non-zero, the default group of the detached geometry's zero and
      its parameters moved by AdamW's decay alone, the same timings; then
      K4 on step 0's two scans, exactly;
@@ -2633,8 +2643,9 @@ def hand_mvp_eval_path(gc, torch, card_line, captured):
     """run_test.main on configs/hand_mvp.yml at full width
     (hand_mvp_config), counts reset just before: 3 frames with finite
     losses, rgb, alpha and mvp_window_overflow and finite prim parameters;
-    a render that is not empty; K4 twice a frame (one march, one binning)
-    and no other kernel. Keeps in ``captured`` frame 0's march arguments
+    a render that is not empty; K4 twice a frame (one march, one binning),
+    K8 once a frame (the march's tiles, no gradient) and no other kernel.
+    Keeps in ``captured`` frame 0's march arguments
     (on the card), its two K4 scans and its posed mesh; times each march
     by CUDA events; then profiles the last frame again on the run's
     model."""
@@ -2727,7 +2738,7 @@ def hand_mvp_eval_path(gc, torch, card_line, captured):
     if not all(s[0] > 0 for s in stats):
         raise AssertionError("a hand_mvp frame rendered nothing (alpha 0)")
     expected = {name: 0 for name in gc.LAUNCHES}
-    expected.update(cumsum1d=3 * HAND_MVP_K4_PER_FRAME)
+    expected.update(cumsum1d=3 * HAND_MVP_K4_PER_FRAME, mvp_march=3)
     if launches != expected:
         raise AssertionError(f"hand_mvp path launch counts {launches} != "
                              f"{expected}")
@@ -2851,6 +2862,193 @@ def march_window_check(torch, args, kw):
                              "on the window (or a drop separated them)")
 
 
+# K8's operations a deposited tap (csrc/mvp_march.cu, no warp field), each
+# float32 multiply, add, abs, floor, division or exp one: tj 2, the mask's
+# tmax + 1e-5 1, y 6, the fade 16 (|y| and three squarings a coordinate,
+# 2 sums, the scale, exp), the box test's |y| 3, the sampler 106 (x, y, z
+# 9, floors 3, fractions 3, the x weights 3; over the four (z, y) corners
+# 1 - wz and 1 - wy 4, their weights 8, 4 channels x (2 products, a sum, a
+# weight) 64, the running sums 12), alpha 2, (rgb * a) 3, the deposit 4
+K8_OPS_PER_TAP = 143
+# K9's operations as the function needs them, counted the same way: a
+# point 43 (d 3, the norm 6, its floor 1, a coordinate's direction, |.|,
+# reciprocal, two slab ends and their minimum 8 x 3, the maxima 2, the
+# clamp 1, seg 2, the scale, the product and the clamp 4), a sample 57 (ts
+# 2, the position 6, each axis's coordinate 4, floor, fraction and 1 - w
+# 7 x 3 (a tap outside the grid is selected away, not multiplied), the
+# eight corners' weights 12 (four (z, y) products, then x), terms 8 and
+# sums 7, the running sum 1), and a step's fraction 2 once for all points
+K9_OPS_PER_POINT, K9_OPS_PER_SAMPLE, K9_OPS_PER_STEP = 43, 57, 2
+
+
+def march_kept_rows(inp):
+    """Rows of the packed template that K8 reads at least once: the rows of
+    every prim that some tile list keeps (its first max_prims_per_tile
+    pairs)."""
+    import torch
+
+    M = inp.max_prims_per_tile
+    idx = inp.tile_start.long()[:, None] + torch.arange(
+        M, device=inp.tile_start.device)
+    keep = idx < inp.tile_end.long()[:, None]
+    kept = torch.unique(inp.sorted_prim[idx[keep]]).numel()
+    K, C, D, H, W = inp.template.shape
+    return kept, kept * D * H * W
+
+
+def k8_check(gc, torch, captured, card_line, label):
+    """K8 against its plain version on the card, on frame 0's march of a
+    path (``captured["march"]``: its MarchInputs rebuilt by
+    ``mvp.march_inputs``): rgba at rtol 1e-4 plus 1e-6 of the largest
+    |value| (the plain deposit's atomics and reductions sum in other
+    orders); the deposited taps and in-group drops of both routes logged
+    with their differences (a tap's mask can flip between the routes'
+    roundings: not held); K8's time (cuda_ms over 10 calls) and the plain
+    version's (cuda_call_ms, one call), and K8's bound: the larger of the
+    bytes (the rays of the tiles with prims, 32 B a ray: an empty tile's
+    rgba is 0 and its rays are not read; the rgba, 16 B a ray; the rows of
+    the prims the tile lists keep, 32 B a row) and the operations of the
+    deposited taps (K8_OPS_PER_TAP each)."""
+    import numpy as np
+
+    from goliath_torch.ops import mvp
+    from goliath_torch.ops import mvp_cuda as mc
+    from goliath_torch.utils.timing import cuda_call_ms, cuda_ms
+
+    args, kw = captured["march"]
+    with torch.no_grad():
+        inp = mvp.march_inputs(*args, **kw)[0]
+        got, counts = mc.mvp_march(inp, True)
+        ref, ref_counts = mc.mvp_march_plain(inp, True)
+        torch.cuda.synchronize()
+        counts = {k: int(v) for k, v in counts.items()}
+        ref_counts = {k: int(v) for k, v in ref_counts.items()}
+        ms = cuda_ms(lambda: mc.mvp_march(inp), reps=10, warmup=1)
+        _, plain_ms = cuda_call_ms(lambda: mc.mvp_march_plain(inp))
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    err = np.abs(got - ref)
+    scale = float(np.abs(ref).max())
+    n_over = int((err > 1e-4 * np.abs(ref) + 1e-6 * scale).sum())
+    T, P = inp.raypos.shape[:2]
+    kept, rows = march_kept_rows(inp)
+    live = int(((inp.tile_end - inp.tile_start) > 0).sum())
+    nbytes = live * P * 32 + T * P * 16 + rows * 32
+    ops = K8_OPS_PER_TAP * counts["taps"]
+    b_ms, b_by = bound_ms(nbytes, ops)
+    log(f"K8 {label}: {T} tiles ({live} with prims) of {P} rays, M "
+        f"{inp.max_prims_per_tile}, R {inp.max_prims_per_ray}, S "
+        f"{inp.max_steps}, window {inp.window_steps}; rgba max abs err "
+        f"{float(err.max()):.3e} of largest {scale:.6g}, {n_over} entries "
+        f"over rtol 1e-4 + 1e-6 of the largest (tolerance)")
+    log(f"K8 {label} counts, kernel {json.dumps(counts)}, plain "
+        f"{json.dumps(ref_counts)}, kernel - plain "
+        f"{json.dumps({k: counts[k] - ref_counts[k] for k in counts})}")
+    log(f"K8 {label} timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({ms / b_ms:.1f}x the bound): bytes "
+        f"{nbytes} (rays of the live tiles {live * P * 32}, rgba "
+        f"{T * P * 16}, {kept} kept prims' {rows} rows at 32 B) -> {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+        f"operations {ops} ({counts['taps']} deposited taps at "
+        f"{K8_OPS_PER_TAP}) -> {ops / FP32_OPS_PER_S * 1e3:.4f} ms; library: "
+        f"none (no PyTorch call marches prims) on {card_line}")
+    if n_over or got.shape != ref.shape or not counts["taps"]:
+        raise AssertionError(f"K8 disagrees with its plain version on "
+                             f"{label} (or deposits nothing)")
+    return dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                taps=counts["taps"], taps_plain=ref_counts["taps"])
+
+
+def k9_check(gc, torch, captured, card_line):
+    """K9 against its plain version on the card, on frame 0 of
+    hand_teacher_eval_path: each light's shadow integral over all the
+    frame's points, on the run's density grid and on the grid of its
+    alpha-carrying prims grown TEACHER_GROW times (as teacher_shadow_check
+    builds it), at rtol 1e-5 plus TEACHER_SHADOW_ATOL; timed on the grown
+    grid's first light (K9 by cuda_ms over 10 calls, the plain version by
+    cuda_call_ms), with its bound (the larger of the bytes: 12 B a point
+    read, 4 B written, the grid once; and the operations:
+    K9_OPS_PER_POINT, K9_OPS_PER_SAMPLE and K9_OPS_PER_STEP) and, as a
+    yardstick of the sampling alone, F.grid_sample (5-D, trilinear, zeros,
+    align_corners=False) over the same points x steps positions."""
+    import torch.nn.functional as F
+
+    from goliath_torch.ops import mvp
+    from goliath_torch.ops import mvp_cuda as mc
+    from goliath_torch.utils.timing import cuda_call_ms, cuda_ms
+
+    args, kw, density = captured["grid"]
+    shadows = captured["shadow"]
+    pts = shadows[0][0]
+    lights = [s[1] for s in shadows]
+    n = TEACHER_SHADOW_STEPS
+    keep = args[3].flatten(1).sum(1) > 0
+    grown = [a[keep] for a in args[:4]] + list(args[4:])
+    grown[2] = grown[2] / TEACHER_GROW
+    with torch.no_grad():
+        grids = {"the run's grid": density,
+                 f"the alpha prims grown {TEACHER_GROW:g}x":
+                     mvp.splat_density_grid(*grown, **kw)}
+        worst = 0.0
+        for name, grid in grids.items():
+            for i, light in enumerate(lights):
+                got = mc.shadow_integral(grid, pts, light, n)
+                ref = mc.shadow_integral_plain(grid, pts, light, n)
+                err = (got - ref).abs()
+                n_over = int((err > 1e-5 * ref.abs()
+                              + TEACHER_SHADOW_ATOL).sum())
+                worst = max(worst, float(err.max()))
+                log(f"K9 hand_teacher frame 0, {name}, light {i}: "
+                    f"{pts.shape[0]} points, max abs err "
+                    f"{float(err.max()):.3e}, mean {float(ref.mean()):.6g}, "
+                    f"share > 0 {float((ref > 0).float().mean()):.6f}; "
+                    f"{n_over} over rtol 1e-5 + {TEACHER_SHADOW_ATOL}")
+                if n_over:
+                    raise AssertionError(f"K9 disagrees with its plain "
+                                         f"version ({name}, light {i})")
+                del got, ref, err
+        grid = grids[f"the alpha prims grown {TEACHER_GROW:g}x"]
+        light = lights[0]
+        ms = cuda_ms(lambda: mc.shadow_integral(grid, pts, light, n),
+                     reps=10, warmup=1)
+        _, plain_ms = cuda_call_ms(
+            lambda: mc.shadow_integral_plain(grid, pts, light, n))
+        # the plain version's sample positions, then one grid_sample call
+        d = pts - light[None]
+        dist = mvp._norm(d)
+        dirn = d / dist.clamp(min=1e-8)
+        inv = 1.0 / torch.where(dirn.abs() < 1e-12,
+                                torch.full_like(dirn, 1e-12), dirn)
+        t_enter = torch.minimum((-1.0 - light[None]) * inv,
+                                (1.0 - light[None]) * inv).amax(
+            -1, keepdim=True).clamp(min=0.0)
+        seg = (dist - t_enter).clamp(min=0.0)
+        frac = (torch.arange(n, dtype=pts.dtype, device=pts.device)
+                + 0.5) / n
+        pos = light + dirn[:, None] * (t_enter + seg * frac)[..., None]
+        coords = pos.reshape(1, pts.shape[0], n, 1, 3)
+        del d, dist, dirn, inv, t_enter, seg, pos
+        library_ms = cuda_ms(lambda: F.grid_sample(
+            grid[None, None], coords, mode="bilinear", padding_mode="zeros",
+            align_corners=False), reps=3, warmup=1)
+        del coords
+    M = pts.shape[0]
+    nbytes = M * 16 + grid.numel() * 4 + 12
+    ops = M * (K9_OPS_PER_POINT + n * K9_OPS_PER_SAMPLE) \
+        + n * K9_OPS_PER_STEP
+    b_ms, b_by = bound_ms(nbytes, ops)
+    log(f"K9 timing ({M} points, {n} steps, grid {tuple(grid.shape)}): "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
+        f"{b_by} ({ms / b_ms:.1f}x the bound): bytes {nbytes} -> "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; operations {ops} "
+        f"({K9_OPS_PER_POINT} a point, {K9_OPS_PER_SAMPLE} a sample, "
+        f"{K9_OPS_PER_STEP} a step) -> "
+        f"{ops / FP32_OPS_PER_S * 1e3:.4f} ms; library: F.grid_sample over "
+        f"the {M * n} positions {library_ms:.4f} ms (the sampling alone, a "
+        f"yardstick) on {card_line}")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=library_ms)
+
+
 # Cuts of configs/hand_teacher_mvp.yml: n_pose_dims 6 and global_scaling 1,
 # as hand_mvp's (HAND_MVP_CUTS); mask_l1 reads image_mask (synthetic data
 # has no segmentation_fgbg; at eval its start_at / end_at of 0 keep it on).
@@ -2907,7 +3105,8 @@ def hand_teacher_eval_path(gc, torch, card_line, captured):
     losses, rgb, alpha, primrgb, primshadow and mvp_window_overflow; a
     render that is not empty and shadows in [0, 1] (their share above 0
     logged: teacher_shadow_check says why they can be all 0); K4 twice a
-    frame (the march's binning) and no other kernel.
+    frame (the march's binning), K8 once a frame (the march's tiles) and K9
+    once a light (the shadow integrals), and no other kernel.
     Times each frame's march, density grid, shadow integrals (one a light)
     and UNet by CUDA events, logs the peak memory; keeps in ``captured``
     frame 0's two K4 scans, the density grid's inputs and output, the
@@ -3042,7 +3241,8 @@ def hand_teacher_eval_path(gc, torch, card_line, captured):
                              f"{[len(v) for v in ms.values()]} of 3 "
                              f"(lights {L})")
     expected = {name: 0 for name in gc.LAUNCHES}
-    expected.update(cumsum1d=3 * HAND_MVP_K4_PER_FRAME)
+    expected.update(cumsum1d=3 * HAND_MVP_K4_PER_FRAME, mvp_march=3,
+                    shadow_integral=3 * TEACHER_LIGHTS)
     if launches != expected:
         raise AssertionError(f"hand_teacher path launch counts {launches} "
                              f"!= {expected}")
@@ -3251,7 +3451,10 @@ def teacher_small_reference(torch):
 # eval paths' cuts. The march's binning runs twice a sample a forward (its
 # two scans on K4) and never in the backward, which marches each tile group
 # again: 2 x 4 x (3 steps + the summary's forward at iteration 0) = 32 and
-# 2 x 1 x 4 = 8 launches.
+# 2 x 1 x 4 = 8 launches. The steps march under autograd (the plain tile
+# groups); only the summary's forward, under torch.no_grad(), marches on
+# K8: once a sample, 4 and 1. The teacher's shadow integrals run without
+# gradient in every forward: K9 5 lights x 1 sample x 4 forwards = 20.
 HAND_MVP_TRAIN_BATCH = 4
 TEACHER_TRAIN_BATCH = 1
 # the march's gradients card vs CPU on a 2 x 2-tile window: rtol of the
@@ -3358,12 +3561,16 @@ class MVPTrainCapture:
 
 
 def mvp_train_path(gc, torch, card_line, record, captured, label,
-                   make_config, batch, default_group):
+                   make_config, batch, default_group, lights=0):
     """run_training on an MVP config with MVPTrainCapture: K4 twice a
-    sample a forward and no other kernel; then each step's marches'
-    forward and backward ms beside the step's wall time."""
+    sample a forward, K8 once a sample of the summary's forward, K9 once a
+    light and sample a forward (``lights`` a sample: the teacher's), and no
+    other kernel; then each step's marches' forward and backward ms beside
+    the step's wall time."""
     capture = MVPTrainCapture(torch, captured)
     n = HAND_MVP_K4_PER_FRAME * batch * (TRAIN_STEPS + 1)
+    expected = dict(cumsum1d=n, mvp_march=batch,
+                    shadow_integral=lights * batch * (TRAIN_STEPS + 1))
 
     def zero_grad_ok(probe):
         # cal.identity_camera "400870" is not a synthetic camera, so CalV5
@@ -3373,7 +3580,7 @@ def mvp_train_path(gc, torch, card_line, record, captured, label,
         return ok | ({"__default__"} if default_group else set())
 
     launches = run_training(
-        gc, torch, card_line, label, dict(cumsum1d=n), record,
+        gc, torch, card_line, label, expected, record,
         patch=capture, make_config=make_config, batch=batch,
         zero_grad_ok=zero_grad_ok, default_group=default_group)
     fwd, bwd = capture.march_ms()
@@ -3405,7 +3612,7 @@ def hand_mvp_train_path(gc, torch, card_line, record, captured):
     """run_train.main on configs/hand_mvp.yml at full width
     (hand_mvp_train_config), batch 4, 3 steps: every group's gradient
     finite and non-zero (cal's may be 0 only if every sample drew cal's
-    identity camera), K4 32 times."""
+    identity camera), K4 32 times, K8 4 times (the summary's forward)."""
     return mvp_train_path(gc, torch, card_line, record, captured,
                           "hand_mvp train path", hand_mvp_train_config,
                           HAND_MVP_TRAIN_BATCH, default_group=False)
@@ -3416,10 +3623,12 @@ def teacher_train_path(gc, torch, card_line, record, captured):
     (teacher_train_config), batch 1 with 5 lights, 3 steps: the four
     groups' gradients finite and non-zero (cal's as hand_mvp's), the
     default group of the detached geometry finite, zero and decaying
-    (check_decay), K4 8 times."""
+    (check_decay), K4 8 times, K8 once (the summary's forward), K9 20
+    times."""
     return mvp_train_path(gc, torch, card_line, record, captured,
                           "hand_teacher train path", teacher_train_config,
-                          TEACHER_TRAIN_BATCH, default_group=True)
+                          TEACHER_TRAIN_BATCH, default_group=True,
+                          lights=TEACHER_LIGHTS)
 
 
 def mvp_train_march_check(torch, captured, card_line):
@@ -5355,6 +5564,7 @@ SHARD_2D = (2, 2)        # ("data", "tile")
 SHARD_DIFF = 2e-5        # the pixels beyond this are counted
 DRYRUN_SHARDS = 4
 DRYRUN_LIGHTS = 2        # the dry run's URHand fixture
+DRYRUN_TEACHER_LIGHTS = 2  # the dry run's MVP fixture (its data's lights)
 
 
 def shard_mesh(shape, names):
@@ -6024,12 +6234,16 @@ def family_launches(name, samples):
     """The launches of one training step of the dry run's family ``name``
     over ``samples`` samples on the card: RGCA (the XLA window) K1, K2, K3
     once and K4 twice a sample; the MVP hand and the teacher K4 twice a
-    sample; URHand K5 2L + 3 times a sample (its light views and renders),
-    K4 twice each; mesh_vae K5 once and K4 twice a sample."""
+    sample (their marches run under autograd: no K8), the teacher K9 once a
+    light and sample (its shadows take no gradient); URHand K5 2L + 3 times
+    a sample (its light views and renders), K4 twice each; mesh_vae K5 once
+    and K4 twice a sample."""
     k5 = 2 * DRYRUN_LIGHTS + 3
     per = {"rgca": dict(compositor_fwd_xla=1, pair_grads_xla=1,
                         cumsum_cols=1, cumsum1d=2),
-           "hand_mvp": dict(cumsum1d=2), "hand_teacher": dict(cumsum1d=2),
+           "hand_mvp": dict(cumsum1d=2),
+           "hand_teacher": dict(cumsum1d=2,
+                                shadow_integral=DRYRUN_TEACHER_LIGHTS),
            "urhand": dict(zbuffer=k5, cumsum1d=2 * k5),
            "mesh_vae": dict(zbuffer=1, cumsum1d=2)}[name]
     return {k: v * samples for k, v in per.items()}
@@ -7105,6 +7319,9 @@ def main() -> int:
     if {"march", "model", "geom_lbs"} <= set(hand_mvp_inputs):
         phase("mvp_march_check", mvp_march_check, torch, hand_mvp_inputs,
               card_line)
+    if "march" in hand_mvp_inputs:
+        phase("k8_check", k8_check, gc, torch, hand_mvp_inputs, card_line,
+              "hand_mvp frame 0")
     del hand_mvp_inputs
     torch.cuda.empty_cache()
     teacher_inputs = {}
@@ -7116,6 +7333,11 @@ def main() -> int:
     if {"grid", "shadow", "march"} <= set(teacher_inputs):
         phase("teacher_shadow_check", teacher_shadow_check, torch,
               teacher_inputs, card_line)
+    if "march" in teacher_inputs:
+        phase("k8_teacher", k8_check, gc, torch, teacher_inputs, card_line,
+              "hand_teacher frame 0")
+    if {"grid", "shadow"} <= set(teacher_inputs):
+        phase("k9_check", k9_check, gc, torch, teacher_inputs, card_line)
     del teacher_inputs
     torch.cuda.empty_cache()
     mvp_train_inputs = {}
@@ -7284,6 +7506,8 @@ def main() -> int:
               "pair_grads_fold": ("K6 bwd", [
                   "k6_check:pair_grads_fold", "fold_train_path"]),
               "cumsum_rows": ("K7", ["k7_check", "k7_frame"]),
+              "mvp_march": ("K8", ["k8_check", "k8_teacher"]),
+              "shadow_integral": ("K9", ["k9_check"]),
               **{f"probe_{v}": (f"P1 {v}", [f"p1_probe:probe_{v}"])
                  for v in gc.PROBE_VARIANTS}}
     verdicts = []

@@ -1,6 +1,6 @@
 // PyTorch bindings of the port's CUDA kernels (K1, K6's forward and P1
 // compositor_fwd.cu, K2 and K6's backward compositor_bwd.cu, K3, K4 and K7
-// cumsum.cu, K5 zbuffer.cu). Built together
+// cumsum.cu, K5 zbuffer.cu, K8 mvp_march.cu, K9 mvp_shadow.cu). Built together
 // with them by torch.utils.cpp_extension.load in
 // goliath_torch/ops/gsplat_cuda.py. Each binding checks its tensors,
 // allocates the outputs, launches on the current stream of the tensors'
@@ -43,6 +43,21 @@ extern "C" int goliath_zbuffer(const float* rows, const int32_t* sorted_prim,
                                int tile_size, int img_h, int img_w, int chunk,
                                int nchunks, int32_t* index_img, float* z_img,
                                cudaStream_t stream);
+
+extern "C" int goliath_mvp_march(
+    const float* raypos, const float* raydir, const float* tminmax,
+    const int32_t* tile_start, const int32_t* tile_end,
+    const int32_t* sorted_prim, const float* prims, const float* rows,
+    const float* wrows, int n_tiles, int tile_size, int ntx, int img_h,
+    int img_w, int tD, int tH, int tW, int wD, int wH, int wW, int S, int Sp,
+    int M, int R, int fadeexp, float stepsize, float cap_off, float fadescale,
+    int count, float* out, unsigned long long* counts, int32_t* cut,
+    cudaStream_t stream);
+extern "C" int goliath_shadow_integral(const float* density, int D, int H,
+                                       int W, const float* points,
+                                       long long n, const float* light,
+                                       int n_steps, float* out,
+                                       cudaStream_t stream);
 
 static void check_launch(int err, const char* name) {
   TORCH_CHECK(err == 0, name, " failed to launch: ",
@@ -262,6 +277,111 @@ std::vector<at::Tensor> zbuffer(const at::Tensor& rows,
   return {index_img, z_img};
 }
 
+// K8. raypos/raydir [T, P, 3] and tminmax [T, P, 2] f32 (P = tile_size^2,
+// T = ntx * nty); tile_start/tile_end [T] i32 into sorted_prim [budget] i32;
+// prims [K, 24] f32; rows [K*tD*tH*tW, 8] f32; wrows empty or
+// [K*wD*wH*wW, 6] f32. Returns (rgba [T, 4, P] f32, counts [4] i64: taps,
+// rays_over_r, rays_step_capped, window_cut_pairs; cut [K] i32, 1 for a
+// prim whose window was cut), the counts and flags 0 unless count.
+std::vector<at::Tensor> mvp_march(
+    const at::Tensor& raypos, const at::Tensor& raydir,
+    const at::Tensor& tminmax, const at::Tensor& tile_start,
+    const at::Tensor& tile_end, const at::Tensor& sorted_prim,
+    const at::Tensor& prims, const at::Tensor& rows, const at::Tensor& wrows,
+    int64_t tile_size, int64_t ntx, int64_t img_h, int64_t img_w,
+    std::vector<int64_t> tshape, std::vector<int64_t> wshape, int64_t S,
+    int64_t Sp, int64_t M, int64_t R, int64_t fadeexp, double stepsize,
+    double cap_off, double fadescale, bool count) {
+  check_input(raypos, at::kFloat, 3, "raypos");
+  check_input(raydir, at::kFloat, 3, "raydir");
+  check_input(tminmax, at::kFloat, 3, "tminmax");
+  check_input(tile_start, at::kInt, 1, "tile_start");
+  check_input(tile_end, at::kInt, 1, "tile_end");
+  check_input(sorted_prim, at::kInt, 1, "sorted_prim");
+  check_input(prims, at::kFloat, 2, "prims");
+  check_input(rows, at::kFloat, 2, "rows");
+  const bool has_warp = wrows.numel() > 0;
+  if (has_warp) check_input(wrows, at::kFloat, 2, "wrows");
+  for (const at::Tensor* t : {&raydir, &tminmax, &tile_start, &tile_end,
+                              &sorted_prim, &prims, &rows})
+    TORCH_CHECK(t->device() == raypos.device(),
+                "all tensors must share a device");
+  TORCH_CHECK(!has_warp || wrows.device() == raypos.device(),
+              "all tensors must share a device");
+  const int64_t T = raypos.size(0), P = raypos.size(1);
+  const int64_t K = prims.size(0);
+  TORCH_CHECK(tile_size >= 1 && P == tile_size * tile_size &&
+                  raypos.size(2) == 3 && raydir.sizes() == raypos.sizes() &&
+                  tminmax.size(0) == T && tminmax.size(1) == P &&
+                  tminmax.size(2) == 2,
+              "rays must be [T, tile_size^2, 3] and tminmax [T, P, 2]");
+  TORCH_CHECK(tile_start.numel() == T && tile_end.numel() == T &&
+                  ntx >= 1 && T % ntx == 0,
+              "tile bounds must be [T] with T a multiple of ntx");
+  TORCH_CHECK(prims.size(1) == 24, "prims must be [K, 24]");
+  TORCH_CHECK(tshape.size() == 3 && rows.size(1) == 8 &&
+                  rows.size(0) == K * tshape[0] * tshape[1] * tshape[2],
+              "rows must be [K * D * H * W, 8] (the packed RGBA template)");
+  TORCH_CHECK(reinterpret_cast<uintptr_t>(rows.data_ptr()) % 16 == 0,
+              "rows must start on a 16-byte boundary");
+  TORCH_CHECK(wshape.size() == 3, "wshape must hold (D, H, W)");
+  TORCH_CHECK(!has_warp || (wrows.size(1) == 6 &&
+                            wrows.size(0) ==
+                                K * wshape[0] * wshape[1] * wshape[2]),
+              "wrows must be [K * D * H * W, 6] (the packed warp field)");
+  TORCH_CHECK(S >= 1 && Sp >= 1 && Sp <= S && M >= 1 && R >= 1 && R <= M &&
+                  fadeexp >= 1,
+              "K8 takes 1 <= window_steps <= max_steps, 1 <= R <= M and an "
+              "integer fadeexp >= 1");
+  for (int64_t v : {T, P, K, img_h, img_w, S, M, R, fadeexp, K * tshape[0]})
+    TORCH_CHECK(v <= INT32_MAX, "a size is out of range");
+  const c10::cuda::CUDAGuard guard(raypos.device());
+  at::Tensor out = at::empty({T, 4, P}, raypos.options());
+  at::Tensor counts = at::zeros({4}, raypos.options().dtype(at::kLong));
+  at::Tensor cut = at::zeros({K}, tile_start.options());
+  check_launch(
+      goliath_mvp_march(
+          raypos.data_ptr<float>(), raydir.data_ptr<float>(),
+          tminmax.data_ptr<float>(), tile_start.data_ptr<int32_t>(),
+          tile_end.data_ptr<int32_t>(), sorted_prim.data_ptr<int32_t>(),
+          prims.data_ptr<float>(), rows.data_ptr<float>(),
+          has_warp ? wrows.data_ptr<float>() : nullptr, T, tile_size, ntx,
+          img_h, img_w, tshape[0], tshape[1], tshape[2], wshape[0],
+          wshape[1], wshape[2], S, Sp, M, R, fadeexp, (float)stepsize,
+          (float)cap_off, (float)fadescale, count ? 1 : 0,
+          out.data_ptr<float>(),
+          reinterpret_cast<unsigned long long*>(counts.data_ptr<int64_t>()),
+          cut.data_ptr<int32_t>(), at::cuda::getCurrentCUDAStream().stream()),
+      "mvp_march");
+  return {out, counts, cut};
+}
+
+// K9. density [D, H, W] f32, points [n, 3] f32, light_pos [3] f32, all on
+// one device. Returns the accumulated alpha [n] f32.
+at::Tensor shadow_integral(const at::Tensor& density, const at::Tensor& points,
+                           const at::Tensor& light_pos, int64_t n_steps) {
+  check_input(density, at::kFloat, 3, "density");
+  check_input(points, at::kFloat, 2, "points");
+  check_input(light_pos, at::kFloat, 1, "light_pos");
+  TORCH_CHECK(points.size(1) == 3 && light_pos.numel() == 3,
+              "points must be [n, 3] and light_pos [3]");
+  TORCH_CHECK(points.device() == density.device() &&
+                  light_pos.device() == density.device(),
+              "all tensors must share a device");
+  TORCH_CHECK(n_steps >= 1 && n_steps <= INT32_MAX,
+              "n_steps must be at least 1");
+  const c10::cuda::CUDAGuard guard(density.device());
+  at::Tensor out = at::empty({points.size(0)}, points.options());
+  check_launch(goliath_shadow_integral(
+                   density.data_ptr<float>(), density.size(0),
+                   density.size(1), density.size(2), points.data_ptr<float>(),
+                   points.size(0), light_pos.data_ptr<float>(), n_steps,
+                   out.data_ptr<float>(),
+                   at::cuda::getCurrentCUDAStream().stream()),
+               "shadow_integral");
+  return out;
+}
+
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("cumsum_cols_f32", &cumsum_cols_f32,
         "K3: inclusive float32 prefix sums along dim 1 of [F, M]");
@@ -275,4 +395,7 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
   m.def("compositor_fwd", &compositor_fwd,
         "K1 (K6 with n_imgs > 1, P1 with a variant): tile compositor forward");
   m.def("zbuffer", &zbuffer, "K5: mesh z-buffer, nearest face per pixel");
+  m.def("mvp_march", &mvp_march, "K8: the tiled MVP march's forward");
+  m.def("shadow_integral", &shadow_integral,
+        "K9: the deep-shadow integral from a light to each point");
 }

@@ -3,7 +3,8 @@ the build and binding code of all the port's kernels (counterpart of the
 JAX package's ops/gsplat_pallas.py).
 
 Kernels (sources in ``ops/csrc/``; the mesh z-buffer K5 of
-``ops/rasterizer_cuda.py`` among them) are built at first use into one
+``ops/rasterizer_cuda.py``, the MVP march's forward K8 and the deep-shadow
+integral K9 of ``ops/mvp_cuda.py`` among them) are built at first use into one
 extension module with ``torch.utils.cpp_extension.load``: nvcc compiles each
 ``.cu`` for ``sm_90a`` and the host compiler ``csrc/bindings.cpp``, whose
 bindings check their tensors and launch on the current stream. The build
@@ -92,6 +93,8 @@ SOURCES = {"compositor_fwd": "compositor_fwd.cu",
            "cumsum1d": "cumsum.cu",
            "cumsum_rows": "cumsum.cu",
            "zbuffer": "zbuffer.cu",
+           "mvp_march": "mvp_march.cu",
+           "shadow_integral": "mvp_shadow.cu",
            **{f"probe_{v}": "compositor_fwd.cu" for v in PROBE_VARIANTS}}
 # what each launch name stands for in the JAX package (file:line in its
 # directory; the probe's in the repo's scripts/)
@@ -106,6 +109,10 @@ REPLACES = {
     "cumsum1d": "ops/gsplat_pallas.py:110",
     "cumsum_rows": "ops/gsplat_pallas.py:71",
     "zbuffer": "ops/rasterizer_pallas.py:28",
+    # XLA functions of the JAX package (no pallas_call): the march's group
+    # and the deep-shadow integral
+    "mvp_march": "ops/mvp.py:482",
+    "shadow_integral": "ops/mvp.py:814",
     **{f"probe_{v}": "scripts/probe_kernel.py:49" for v in PROBE_VARIANTS},
 }
 

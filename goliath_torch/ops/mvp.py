@@ -22,13 +22,17 @@ are clipped to ``max_tiles_per_prim``; the pair budget is
 first ``max_prims_per_tile`` pairs; each ray marches its nearest
 ``max_prims_per_ray`` hit prims; each (prim, ray) pair takes
 ``window_steps`` steps from its span's entry; the march takes
-``max_steps`` steps. How tiles are grouped is the port's own: empty tiles
-are skipped, and a group holds as many tiles as ``GROUP_TAPS`` samples
-allow. Window samples land on the step grid by one ``scatter_add_`` (the
-JAX package's one-hot einsum deposit, a TPU device for avoiding scatters,
-computes the same sums). Under autograd each tile group is recomputed in
-the backward (``torch.utils.checkpoint``, the JAX package's group remat):
-the binning and the tile order stay outside the recomputed part.
+``max_steps`` steps. ``march_inputs`` bins and cuts the rays into tiles
+(``MarchInputs``); the tiles are then marched by K8, the hand-written
+forward of ``ops/mvp_cuda.py`` (CUDA tensors without gradient), or by the
+plain tile groups (``march_tiles_plain``). How the plain route groups
+tiles is the port's own: empty tiles are skipped, and a group holds as
+many tiles as ``GROUP_TAPS`` samples allow. Window samples land on the
+step grid by one ``scatter_add_`` (the JAX package's one-hot einsum
+deposit, a TPU device for avoiding scatters, computes the same sums).
+Under autograd each tile group is recomputed in the backward
+(``torch.utils.checkpoint``, the JAX package's group remat): the binning
+and the tile order stay outside the recomputed part.
 
 ``march_reference`` is the exact oracle over every prim and every ray.
 
@@ -36,8 +40,9 @@ The deep-shadow half (the OLAT teacher's) builds a global density grid of
 the prims' alphas by gather (``splat_density_grid``, binned by
 ``ops/binning.bin_boxes_to_cells``, keeping the JAX package's per-block
 drop) and integrates it from each light to each query point
-(``shadow_at_points``); ``shadow_at_points_exact`` integrates the prims'
-own fields, the grid path's oracle.
+(``shadow_at_points``: K9 of ``ops/mvp_cuda.py`` on CUDA tensors);
+``shadow_at_points_exact`` integrates the prims' own fields, the grid
+path's oracle.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from goliath_torch.ops.backend import target_backend
 from goliath_torch.ops.binning import (bin_boxes_to_cells, bin_to_tiles,
                                        cell_spans, clip_spans)
 from goliath_torch.utils.sampling import grid_sample_3d
@@ -295,10 +301,295 @@ def _to_tiles(img_hw: torch.Tensor, ntx: int, nty: int, ts: int
     return x.reshape(nty * ntx, ts * ts, C)
 
 
+class MarchInputs(NamedTuple):
+    """What the tiled march's two routes take after the binning (built by
+    ``march_inputs``): each tile's rays, its slice of the sorted pairs, the
+    prims and their AABBs, and the march's sizes. K8 (``ops/mvp_cuda.py``)
+    and the plain tile groups (``march_tiles_plain``) take the same."""
+
+    raypos: torch.Tensor       # [T, P, 3] each tile's rays, row-major
+    raydir: torch.Tensor       # [T, P, 3]
+    tminmax: torch.Tensor      # [T, P, 2]
+    tile_start: torch.Tensor   # [T] int32, into sorted_prim
+    tile_end: torch.Tensor     # [T] int32
+    sorted_prim: torch.Tensor  # [budget] int32
+    pmin: torch.Tensor         # [K, 3] world AABBs (no gradient)
+    pmax: torch.Tensor         # [K, 3]
+    primpos: torch.Tensor      # [K, 3]
+    primrot: torch.Tensor      # [K, 3, 3]
+    primscale: torch.Tensor    # [K, 3]
+    template: PackedVolume     # C 4
+    warp: Optional[PackedVolume]  # C 3
+    stepsize: float
+    max_steps: int             # S
+    window_steps: int          # Sp
+    max_prims_per_tile: int    # M
+    max_prims_per_ray: int     # R
+    chunk: int                 # slots a plain chunk takes
+    fadescale: float
+    fadeexp: float
+    img_h: int
+    img_w: int
+    ntx: int
+    tile_size: int
+
+
 def _count(drops: Optional[Dict[str, torch.Tensor]], key: str,
            n: torch.Tensor) -> None:
     if drops is not None:
         drops[key] = drops.get(key, 0) + n.sum()
+
+
+def march_inputs(
+    raypos: torch.Tensor,      # [H, W, 3]
+    raydir: torch.Tensor,      # [H, W, 3]
+    stepsize: float,
+    tminmax: torch.Tensor,     # [H, W, 2]
+    primpos: torch.Tensor,     # [K, 3]
+    primrot: torch.Tensor,     # [K, 3, 3]
+    primscale: torch.Tensor,   # [K, 3]
+    template: torch.Tensor,    # [K, 4, TD, TH, TW]
+    K_cam: torch.Tensor,       # [3, 3] camera intrinsics (tile culling)
+    Rt_cam: torch.Tensor,      # [3, 4]
+    max_steps: int = 128,
+    tile_size: int = 16,
+    max_prims_per_tile: int = 64,
+    chunk: int = 16,
+    max_tiles_per_prim: int = 64,
+    pair_budget_mult: int = 8,
+    fadescale: float = 8.0,
+    fadeexp: float = 8.0,
+    warp: Optional[torch.Tensor] = None,  # [K, 3, WD, WH, WW]
+    window_steps: Optional[int] = None,
+    max_prims_per_ray: int = 16,
+) -> Tuple[MarchInputs, torch.Tensor, torch.Tensor]:
+    """``mvp_raymarch_tiled``'s arguments (without ``drops``) -> (the
+    march's MarchInputs, and each prim's tile rect t_min, t_max [K, 2]
+    int32): the prims' AABBs projected to screen tiles and binned
+    (``bin_to_tiles``, K4 twice on CUDA tensors), the rays cut into
+    tiles, the volumes packed. Raises ValueError where R is not a multiple
+    of the chunk."""
+    H, W = raypos.shape[:2]
+    ts = tile_size
+    ntx = -(-W // ts)
+    nty = -(-H // ts)
+    K = primpos.shape[0]
+    # the AABBs only choose each tile's and each ray's prims, their order
+    # and the first step: their derivative is 0 (in the JAX package too)
+    pmin, pmax = prim_world_aabb(primpos.detach(), primrot.detach(),
+                                 primscale.detach())
+    # the 8 AABB corners, projected to the screen for the tile rects
+    corners = torch.stack([
+        torch.stack([(pmax if cx else pmin)[:, 0], (pmax if cy else pmin)[:, 1],
+                     (pmax if cz else pmin)[:, 2]], -1)
+        for cz in (0, 1) for cy in (0, 1) for cx in (0, 1)], 1)  # [K, 8, 3]
+    cam = torch.einsum("ij,knj->kni", Rt_cam[:3, :3], corners) + Rt_cam[:3, 3]
+    z = cam[..., 2].clamp(min=1e-4)
+    pix = torch.einsum("ij,knj->kni", K_cam[:2, :2],
+                       cam[..., :2] / z[..., None]) + K_cam[:2, 2]
+    behind = (cam[..., 2] <= 1e-4).any(dim=1)
+    xy_min = pix.amin(dim=1)
+    xy_max = pix.amax(dim=1)
+    # prims partly behind the camera get full-screen rects
+    xy_min = torch.where(behind[:, None], torch.zeros_like(xy_min), xy_min)
+    xy_max = torch.where(behind[:, None], xy_max.new_tensor([[W, H]]), xy_max)
+    t_min = _sat_int(torch.floor(xy_min / ts), torch.int32)
+    t_max = _sat_int(torch.floor(xy_max / ts) + 1, torch.int32)
+    binning = bin_to_tiles(t_min, t_max, torch.ones(
+        K, dtype=torch.bool, device=raypos.device), ntx, nty,
+        max_tiles_per_prim, pair_budget_mult * K)
+
+    M = max_prims_per_tile
+    R = min(max_prims_per_ray, M)
+    rchunk = min(chunk, R)
+    if R % rchunk:
+        raise ValueError(
+            f"max_prims_per_ray {R} is not a multiple of chunk {rchunk}")
+    S = max_steps
+    inp = MarchInputs(
+        _to_tiles(raypos, ntx, nty, ts), _to_tiles(raydir, ntx, nty, ts),
+        _to_tiles(tminmax, ntx, nty, ts), binning.tile_start,
+        binning.tile_end, binning.sorted_prim, pmin, pmax, primpos, primrot,
+        primscale, _packed(template), None if warp is None else _packed(warp),
+        stepsize, S, S if window_steps is None else min(window_steps, S), M,
+        R, rchunk, fadescale, fadeexp, H, W, ntx, ts)
+    return inp, t_min, t_max
+
+
+def march_group(inp: MarchInputs, counts, rp_g, rd_g, tm_g, pids, pm, ins,
+                primpos, primrot, primscale, rows, wrows):
+    """rgba [g, 4, P] of a group of tiles: the plain march of K8's work
+    (``ops/csrc/mvp_march.cu``). A function of its tensor arguments alone
+    (``ins``, the tiles' image rays, only for ``counts``), so the backward
+    can run it again. ``counts`` (a dict, or None) receives the in-group
+    drops and the deposited taps (``march_tiles_plain``)."""
+    gs, P = rp_g.shape[:2]
+    S, Sp, R, rchunk = (inp.max_steps, inp.window_steps,
+                        inp.max_prims_per_ray, inp.chunk)
+    stepsize = inp.stepsize
+    dev = rp_g.device
+    tpv_g = PackedVolume(rows, inp.template.shape)
+    wpv_g = None if wrows is None else PackedVolume(wrows, inp.warp.shape)
+    iota_Sp = torch.arange(Sp, device=dev, dtype=torch.int64)
+    iota_S = torch.arange(S, device=dev, dtype=rp_g.dtype)
+
+    # each ray's span across its tile's prims
+    tmin_pk, tmax_pk = _ray_box_span_g(rp_g, rd_g, inp.pmin[pids],
+                                       inp.pmax[pids])          # [g, M, P]
+    hit = (tmax_pk > tmin_pk) & pm[..., None]
+    inf = torch.full_like(tmin_pk, float("inf"))
+    t_enter = torch.where(hit, tmin_pk, inf).amin(dim=1)     # [g, P]
+    t_exit = torch.where(hit, tmax_pk, -inf).amax(dim=1)
+    t_enter = torch.maximum(t_enter, tm_g[..., 0])
+    t_exit = torch.minimum(t_exit, tm_g[..., 1])
+    any_hit = torch.isfinite(t_enter) & (t_exit > t_enter)
+    t_enter = torch.where(any_hit, t_enter, torch.zeros_like(t_enter))
+    t_exit = torch.where(any_hit, t_exit, torch.full_like(t_exit, -1.0))
+
+    # each ray's R nearest hit prims by entry depth (a stable sort:
+    # the JAX package's is unstable, which only orders equal depths)
+    keyT = torch.where(hit, tmin_pk, inf).transpose(1, 2)    # [g, P, M]
+    key_s, slot_s = torch.sort(keyT, dim=2, stable=True)
+    slotR = slot_s[..., :R]                                 # [g, P, R]
+    hitR = torch.isfinite(key_s[..., :R])
+
+    # steps on the grid of the ray's tmin, as the CUDA kernel aligns
+    # them (mvpraymarch_subset_kernel.h:76-79)
+    t0 = tm_g[..., 0] + torch.floor(
+        (t_enter - tm_g[..., 0]).clamp(min=0.0) / stepsize) * stepsize
+    if counts is not None:
+        _count(counts, "rays_over_r", (hit.sum(1) > R) & ins)
+        _count(counts, "rays_step_capped", any_hit & ins & (
+            t0 + (S - 1) * stepsize + 1e-5 < t_exit))
+
+    # taps [g, P, rc, Sp]: each ray's slots, each slot's window steps
+    acc = rp_g.new_zeros(gs, P, 4, S)
+    for ci in range(R // rchunk):
+        if ci and not bool((hitR.sum(2) > ci * rchunk).any()):
+            break   # hit slots are sorted first: no ray has more
+        c0 = ci * rchunk
+        sl = slotR[..., c0:c0 + rchunk]                     # [g, P, rc]
+        hm = hitR[..., c0:c0 + rchunk]
+        gp = pids.gather(1, sl.reshape(gs, -1)).reshape(sl.shape)
+        # prim coords along the ray: y_j(t) = A_j t + B_j
+        Rr = primrot[gp]                                    # [g,P,rc,3,3]
+        psc = primscale[gp]                                 # [g,P,rc,3]
+        Ac = torch.einsum("gpkij,gpi->gpkj", Rr, rd_g) * psc
+        rel0 = rp_g[:, :, None] - primpos[gp]               # [g,P,rc,3]
+        Bc = torch.einsum("gpkij,gpki->gpkj", Rr, rel0) * psc
+        # spans of the oriented slabs |y_j(t)| < 1, the exact support
+        # of the samples' validity
+        invA = 1.0 / torch.where(Ac.abs() < 1e-12,
+                                 torch.full_like(Ac, 1e-12), Ac)
+        t1 = (-1.0 - Bc) * invA
+        t2 = (1.0 - Bc) * invA
+        tmin_c = torch.minimum(t1, t2).amax(dim=-1)           # [g,P,rc]
+        tmax_c = torch.maximum(t1, t2).amin(dim=-1)
+        ok = (tmax_c > tmin_c) & hm
+        s_lo = _sat_int(torch.ceil(
+            (tmin_c - t0[..., None]) / stepsize - 1e-5)).clamp(0, S - 1)
+        sidx = s_lo[..., None] + iota_Sp                      # [g,P,rc,Sp]
+        tj = t0[..., None, None] + sidx * stepsize
+        msk = (ok[..., None] & (tj <= tmax_c[..., None] + 1e-5)
+               & (sidx < S))
+        yx = Ac[..., 0, None] * tj + Bc[..., 0, None]
+        yy = Ac[..., 1, None] * tj + Bc[..., 1, None]
+        yz = Ac[..., 2, None] * tj + Bc[..., 2, None]
+        smp = sample_prims_cf(tpv_g, gp[..., None], yx, yy, yz,
+                              inp.fadescale, inp.fadeexp,
+                              warp=wpv_g)                   # [4,g,P,rc,Sp]
+        a = smp[3] * msk
+        vals = torch.stack([smp[0] * a, smp[1] * a, smp[2] * a, a], 2)
+        # deposit each window onto the step grid at s_lo + j
+        acc.scatter_add_(
+            3, sidx.clamp(max=S - 1).reshape(gs, P, 1, -1).expand(
+                gs, P, 4, -1), vals.reshape(gs, P, 4, -1))
+        if counts is not None:
+            past = (ok & (s_lo + Sp < S) & (
+                t0[..., None] + (s_lo + Sp) * stepsize
+                <= tmax_c + 1e-5) & ins[..., None])
+            _count(counts, "window_cut_pairs", past)
+            _count(counts, "taps", msk)
+            counts["cut_prims"][gp[past]] = True
+
+    steps_t = t0[..., None] + stepsize * iota_S               # [g, P, S]
+    live_s = (steps_t <= t_exit[..., None] + 1e-5) & any_hit[..., None]
+    alpha = acc[:, :, 3] * live_s
+    safe = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
+    rgb_mean = acc[:, :, :3] / safe[:, :, None]
+    A_clip, contrib = saturate(alpha, stepsize)
+    rgb_out = (rgb_mean * contrib[:, :, None]).sum(-1)      # [g, P, 3]
+    return torch.cat([rgb_out, A_clip[..., -1:]], -1).transpose(1, 2)
+
+
+# the in-group counts of the march (``march_tiles_plain`` and K8): the
+# drops of ``mvp_raymarch_tiled``'s ``drops`` and the taps it deposited
+MARCH_COUNTS = ("taps", "rays_over_r", "rays_step_capped",
+                "window_cut_pairs", "window_cut_prims")
+
+
+def image_rays(inp: MarchInputs) -> torch.Tensor:
+    """[T, P] bool: which of the tiles' rays are image pixels (the tiles
+    of the last row and column run past the image)."""
+    T, P = inp.raypos.shape[:2]
+    ts = inp.tile_size
+    nty = T // inp.ntx
+    inside = torch.zeros(nty * ts, inp.ntx * ts, dtype=torch.bool,
+                         device=inp.raypos.device)
+    inside[:inp.img_h, :inp.img_w] = True
+    return inside.reshape(nty, ts, inp.ntx, ts).permute(0, 2, 1, 3) \
+        .reshape(T, P)
+
+
+def march_group_tiles(inp: MarchInputs) -> int:
+    """Tiles a plain group marches at once: as many as GROUP_TAPS samples
+    allow (the JAX package's ``tile_group``)."""
+    P = inp.tile_size * inp.tile_size
+    return max(1, GROUP_TAPS // (inp.chunk * inp.window_steps * P))
+
+
+def march_tiles_plain(inp: MarchInputs, counts: Optional[dict] = None,
+                      recompute: bool = False) -> torch.Tensor:
+    """The plain march of every tile: rgba [T, 4, P]. Empty tiles march
+    nothing (their rgba is 0; one host sync a call), the others go in
+    groups of ``march_group_tiles`` through ``march_group``. With
+    ``recompute`` each group runs under ``torch.utils.checkpoint`` and is
+    marched again in the backward. ``counts`` (a dict, or None) receives
+    MARCH_COUNTS as 0-dim int64 tensors."""
+    T, P = inp.raypos.shape[:2]
+    M = inp.max_prims_per_tile
+    budget = inp.sorted_prim.shape[0]
+    dev = inp.raypos.device
+    tile_counts = inp.tile_end - inp.tile_start
+    inside = None
+    if counts is not None:
+        for key in MARCH_COUNTS[:4]:
+            counts[key] = torch.zeros((), dtype=torch.int64, device=dev)
+        counts["cut_prims"] = torch.zeros(inp.primpos.shape[0],
+                                          dtype=torch.bool, device=dev)
+        inside = image_rays(inp)
+    live = torch.nonzero(tile_counts > 0).squeeze(1)
+    g = march_group_tiles(inp)
+    out = inp.raypos.new_zeros(T, 4, P)
+    for i0 in range(0, live.numel(), g):
+        idx = live[i0:i0 + g]
+        idxs = inp.tile_start[idx][:, None] + torch.arange(
+            M, device=dev, dtype=torch.int32)                   # [g, M]
+        pm = idxs < inp.tile_end[idx][:, None]
+        pids = inp.sorted_prim[idxs.clamp(0, budget - 1).long()].long()
+        args = (inp.raypos[idx], inp.raydir[idx], inp.tminmax[idx], pids, pm,
+                None if inside is None else inside[idx], inp.primpos,
+                inp.primrot, inp.primscale, inp.template.rows,
+                None if inp.warp is None else inp.warp.rows)
+        # under autograd the group's taps are recomputed in the backward
+        # (one group's temporaries alive at a time); the binning, the tile
+        # order and the groups stay as this pass made them
+        out[idx] = (checkpoint(march_group, inp, None, *args,
+                               use_reentrant=False)
+                    if recompute else march_group(inp, counts, *args))
+    if counts is not None:
+        counts["window_cut_prims"] = counts.pop("cut_prims").sum()
+    return out
 
 
 def mvp_raymarch_tiled(
@@ -342,6 +633,16 @@ def mvp_raymarch_tiled(
     needs that chunk. Tiles are marched in groups of as many as
     GROUP_TAPS samples allow (the JAX package's ``tile_group``).
 
+    Route: the binning (``march_inputs``) always runs here, its two prefix
+    sums on K4 for CUDA tensors. The tiles are then marched by K8
+    (``mvp_cuda.mvp_march``, one launch for every tile, no host sync) when
+    the tensors lie on a CUDA device and no input needs a gradient (or
+    gradient is off); otherwise by the plain tile groups
+    (``march_tiles_plain``): on the CPU and under autograd (every training
+    step). On the card K8 takes an integer ``fadeexp`` of at least 1 and
+    raises ValueError for any other; a K8 that fails to build or launch
+    raises too.
+
     With ``drops`` given (a dict), the march adds to it what each drop
     removed, as tensors: ``pairs_wanted`` (tile pairs after the per-prim
     clip) against ``pair_budget``, ``prims_clipped``, ``prims_dropped``
@@ -352,9 +653,10 @@ def mvp_raymarch_tiled(
     prims in their tile's list), ``window_cut_pairs`` and
     ``window_cut_prims`` ((prim, ray) pairs and prims whose span went past
     the window), ``rays_step_capped`` (hits past max_steps), and
-    ``tiles_marched`` and ``group_tiles``; with gradient enabled on an
-    input that needs one it raises ValueError instead (the recomputed
-    groups would count twice).
+    ``tiles_marched`` and ``group_tiles`` (the plain route's group size,
+    on either route); the last five are counted in the march itself (by
+    K8 on its route); with gradient enabled on an input that needs one it
+    raises ValueError instead (the recomputed groups would count twice).
 
     Under autograd (grad enabled, an input needing gradient) each group is
     marched again in the backward (``torch.utils.checkpoint``), as the JAX
@@ -362,62 +664,25 @@ def mvp_raymarch_tiled(
     temporaries. The prims' AABBs, which pick the tiles, each ray's prims
     and its first step, carry no gradient.
     """
-    H, W = raypos.shape[:2]
-    dev = raypos.device
-    ts = tile_size
-    ntx = -(-W // ts)
-    nty = -(-H // ts)
-    K = primpos.shape[0]
     recompute = torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in (
             primpos, primrot, primscale, _rows(template), _rows(warp)))
     if recompute and drops is not None:
         raise ValueError("the march counts drops without gradient: call it "
                          "under torch.no_grad()")
-
-    # the AABBs only choose each tile's and each ray's prims, their order
-    # and the first step: their derivative is 0 (in the JAX package too)
-    pmin, pmax = prim_world_aabb(primpos.detach(), primrot.detach(),
-                                 primscale.detach())
-    # the 8 AABB corners, projected to the screen for the tile rects
-    corners = torch.stack([
-        torch.stack([(pmax if cx else pmin)[:, 0], (pmax if cy else pmin)[:, 1],
-                     (pmax if cz else pmin)[:, 2]], -1)
-        for cz in (0, 1) for cy in (0, 1) for cx in (0, 1)], 1)  # [K, 8, 3]
-    cam = torch.einsum("ij,knj->kni", Rt_cam[:3, :3], corners) + Rt_cam[:3, 3]
-    z = cam[..., 2].clamp(min=1e-4)
-    pix = torch.einsum("ij,knj->kni", K_cam[:2, :2],
-                       cam[..., :2] / z[..., None]) + K_cam[:2, 2]
-    behind = (cam[..., 2] <= 1e-4).any(dim=1)
-    xy_min = pix.amin(dim=1)
-    xy_max = pix.amax(dim=1)
-    # prims partly behind the camera get full-screen rects
-    xy_min = torch.where(behind[:, None], torch.zeros_like(xy_min), xy_min)
-    xy_max = torch.where(behind[:, None], xy_max.new_tensor([[W, H]]), xy_max)
-    t_min = _sat_int(torch.floor(xy_min / ts), torch.int32)
-    t_max = _sat_int(torch.floor(xy_max / ts) + 1, torch.int32)
-    budget = pair_budget_mult * K
-    binning = bin_to_tiles(t_min, t_max, torch.ones(K, dtype=torch.bool,
-                                                    device=dev),
-                           ntx, nty, max_tiles_per_prim, budget)
-
-    P = ts * ts
+    inp, t_min, t_max = march_inputs(
+        raypos, raydir, stepsize, tminmax, primpos, primrot, primscale,
+        template, K_cam, Rt_cam, max_steps, tile_size, max_prims_per_tile,
+        chunk, max_tiles_per_prim, pair_budget_mult, fadescale, fadeexp,
+        warp, window_steps, max_prims_per_ray)
+    ntx = inp.ntx
+    nty = inp.raypos.shape[0] // ntx
+    K = primpos.shape[0]
     M = max_prims_per_tile
-    R = min(max_prims_per_ray, M)
-    rchunk = min(chunk, R)
-    if R % rchunk:
-        raise ValueError(
-            f"max_prims_per_ray {R} is not a multiple of chunk {rchunk}")
-    nchunks = R // rchunk
-    S = max_steps
-    Sp = S if window_steps is None else min(window_steps, S)
-    counts = binning.tile_end - binning.tile_start              # [T]
-    T = counts.shape[0]
+    counts = inp.tile_end - inp.tile_start                      # [T]
 
     if drops is not None:
-        for key in ("rays_over_r", "rays_step_capped", "window_cut_pairs"):
-            drops.setdefault(key, torch.zeros((), dtype=torch.int64,
-                                               device=dev))
+        budget = pair_budget_mult * K
         _, _, w, h = clip_spans(t_min, t_max, ntx, nty, max_tiles_per_prim)
         n = w * h
         area = ((t_max[:, 0].clamp(0, ntx) - t_min[:, 0].clamp(0, ntx))
@@ -432,142 +697,28 @@ def mvp_raymarch_tiled(
         _count(drops, "tiles_full", counts >= M)
         drops["max_tile_list"] = counts.max()
         _count(drops, "pairs_past_list", (counts - M).clamp(min=0))
-        inside = torch.zeros(nty * ts, ntx * ts, dtype=torch.bool,
-                             device=dev)
-        inside[:H, :W] = True                                   # image rays
-        inside = inside.reshape(nty, ts, ntx, ts).permute(0, 2, 1, 3) \
-            .reshape(T, P)
-        cut_prims = torch.zeros(K, dtype=torch.bool, device=dev)
 
-    rp_t = _to_tiles(raypos, ntx, nty, ts)                      # [T, P, 3]
-    rd_t = _to_tiles(raydir, ntx, nty, ts)
-    tm_t = _to_tiles(tminmax, ntx, nty, ts)                     # [T, P, 2]
-    tpv = _packed(template)
-    wpv = None if warp is None else _packed(warp)
-    iota_Sp = torch.arange(Sp, device=dev, dtype=torch.int64)
-    iota_S = torch.arange(S, device=dev, dtype=raypos.dtype)
+    in_group = None if drops is None else {}
+    if target_backend(raypos) == "cuda" and not recompute:
+        from goliath_torch.ops import mvp_cuda
 
-    def march_group(rp_g, rd_g, tm_g, pids, pm, ins, primpos, primrot,
-                    primscale, rows, wrows):
-        """rgba [g, 4, P] of a group of tiles. A function of its arguments
-        alone (``ins``, the tiles' image rays, only for ``drops``), so the
-        backward can run it again."""
-        gs = rp_g.shape[0]
-        tpv_g = PackedVolume(rows, tpv.shape)
-        wpv_g = None if wrows is None else PackedVolume(wrows, wpv.shape)
-
-        # each ray's span across its tile's prims
-        tmin_pk, tmax_pk = _ray_box_span_g(rp_g, rd_g, pmin[pids],
-                                           pmax[pids])          # [g, M, P]
-        hit = (tmax_pk > tmin_pk) & pm[..., None]
-        inf = torch.full_like(tmin_pk, float("inf"))
-        t_enter = torch.where(hit, tmin_pk, inf).amin(dim=1)     # [g, P]
-        t_exit = torch.where(hit, tmax_pk, -inf).amax(dim=1)
-        t_enter = torch.maximum(t_enter, tm_g[..., 0])
-        t_exit = torch.minimum(t_exit, tm_g[..., 1])
-        any_hit = torch.isfinite(t_enter) & (t_exit > t_enter)
-        t_enter = torch.where(any_hit, t_enter, torch.zeros_like(t_enter))
-        t_exit = torch.where(any_hit, t_exit, torch.full_like(t_exit, -1.0))
-
-        # each ray's R nearest hit prims by entry depth (a stable sort:
-        # the JAX package's is unstable, which only orders equal depths)
-        keyT = torch.where(hit, tmin_pk, inf).transpose(1, 2)    # [g, P, M]
-        key_s, slot_s = torch.sort(keyT, dim=2, stable=True)
-        slotR = slot_s[..., :R]                                 # [g, P, R]
-        hitR = torch.isfinite(key_s[..., :R])
-
-        # steps on the grid of the ray's tmin, as the CUDA kernel aligns
-        # them (mvpraymarch_subset_kernel.h:76-79)
-        t0 = tm_g[..., 0] + torch.floor(
-            (t_enter - tm_g[..., 0]).clamp(min=0.0) / stepsize) * stepsize
-        if drops is not None:
-            _count(drops, "rays_over_r", (hit.sum(1) > R) & ins)
-            _count(drops, "rays_step_capped", any_hit & ins & (
-                t0 + (S - 1) * stepsize + 1e-5 < t_exit))
-
-        # taps [g, P, rc, Sp]: each ray's slots, each slot's window steps
-        acc = rp_g.new_zeros(gs, P, 4, S)
-        for ci in range(nchunks):
-            if ci and not bool((hitR.sum(2) > ci * rchunk).any()):
-                break   # hit slots are sorted first: no ray has more
-            c0 = ci * rchunk
-            sl = slotR[..., c0:c0 + rchunk]                     # [g, P, rc]
-            hm = hitR[..., c0:c0 + rchunk]
-            gp = pids.gather(1, sl.reshape(gs, -1)).reshape(sl.shape)
-            # prim coords along the ray: y_j(t) = A_j t + B_j
-            Rr = primrot[gp]                                    # [g,P,rc,3,3]
-            psc = primscale[gp]                                 # [g,P,rc,3]
-            Ac = torch.einsum("gpkij,gpi->gpkj", Rr, rd_g) * psc
-            rel0 = rp_g[:, :, None] - primpos[gp]               # [g,P,rc,3]
-            Bc = torch.einsum("gpkij,gpki->gpkj", Rr, rel0) * psc
-            # spans of the oriented slabs |y_j(t)| < 1, the exact support
-            # of the samples' validity
-            invA = 1.0 / torch.where(Ac.abs() < 1e-12,
-                                     torch.full_like(Ac, 1e-12), Ac)
-            t1 = (-1.0 - Bc) * invA
-            t2 = (1.0 - Bc) * invA
-            tmin_c = torch.minimum(t1, t2).amax(dim=-1)           # [g,P,rc]
-            tmax_c = torch.maximum(t1, t2).amin(dim=-1)
-            ok = (tmax_c > tmin_c) & hm
-            s_lo = _sat_int(torch.ceil(
-                (tmin_c - t0[..., None]) / stepsize - 1e-5)).clamp(0, S - 1)
-            sidx = s_lo[..., None] + iota_Sp                      # [g,P,rc,Sp]
-            tj = t0[..., None, None] + sidx * stepsize
-            msk = (ok[..., None] & (tj <= tmax_c[..., None] + 1e-5)
-                   & (sidx < S))
-            yx = Ac[..., 0, None] * tj + Bc[..., 0, None]
-            yy = Ac[..., 1, None] * tj + Bc[..., 1, None]
-            yz = Ac[..., 2, None] * tj + Bc[..., 2, None]
-            smp = sample_prims_cf(tpv_g, gp[..., None], yx, yy, yz,
-                                  fadescale, fadeexp, warp=wpv_g)  # [4,g,P,rc,Sp]
-            a = smp[3] * msk
-            vals = torch.stack([smp[0] * a, smp[1] * a, smp[2] * a, a], 2)
-            # deposit each window onto the step grid at s_lo + j
-            acc.scatter_add_(
-                3, sidx.clamp(max=S - 1).reshape(gs, P, 1, -1).expand(
-                    gs, P, 4, -1), vals.reshape(gs, P, 4, -1))
-            if drops is not None:
-                past = (ok & (s_lo + Sp < S) & (
-                    t0[..., None] + (s_lo + Sp) * stepsize
-                    <= tmax_c + 1e-5) & ins[..., None])
-                _count(drops, "window_cut_pairs", past)
-                cut_prims[gp[past]] = True
-
-        steps_t = t0[..., None] + stepsize * iota_S               # [g, P, S]
-        live_s = (steps_t <= t_exit[..., None] + 1e-5) & any_hit[..., None]
-        alpha = acc[:, :, 3] * live_s
-        safe = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
-        rgb_mean = acc[:, :, :3] / safe[:, :, None]
-        A_clip, contrib = saturate(alpha, stepsize)
-        rgb_out = (rgb_mean * contrib[:, :, None]).sum(-1)      # [g, P, 3]
-        return torch.cat([rgb_out, A_clip[..., -1:]], -1).transpose(1, 2)
-
-    # empty tiles march nothing: their rgba is 0 (one host sync a call)
-    live = torch.nonzero(counts > 0).squeeze(1)
-    g = max(1, GROUP_TAPS // (rchunk * Sp * P))
+        out, in_group = mvp_cuda.mvp_march(inp, drops is not None)
+    else:
+        out = march_tiles_plain(inp, in_group, recompute)
     if drops is not None:
-        drops["tiles_marched"] = torch.tensor(live.numel())
-        drops["group_tiles"] = torch.tensor(g)
-    out = raypos.new_zeros(T, 4, P)
-    for i0 in range(0, live.numel(), g):
-        idx = live[i0:i0 + g]
-        idxs = binning.tile_start[idx][:, None] + torch.arange(
-            M, device=dev, dtype=torch.int32)                   # [g, M]
-        pm = idxs < binning.tile_end[idx][:, None]
-        pids = binning.sorted_prim[idxs.clamp(0, budget - 1).long()].long()
-        args = (rp_t[idx], rd_t[idx], tm_t[idx], pids, pm,
-                None if drops is None else inside[idx], primpos, primrot,
-                primscale, tpv.rows, None if wpv is None else wpv.rows)
-        # under autograd the group's taps are recomputed in the backward
-        # (one group's temporaries alive at a time); the binning, the tile
-        # order and the groups stay as this pass made them
-        out[idx] = (checkpoint(march_group, *args, use_reentrant=False)
-                    if recompute else march_group(*args))
+        drops["tiles_marched"] = (counts > 0).sum()
+        drops["group_tiles"] = torch.tensor(march_group_tiles(inp))
+        for key in MARCH_COUNTS[1:]:
+            _count(drops, key, in_group[key])
+    return untile(inp, out)
 
-    if drops is not None:
-        drops["window_cut_prims"] = cut_prims.sum()
+
+def untile(inp: MarchInputs, out: torch.Tensor) -> torch.Tensor:
+    """The march's tiles' rgba [T, 4, P] as the image [4, H, W]."""
+    ts, ntx = inp.tile_size, inp.ntx
+    nty = out.shape[0] // ntx
     img = out.reshape(nty, ntx, 4, ts, ts).permute(2, 0, 3, 1, 4)
-    return img.reshape(4, nty * ts, ntx * ts)[:, :H, :W]
+    return img.reshape(4, nty * ts, ntx * ts)[:, :inp.img_h, :inp.img_w]
 
 
 # ---------------------------------------------------------------------------
@@ -698,10 +849,23 @@ def shadow_at_points(
 ) -> torch.Tensor:
     """Accumulated alpha (clamped to 1) from the light to each point, [M]:
     ``n_steps`` midpoint samples of ``density`` on the segment from where
-    the light's ray enters the [-1, 1] volume to the point. Points go in
-    chunks of ``point_chunk`` (GROUP_TAPS // n_steps when None; a bound of
-    the live set, not of the result: the teacher at full width queries 8.4M
-    points a light)."""
+    the light's ray enters the [-1, 1] volume to the point.
+
+    On CUDA tensors K9 (``mvp_cuda.shadow_integral``) takes every point in
+    one launch; it computes no gradient, so with gradient enabled on a
+    ``density`` or ``points`` that needs one it raises ValueError. On CPU tensors points go in chunks of ``point_chunk``
+    (GROUP_TAPS // n_steps when None; a bound of the live set, not of the
+    result: the teacher at full width queries 8.4M points a light) through
+    ``_shadow_at_points_impl``, K9's plain version."""
+    from goliath_torch.ops import mvp_cuda
+
+    if target_backend(density) == "cuda":
+        if torch.is_grad_enabled() and (density.requires_grad
+                                        or points.requires_grad):
+            raise ValueError("K9 computes no gradient: call shadow_at_points "
+                             "on the card under torch.no_grad() or on "
+                             "tensors that need none")
+        return mvp_cuda.shadow_integral(density, points, light_pos, n_steps)
     if point_chunk is None:
         point_chunk = max(1, GROUP_TAPS // n_steps)
     return torch.cat([

@@ -25,10 +25,14 @@ the card against the CPU: rtol 1e-3 with atol 1e-3 of each gradient's
 largest entry. The mesh RenderLayer on the card
 against the CPU: the same coverage, the same face on >= 99.9% of the
 pixels, the image at atol/rtol 1e-4 where the face agrees. The OLAT
-teacher's deep shadows (plain PyTorch on both sides): the cell binning
+teacher's deep shadows (the card's shadow integrals on K9): the cell binning
 exact, the density grid at rtol 1e-5 plus 1e-6 of its largest value, the
 shadow integrals at rtol 1e-5 plus 1e-5, the small teacher forward at rtol
-1e-3 plus 1e-3 of each output's largest value. The envmap functions (plain
+1e-3 plus 1e-3 of each output's largest value. K8 against its plain
+version on the card: rgba at rtol 1e-4 plus 1e-6 of the largest value
+(the plain deposit's atomics sum in other orders), the in-group counts
+exact; K9 against its plain version at rtol 1e-5 plus 1e-6 of the largest
+value. The envmap functions (plain
 PyTorch on both sides) at rtol 1e-4 plus 1e-4 of the largest value; the
 small relight spin frame as chip_smoke.py's reference (rtol 1e-3 plus 1e-3
 of each part's largest entry; the composite panel's mirrorball inset and
@@ -889,8 +893,8 @@ def _rotations(rng, K):
 
 
 def test_mvp_march_on_the_card_matches_the_cpu(cuda):
-    """The tiled MVP march (its binning on K4) on the card against the same
-    function on the CPU, on tests/test_torch_mvp.py's scene of 12 random
+    """The tiled MVP march (its binning on K4, its tiles on K8) on the card
+    against the same function on the CPU, on tests/test_torch_mvp.py's scene of 12 random
     boxes at 32x32 rays with every drop occurring: rtol 1e-4 plus 1e-6 of
     the largest |value| (the deposit's atomics sum in other orders), and
     the same drop counts."""
@@ -917,16 +921,122 @@ def test_mvp_march_on_the_card_matches_the_cpu(cuda):
               pair_budget_mult=1)
     d_cpu, d_card = {}, {}
     ref = mvp.mvp_raymarch_tiled(*args, drops=d_cpu, **kw)
-    before = gc.LAUNCHES["cumsum1d"]
+    before = dict(gc.LAUNCHES)
     got = mvp.mvp_raymarch_tiled(
         *[a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args],
         drops=d_card, **kw)
-    assert gc.LAUNCHES["cumsum1d"] == before + 2
+    assert gc.LAUNCHES["cumsum1d"] == before["cumsum1d"] + 2
+    assert gc.LAUNCHES["mvp_march"] == before["mvp_march"] + 1
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4,
                                atol=1e-6 * float(ref.abs().max()))
     assert {k: int(v) for k, v in d_card.items()} == \
         {k: int(v) for k, v in d_cpu.items()}
     assert int(d_cpu["prims_dropped"]) and int(d_cpu["window_cut_pairs"])
+
+
+def _march_inputs(device, case):
+    """ops/mvp.py march_inputs on the scenes of tests/test_torch_mvp.py
+    (12 random boxes, 32x32 rays, step 0.05) and of its warp test (8 boxes,
+    16x16 rays, step 0.1, an identity warp plus N(0, 0.15)); "unstaged":
+    300 small boxes in one 16x16 tile, step 0.005 on a grid of 1,600 steps,
+    so that the tile list is longer than K8_STAGE_MAX (its rows read from
+    the global table) and a block's step grids leave room for 7 warps, not
+    8 (csrc/mvp_march.cu)."""
+    from goliath_torch.ops import mvp, raygen
+
+    warped = case == "warp"
+    many = case == "unstaged"
+    rng = np.random.RandomState(1 if warped else 3 if many else 0)
+    K, TD = (8, 4) if warped else (300, 4) if many else (12, 4)
+    H = W = 16 if warped or many else 32
+    pos = (rng.rand(K, 3) - 0.5) * 1.2
+    rot = _rotations(rng, K)
+    scale = (10.0 + 10.0 * rng.rand(K, 3) if many
+             else 2.0 + 3.0 * rng.rand(K, 3))
+    tpl = rng.rand(K, 4, TD, TD, TD)
+    tpl[:, 3] *= 30.0
+    warp = None
+    if warped:
+        ax = np.linspace(-1, 1, TD)
+        zz, yy, xx = np.meshgrid(ax, ax, ax, indexing="ij")
+        warp = torch.from_numpy((np.stack([xx, yy, zz], 0)[None].repeat(K, 0)
+                                 + 0.15 * np.random.RandomState(2).randn(
+                                     K, 3, TD, TD, TD)).astype(np.float32))
+    rp, rd, tm = raygen.compute_raydirs(
+        torch.tensor([[0.0, 0.0, -3.0]]), torch.eye(3)[None],
+        torch.tensor([[30.0, 30.0]]), torch.tensor([[W / 2, H / 2]]),
+        raygen.make_pixelcoords(1, H, W), 1.0)
+    K_cam = torch.tensor([[30.0, 0, W / 2], [0, 30.0, H / 2], [0, 0, 1]])
+    Rt = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 3.0]])
+    kw = {"exact": dict(max_steps=100, max_prims_per_tile=16, chunk=8),
+          "drops": dict(max_steps=100, max_prims_per_tile=4, chunk=2,
+                        max_prims_per_ray=2, window_steps=6,
+                        max_tiles_per_prim=2, pair_budget_mult=1),
+          "long_list": dict(max_steps=100, max_prims_per_tile=K,
+                            max_prims_per_ray=1, chunk=1),
+          "warp": dict(max_steps=60, max_prims_per_tile=8, chunk=4),
+          "unstaged": dict(max_steps=1600, max_prims_per_tile=K, chunk=8,
+                           window_steps=96)}[case]
+    step = 0.1 if warped else 0.005 if many else 0.05
+    args = [rp[0], rd[0], step, tm[0]] + [
+        torch.from_numpy(a.astype(np.float32))
+        for a in (pos, rot, scale, tpl)] + [K_cam, Rt]
+    args = [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
+    return mvp.march_inputs(*args, warp=None if warp is None
+                            else warp.to(device), **kw)[0]
+
+
+@pytest.mark.parametrize("case", ["exact", "drops", "long_list", "warp",
+                                  "unstaged"])
+def test_k8_matches_its_plain_version(cuda, case):
+    """K8 (ops/mvp_cuda.py mvp_march) against its plain version on the card
+    on the same MarchInputs: rgba at rtol 1e-4 plus 1e-6 of the largest
+    |value| (the plain deposit's atomics and the reductions sum in other
+    orders), the in-group counts (drops and deposited taps) equal, one
+    launch; with and without counts the same rgba."""
+    from goliath_torch.ops import mvp_cuda as mc
+
+    inp = _march_inputs(cuda, case)
+    ref, ref_counts = mc.mvp_march_plain(inp, True)
+    before = gc.LAUNCHES["mvp_march"]
+    got, counts = mc.mvp_march(inp, True)
+    again, none = mc.mvp_march(inp)
+    torch.cuda.synchronize()
+    assert gc.LAUNCHES["mvp_march"] == before + 2 and none is None
+    torch.testing.assert_close(got, ref, rtol=1e-4,
+                               atol=1e-6 * float(ref.abs().max()))
+    assert torch.equal(got, again)
+    assert {k: int(v) for k, v in counts.items()} == \
+        {k: int(v) for k, v in ref_counts.items()}
+    assert float(ref[:, 3].max()) > 0.3 and int(counts["taps"]) > 0
+    assert (int(counts["window_cut_pairs"]) > 0) == (case == "drops")
+    if case == "unstaged":
+        assert int((inp.tile_end - inp.tile_start).max()) > 256
+
+
+def test_k9_matches_its_plain_version(cuda):
+    """K9 (ops/mvp_cuda.py shadow_integral) against its plain version on
+    the card: seeded 16^3 and 64^3 grids, lights inside and outside the
+    volume, points in and around it and one at the light; rtol 1e-5 plus
+    1e-6 of the largest value (32 samples summed in other orders), one
+    launch a call."""
+    from goliath_torch.ops import mvp_cuda as mc
+
+    g = torch.Generator().manual_seed(6)
+    for G in (16, 64):
+        density = (torch.rand(G, G, G, generator=g) * 1.5).to(cuda)
+        pts = ((torch.rand(20000, 3, generator=g) - 0.5) * 2.4).to(cuda)
+        for light in ([0.0, -0.2, 0.3], [0.3, 0.0, -2.5]):
+            lp = torch.tensor(light, device=cuda)
+            pts[-1] = lp
+            ref = mc.shadow_integral_plain(density, pts, lp, 32)
+            before = gc.LAUNCHES["shadow_integral"]
+            got = mc.shadow_integral(density, pts, lp, 32)
+            torch.cuda.synchronize()
+            assert gc.LAUNCHES["shadow_integral"] == before + 1
+            torch.testing.assert_close(got, ref, rtol=1e-5,
+                                       atol=1e-6 * float(ref.abs().max()))
+            assert float(got[-1]) == 0.0 and 0.05 < float(ref.mean()) < 0.95
 
 
 def test_mvp_march_gradients_on_the_card_match_the_cpu(cuda):
@@ -1072,8 +1182,8 @@ def test_hand_teacher_on_the_card_matches_the_cpu(cuda):
     """The teacher forward at tests/test_torch_hand_teacher.py's size (uv
     32, 48x48, 2 lights) on the card against the CPU on the jittered
     template, the same seed-0 weights: rgb, alpha, primrgb, primshadow at
-    rtol 1e-3 plus 1e-3 of each output's largest |value|; K4 twice a
-    frame on the card and no other kernel."""
+    rtol 1e-3 plus 1e-3 of each output's largest |value|; on the card K4
+    twice a frame, K8 once and K9 once a light, and no other kernel."""
     from goliath_torch.data.pipeline import collate
     from goliath_torch.data.synthetic import SyntheticDataset
     from goliath_torch.models.hand_teacher_mvp import AutoEncoder
@@ -1099,7 +1209,8 @@ def test_hand_teacher_on_the_card_matches_the_cpu(cuda):
         with torch.no_grad():
             outs[str(device)] = model.apply(to_device(batch, model.device))
         launches = {k: n for k, n in gc.LAUNCHES.items() if n}
-        assert launches == ({} if device == "cpu" else {"cumsum1d": 2})
+        assert launches == ({} if device == "cpu" else {
+            "cumsum1d": 2, "mvp_march": 1, "shadow_integral": 2})
     for k in ("rgb", "alpha", "primrgb", "primshadow"):
         ref, got = outs["cpu"][k], outs[str(cuda)][k].cpu()
         torch.testing.assert_close(got, ref, rtol=1e-3,

@@ -1,7 +1,8 @@
 """Part of tests/test_torch_mvp.py's tests, in a file of their own: a port test
 file that runs long holds at most four tests, so that pytest-xdist's --dist
 loadfile queues it after tests/test_tile_shard.py. The inputs, helpers and
-tolerances are that file's.
+tolerances are that file's. Each case also holds K8's plain version on the
+same scene (tests/test_torch_mvp_kernel.py ``hold_kernel_route``).
 """
 
 import pytest
@@ -18,6 +19,7 @@ from tests.test_torch_mvp import (
     _tiled,
     close,
 )
+from tests.test_torch_mvp_kernel import hold_kernel_route
 
 torch.set_num_threads(1)
 
@@ -41,3 +43,4 @@ def test_tiled_march_matches_jax(case):
         assert (counts[key] > 0) == (key in expected), (key, counts)
     if "prims_dropped" in expected:
         assert counts["pairs_wanted"] > counts["pair_budget"]
+    hold_kernel_route(got, scene, rays, 0.05, drops=drops, **kw)

@@ -1,7 +1,8 @@
 """Part of tests/test_torch_mvp.py's tests, in a file of their own: a port test
 file that runs long holds at most four tests, so that pytest-xdist's --dist
 loadfile queues it after tests/test_tile_shard.py. The inputs, helpers and
-tolerances are that file's.
+tolerances are that file's. The case also holds K8's plain version with
+the warp field (tests/test_torch_mvp_kernel.py ``hold_kernel_route``).
 """
 
 import jax.numpy as jnp
@@ -19,6 +20,7 @@ from tests.test_torch_mvp import (
     _tiled,
     close,
 )
+from tests.test_torch_mvp_kernel import hold_kernel_route
 
 torch.set_num_threads(1)
 
@@ -37,3 +39,4 @@ def test_tiled_march_with_warp_matches_jax():
     got = _tiled(tm, scene, rays, 0.1, warp=T(warp), **kw)
     assert ref[3].max() > 0.3
     close(got, ref, MARCH_OF_SCALE)
+    hold_kernel_route(got, scene, rays, 0.1, warp=warp, **kw)
