@@ -2958,6 +2958,138 @@ def k8_check(gc, torch, captured, card_line, label):
                 taps=counts["taps"], taps_plain=ref_counts["taps"])
 
 
+# K10's operations a deposited tap as the function needs them
+# (csrc/mvp_march_bwd.cu, no warp field), counted as K8_OPS_PER_TAP: the
+# forward's, K8_OPS_PER_TAP, once (K10 replays the fade and the sample a
+# second time in its backward; the function needs each tap's sample once),
+# then the backward's own: d alpha 7 (4 products, 3 sums), the channels'
+# gradients 4, and a (z, y) corner's row gradient 24 (16 products, 8 adds)
+# four times; where the prims take a gradient also a corner's coordinate
+# sums 16, d wyy 3, d w0 and d w1 4, d wy and d wz 4 four times, the
+# coordinates' gradient 6, the fade's chain 30 (3 products, |y|^7 and its
+# factors 7 a coordinate, 3 products and 3 sums) and dAc += dy * tj, dBc +=
+# dy 9. The composite's work a step and a slot's fold into its prim's 15
+# gradients are left out, as K8's composite is.
+K10_ROWS_OPS_PER_TAP = K8_OPS_PER_TAP + 7 + 4 + 4 * 24
+K10_OPS_PER_TAP = K10_ROWS_OPS_PER_TAP + 4 * 27 + 6 + 30 + 9
+
+
+def k10_check(gc, torch, captured, card_line, label, prim_grad):
+    """K10 against its plain version on the card, on the first march of a
+    training run (step 0, sample 0: ``captured["march"]``, its MarchInputs
+    rebuilt by ``mvp.march_inputs``, full frame) under a seeded N(0, 1)
+    upstream gradient of the tiles' rgba, with the prims' gradients asked
+    for or not (``prim_grad``: hand_mvp's training asks for them, the
+    teacher's, whose geometry is detached, does not): each gradient asked
+    for (the template rows, and primpos, primrot, primscale) at
+    MARCH_GRAD_RTOL of the entry plus MARCH_GRAD_OF_SCALE of its largest
+    |value|, the others all zero; the spread of two K10 calls (float
+    atomics sum in a changing order); K10's time (cuda_ms over 5 calls,
+    the gradients' allocation and zeroing included) and the plain
+    version's (one call), and K10's bound: the larger of the bytes (the
+    rays and the upstream gradient of the tiles with prims read, 48 B a
+    ray; the kept prims' template rows read, 32 B a row, and their table
+    rows, 96 B a prim; the whole rows' gradient written, 32 B a row of
+    every prim, and with ``prim_grad`` every prim's 15 gradients, 60 B;
+    with a warp field its kept rows read and its whole gradient written,
+    24 B a row) and the operations of the deposited taps (K10_OPS_PER_TAP
+    each with ``prim_grad``, else K10_ROWS_OPS_PER_TAP; the taps K8 counts
+    on the same inputs)."""
+    import math
+
+    from goliath_torch.ops import mvp
+    from goliath_torch.ops import mvp_cuda as mc
+    from goliath_torch.utils.timing import cuda_call_ms, cuda_ms
+
+    args, kw = captured["march"]
+    gen = torch.Generator().manual_seed(13)
+    with torch.no_grad():
+        inp = mvp.march_inputs(*[a.to(DEVICE) if isinstance(a, torch.Tensor)
+                                 else a for a in args], **kw)[0]
+        T, P = inp.raypos.shape[:2]
+        up = torch.randn((T, 4, P), generator=gen).to(DEVICE)
+        taps = int(mc.mvp_march(inp, True)[1]["taps"])
+        before = gc.LAUNCHES["mvp_march_bwd"]
+        got = mc.mvp_march_backward(inp, up, prim_grad)
+        again = mc.mvp_march_backward(inp, up, prim_grad)
+        torch.cuda.synchronize()
+        if gc.LAUNCHES["mvp_march_bwd"] != before + 2:
+            raise AssertionError("K10's wrapper did not launch once a call")
+        ref = mc.mvp_march_backward_plain(inp, up, prim_grad)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: mc.mvp_march_backward(inp, up, prim_grad),
+                     reps=5, warmup=1)
+        _, plain_ms = cuda_call_ms(
+            lambda: mc.mvp_march_backward_plain(inp, up, prim_grad))
+    prims = ("primpos", "primrot", "primscale")
+    names = ("rows",) + (prims if prim_grad else ())
+    zero = [k for k in prims if k not in names
+            and (got[k].any() or ref[k].any())]
+    worst, spread, max_abs, over = {}, {}, 0.0, {}
+    for name in names:
+        g, r = got[name].float(), ref[name].float()
+        scale = float(r.abs().max())
+        err = (g - r).abs()
+        bad = err > MARCH_GRAD_RTOL * r.abs() + MARCH_GRAD_OF_SCALE * scale
+        n_over = int(bad.sum())
+        max_abs = max(max_abs, float(err.max()))
+        worst[name] = (float(err.max()) / max(scale, 1e-30), n_over, scale,
+                       int((r != 0).sum()))
+        spread[name] = float((again[name] - g).abs().max()) / max(scale,
+                                                                  1e-30)
+        if n_over:   # the worst entries: (flat index, K10, plain)
+            top = torch.topk((err * bad).flatten(), min(n_over, 4)).indices
+            over[name] = [(int(i), float(g.flatten()[i]),
+                           float(r.flatten()[i])) for i in top]
+    if over:
+        # the rows' gradient on the template (pack_volume's backward): a
+        # voxel's two packed copies take its gradient between them
+        tpl = torch.zeros(inp.template.shape, device=DEVICE,
+                          requires_grad=True)
+        packed = mvp.pack_volume(tpl).rows
+        g_t, = torch.autograd.grad(packed, tpl, got["rows"])
+        r_t, = torch.autograd.grad(packed, tpl, ref["rows"])
+        log(f"K10 {label} entries over the tolerance (index, K10, plain): "
+            f"{json.dumps(over)}; on the template: max abs err "
+            f"{float((g_t - r_t).abs().max()):.3e} of largest "
+            f"{float(r_t.abs().max()):.6g}")
+    kept, rows = march_kept_rows(inp)
+    K, _, D, H, W = inp.template.shape
+    live = int(((inp.tile_end - inp.tile_start) > 0).sum())
+    wcells = 0 if inp.warp is None else math.prod(inp.warp.shape[2:])
+    nbytes = (live * P * 48 + rows * 32 + kept * 96 + K * D * H * W * 32
+              + (K * 60 if prim_grad else 0) + (kept + K) * wcells * 24)
+    per_tap = K10_OPS_PER_TAP if prim_grad else K10_ROWS_OPS_PER_TAP
+    ops = per_tap * taps
+    b_ms, b_by = bound_ms(nbytes, ops)
+    log(f"K10 {label}: {T} tiles ({live} with prims) of {P} rays, {taps} "
+        f"deposited taps, prims' gradients {'asked for' if prim_grad else 'not asked for'}; "
+        f"per gradient (max abs err / largest |plain|, entries over rtol "
+        f"{MARCH_GRAD_RTOL} + {MARCH_GRAD_OF_SCALE} of the largest, largest "
+        f"|plain|, non-zero entries): {json.dumps(worst)}; two K10 calls "
+        f"apart (max abs difference / largest |plain|): "
+        f"{json.dumps(spread)}")
+    log(f"K10 {label} timing: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by} ({ms / b_ms:.1f}x the bound): bytes "
+        f"{nbytes} (rays and upstream gradient of the live tiles "
+        f"{live * P * 48}, {kept} kept prims' {rows} rows read at 32 B and "
+        f"table rows {kept * 96}, the rows' gradient of {K} prims written "
+        f"{K * D * H * W * 32}, the prims' gradients "
+        f"{K * 60 if prim_grad else 0}, the warp's {(kept + K) * wcells * 24}) -> "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; operations {ops} ({taps} "
+        f"deposited taps at {per_tap}) -> "
+        f"{ops / FP32_OPS_PER_S * 1e3:.4f} ms; library: none (no PyTorch "
+        f"call differentiates a march) on {card_line}")
+    if any(w[1] for w in worst.values()) or not all(
+            w[2] > 0 for w in worst.values()) or not taps or zero:
+        raise AssertionError(f"K10 disagrees with its plain version on "
+                             f"{label} (or a gradient asked for is all "
+                             f"zero, or one not asked for is not: {zero})")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, taps=taps,
+                spread_of_scale=spread)
+
+
 def k9_check(gc, torch, captured, card_line):
     """K9 against its plain version on the card, on frame 0 of
     hand_teacher_eval_path: each light's shadow integral over all the
@@ -3449,17 +3581,19 @@ def teacher_small_reference(torch):
 # 4 with all six of its losses, and configs/hand_teacher_mvp.yml at its
 # batch 1 with its three, on MESH_DATA (the teacher's 5 lights), with the
 # eval paths' cuts. The march's binning runs twice a sample a forward (its
-# two scans on K4) and never in the backward, which marches each tile group
-# again: 2 x 4 x (3 steps + the summary's forward at iteration 0) = 32 and
-# 2 x 1 x 4 = 8 launches. The steps march under autograd (the plain tile
-# groups); only the summary's forward, under torch.no_grad(), marches on
-# K8: once a sample, 4 and 1. The teacher's shadow integrals run without
-# gradient in every forward: K9 5 lights x 1 sample x 4 forwards = 20.
+# two scans on K4) and never in the backward: 2 x 4 x (3 steps + the
+# summary's forward at iteration 0) = 32 and 2 x 1 x 4 = 8 launches. Every
+# forward marches on K8, once a sample (the steps under autograd through
+# MVPMarch, the summary's under torch.no_grad()): 4 x 4 = 16 and 4; every
+# step's backward on K10, once a sample: 4 x 3 = 12 and 3. The teacher's
+# shadow integrals run without gradient in every forward: K9 5 lights x 1
+# sample x 4 forwards = 20.
 HAND_MVP_TRAIN_BATCH = 4
 TEACHER_TRAIN_BATCH = 1
-# the march's gradients card vs CPU on a 2 x 2-tile window: rtol of the
-# entry plus a fraction of each gradient's largest entry (the deposit's and
-# the gathers' backward atomics add taps in other orders)
+# the march's gradients card vs CPU on a 2 x 2-tile window, and K10 against
+# its plain version on the card (k10_check): rtol of the entry plus a
+# fraction of each gradient's largest entry (K10's atomics, and the plain
+# deposit's and gathers' backward atomics, add taps in other orders)
 MARCH_GRAD_RTOL = MARCH_GRAD_OF_SCALE = 1e-3
 
 
@@ -3486,8 +3620,8 @@ def teacher_train_config(overrides=(), data=MESH_DATA):
 class MVPTrainCapture:
     """For the duration of a with-block: CUDA events around each march's
     forward (``render_raymarcher.mvp_raymarch_tiled``) and its backward
-    (from its output's gradient to the last of its inputs' gradients:
-    the recomputed groups and their backward), kept in ``self.forward`` and
+    (from its output's gradient to the last of its inputs' gradients: K10
+    and the packing's and gathers' backward), kept in ``self.forward`` and
     ``self.backward`` as event pairs in call order; and in ``captured`` the
     first step's two K4 scans (``"k4"``) and its first march's arguments
     (``"march"``, detached, on the host)."""
@@ -3562,14 +3696,15 @@ class MVPTrainCapture:
 
 def mvp_train_path(gc, torch, card_line, record, captured, label,
                    make_config, batch, default_group, lights=0):
-    """run_training on an MVP config with MVPTrainCapture: K4 twice a
-    sample a forward, K8 once a sample of the summary's forward, K9 once a
-    light and sample a forward (``lights`` a sample: the teacher's), and no
-    other kernel; then each step's marches' forward and backward ms beside
-    the step's wall time."""
+    """run_training on an MVP config with MVPTrainCapture: K4 twice and K8
+    once a sample a forward, K10 once a sample a backward, K9 once a light
+    and sample a forward (``lights`` a sample: the teacher's), and no other
+    kernel; then each step's marches' forward and backward ms beside the
+    step's wall time."""
     capture = MVPTrainCapture(torch, captured)
     n = HAND_MVP_K4_PER_FRAME * batch * (TRAIN_STEPS + 1)
-    expected = dict(cumsum1d=n, mvp_march=batch,
+    expected = dict(cumsum1d=n, mvp_march=batch * (TRAIN_STEPS + 1),
+                    mvp_march_bwd=batch * TRAIN_STEPS,
                     shadow_integral=lights * batch * (TRAIN_STEPS + 1))
 
     def zero_grad_ok(probe):
@@ -3612,7 +3747,7 @@ def hand_mvp_train_path(gc, torch, card_line, record, captured):
     """run_train.main on configs/hand_mvp.yml at full width
     (hand_mvp_train_config), batch 4, 3 steps: every group's gradient
     finite and non-zero (cal's may be 0 only if every sample drew cal's
-    identity camera), K4 32 times, K8 4 times (the summary's forward)."""
+    identity camera), K4 32 times, K8 16 times, K10 12 times."""
     return mvp_train_path(gc, torch, card_line, record, captured,
                           "hand_mvp train path", hand_mvp_train_config,
                           HAND_MVP_TRAIN_BATCH, default_group=False)
@@ -3623,8 +3758,7 @@ def teacher_train_path(gc, torch, card_line, record, captured):
     (teacher_train_config), batch 1 with 5 lights, 3 steps: the four
     groups' gradients finite and non-zero (cal's as hand_mvp's), the
     default group of the detached geometry finite, zero and decaying
-    (check_decay), K4 8 times, K8 once (the summary's forward), K9 20
-    times."""
+    (check_decay), K4 8 times, K8 4 times, K10 3 times, K9 20 times."""
     return mvp_train_path(gc, torch, card_line, record, captured,
                           "hand_teacher train path", teacher_train_config,
                           TEACHER_TRAIN_BATCH, default_group=True,
@@ -3638,10 +3772,11 @@ def mvp_train_march_check(torch, captured, card_line):
     MVP_WINDOW pixels at the image centre (2 x 2 tiles, the camera's
     principal point moved with them), the march's gradients of the
     template, primpos, primrot and primscale under a seeded upstream
-    gradient, each tile group recomputed in the backward, card against
-    CPU at MARCH_GRAD_RTOL of the entry plus MARCH_GRAD_OF_SCALE of each
-    gradient's largest |value|; K4 twice on the card (the binning once,
-    not in the backward)."""
+    gradient, card (K8 forward, K10 backward) against CPU (the plain
+    groups, each recomputed in the backward) at MARCH_GRAD_RTOL of the
+    entry plus MARCH_GRAD_OF_SCALE of each gradient's largest |value|; on
+    the card K4 twice (the binning once, not in the backward), K8 and K10
+    once each."""
     import numpy as np
 
     from goliath_torch.ops import gsplat_cuda as gc
@@ -3672,16 +3807,20 @@ def mvp_train_march_check(torch, captured, card_line):
     for device in (DEVICE, "cpu"):
         leaves = [a.to(device).requires_grad_() for a in (pos, rot, scale,
                                                           tpl)]
-        before = gc.LAUNCHES["cumsum1d"]
+        before = dict(gc.LAUNCHES)
         out = mvp.mvp_raymarch_tiled(
             raypos[win].contiguous().to(device),
             raydir[win].contiguous().to(device), stepsize,
             tminmax[win].contiguous().to(device), *leaves, K_w.to(device),
             Rt.to(device), **kw)
         (out * up.to(device)).sum().backward()
-        if device == DEVICE and gc.LAUNCHES["cumsum1d"] != before + 2:
-            raise AssertionError("the windowed march under autograd did not "
-                                 "launch K4 exactly twice")
+        got = {k: gc.LAUNCHES[k] - before[k] for k in before}
+        want = {k: 0 for k in before}
+        if device == DEVICE:
+            want.update(cumsum1d=2, mvp_march=1, mvp_march_bwd=1)
+        if got != want:
+            raise AssertionError(f"the windowed march under autograd "
+                                 f"launched {got}, not {want}")
         outs[device] = out.detach().cpu()
         grads[device] = [x.grad.cpu() for x in leaves]
     worst = {}
@@ -6233,16 +6372,17 @@ def sharded_train(gc, torch, card_line, captured):
 def family_launches(name, samples):
     """The launches of one training step of the dry run's family ``name``
     over ``samples`` samples on the card: RGCA (the XLA window) K1, K2, K3
-    once and K4 twice a sample; the MVP hand and the teacher K4 twice a
-    sample (their marches run under autograd: no K8), the teacher K9 once a
-    light and sample (its shadows take no gradient); URHand K5 2L + 3 times
-    a sample (its light views and renders), K4 twice each; mesh_vae K5 once
-    and K4 twice a sample."""
+    once and K4 twice a sample; the MVP hand and the teacher K4 twice, K8
+    and K10 once a sample (their marches run under autograd), the teacher
+    K9 once a light and sample (its shadows take no gradient); URHand K5 2L
+    + 3 times a sample (its light views and renders), K4 twice each;
+    mesh_vae K5 once and K4 twice a sample."""
     k5 = 2 * DRYRUN_LIGHTS + 3
+    march = dict(cumsum1d=2, mvp_march=1, mvp_march_bwd=1)
     per = {"rgca": dict(compositor_fwd_xla=1, pair_grads_xla=1,
                         cumsum_cols=1, cumsum1d=2),
-           "hand_mvp": dict(cumsum1d=2),
-           "hand_teacher": dict(cumsum1d=2,
+           "hand_mvp": march,
+           "hand_teacher": dict(march,
                                 shadow_integral=DRYRUN_TEACHER_LIGHTS),
            "urhand": dict(zbuffer=k5, cumsum1d=2 * k5),
            "mesh_vae": dict(zbuffer=1, cumsum1d=2)}[name]
@@ -7349,6 +7489,8 @@ def main() -> int:
     if "march" in mvp_train_inputs:
         phase("mvp_train_march_check", mvp_train_march_check, torch,
               mvp_train_inputs, card_line)
+        phase("k10_check", k10_check, gc, torch, mvp_train_inputs, card_line,
+              "hand_mvp training step 0 sample 0", True)
     del mvp_train_inputs
     torch.cuda.empty_cache()
     teacher_train_inputs = {}
@@ -7357,6 +7499,9 @@ def main() -> int:
     if teacher_train_inputs.get("k4"):
         phase("k4_teacher_train", k4_mvp_check, gc, torch,
               teacher_train_inputs["k4"], "hand_teacher training step 0")
+    if "march" in teacher_train_inputs:
+        phase("k10_teacher", k10_check, gc, torch, teacher_train_inputs,
+              card_line, "hand_teacher training step 0 sample 0", False)
     del teacher_train_inputs
     torch.cuda.empty_cache()
     relight_inputs = {}
@@ -7507,6 +7652,7 @@ def main() -> int:
                   "k6_check:pair_grads_fold", "fold_train_path"]),
               "cumsum_rows": ("K7", ["k7_check", "k7_frame"]),
               "mvp_march": ("K8", ["k8_check", "k8_teacher"]),
+              "mvp_march_bwd": ("K10", ["k10_check", "k10_teacher"]),
               "shadow_integral": ("K9", ["k9_check"]),
               **{f"probe_{v}": (f"P1 {v}", [f"p1_probe:probe_{v}"])
                  for v in gc.PROBE_VARIANTS}}

@@ -1,6 +1,7 @@
 // PyTorch bindings of the port's CUDA kernels (K1, K6's forward and P1
 // compositor_fwd.cu, K2 and K6's backward compositor_bwd.cu, K3, K4 and K7
-// cumsum.cu, K5 zbuffer.cu, K8 mvp_march.cu, K9 mvp_shadow.cu). Built together
+// cumsum.cu, K5 zbuffer.cu, K8 mvp_march.cu, K10 mvp_march_bwd.cu, K9
+// mvp_shadow.cu). Built together
 // with them by torch.utils.cpp_extension.load in
 // goliath_torch/ops/gsplat_cuda.py. Each binding checks its tensors,
 // allocates the outputs, launches on the current stream of the tensors'
@@ -53,6 +54,14 @@ extern "C" int goliath_mvp_march(
     int M, int R, int fadeexp, float stepsize, float cap_off, float fadescale,
     int count, float* out, unsigned long long* counts, int32_t* cut,
     cudaStream_t stream);
+extern "C" int goliath_mvp_march_bwd(
+    const float* raypos, const float* raydir, const float* tminmax,
+    const int32_t* tile_start, const int32_t* tile_end,
+    const int32_t* sorted_prim, const float* prims, const float* rows,
+    const float* wrows, const float* grad_out, int n_tiles, int tile_size,
+    int tD, int tH, int tW, int wD, int wH, int wW, int S, int Sp, int M,
+    int R, int fadeexp, float stepsize, float fadescale, int prim_grad,
+    float* d_rows, float* d_wrows, float* d_prims, cudaStream_t stream);
 extern "C" int goliath_shadow_integral(const float* density, int D, int H,
                                        int W, const float* points,
                                        long long n, const float* light,
@@ -277,21 +286,15 @@ std::vector<at::Tensor> zbuffer(const at::Tensor& rows,
   return {index_img, z_img};
 }
 
-// K8. raypos/raydir [T, P, 3] and tminmax [T, P, 2] f32 (P = tile_size^2,
-// T = ntx * nty); tile_start/tile_end [T] i32 into sorted_prim [budget] i32;
-// prims [K, 24] f32; rows [K*tD*tH*tW, 8] f32; wrows empty or
-// [K*wD*wH*wW, 6] f32. Returns (rgba [T, 4, P] f32, counts [4] i64: taps,
-// rays_over_r, rays_step_capped, window_cut_pairs; cut [K] i32, 1 for a
-// prim whose window was cut), the counts and flags 0 unless count.
-std::vector<at::Tensor> mvp_march(
+// The march's inputs, as K8 and K10 take them (shapes: mvp_march).
+static void check_march_inputs(
     const at::Tensor& raypos, const at::Tensor& raydir,
     const at::Tensor& tminmax, const at::Tensor& tile_start,
     const at::Tensor& tile_end, const at::Tensor& sorted_prim,
     const at::Tensor& prims, const at::Tensor& rows, const at::Tensor& wrows,
-    int64_t tile_size, int64_t ntx, int64_t img_h, int64_t img_w,
-    std::vector<int64_t> tshape, std::vector<int64_t> wshape, int64_t S,
-    int64_t Sp, int64_t M, int64_t R, int64_t fadeexp, double stepsize,
-    double cap_off, double fadescale, bool count) {
+    int64_t tile_size, const std::vector<int64_t>& tshape,
+    const std::vector<int64_t>& wshape, int64_t S, int64_t Sp, int64_t M,
+    int64_t R, int64_t fadeexp) {
   check_input(raypos, at::kFloat, 3, "raypos");
   check_input(raydir, at::kFloat, 3, "raydir");
   check_input(tminmax, at::kFloat, 3, "tminmax");
@@ -315,9 +318,8 @@ std::vector<at::Tensor> mvp_march(
                   tminmax.size(0) == T && tminmax.size(1) == P &&
                   tminmax.size(2) == 2,
               "rays must be [T, tile_size^2, 3] and tminmax [T, P, 2]");
-  TORCH_CHECK(tile_start.numel() == T && tile_end.numel() == T &&
-                  ntx >= 1 && T % ntx == 0,
-              "tile bounds must be [T] with T a multiple of ntx");
+  TORCH_CHECK(tile_start.numel() == T && tile_end.numel() == T,
+              "tile bounds must be [T]");
   TORCH_CHECK(prims.size(1) == 24, "prims must be [K, 24]");
   TORCH_CHECK(tshape.size() == 3 && rows.size(1) == 8 &&
                   rows.size(0) == K * tshape[0] * tshape[1] * tshape[2],
@@ -331,9 +333,35 @@ std::vector<at::Tensor> mvp_march(
               "wrows must be [K * D * H * W, 6] (the packed warp field)");
   TORCH_CHECK(S >= 1 && Sp >= 1 && Sp <= S && M >= 1 && R >= 1 && R <= M &&
                   fadeexp >= 1,
-              "K8 takes 1 <= window_steps <= max_steps, 1 <= R <= M and an "
-              "integer fadeexp >= 1");
-  for (int64_t v : {T, P, K, img_h, img_w, S, M, R, fadeexp, K * tshape[0]})
+              "the march takes 1 <= window_steps <= max_steps, 1 <= R <= M "
+              "and an integer fadeexp >= 1");
+  for (int64_t v : {T, P, K, S, M, R, fadeexp, K * tshape[0]})
+    TORCH_CHECK(v <= INT32_MAX, "a size is out of range");
+}
+
+// K8. raypos/raydir [T, P, 3] and tminmax [T, P, 2] f32 (P = tile_size^2,
+// T = ntx * nty); tile_start/tile_end [T] i32 into sorted_prim [budget] i32;
+// prims [K, 24] f32; rows [K*tD*tH*tW, 8] f32; wrows empty or
+// [K*wD*wH*wW, 6] f32. Returns (rgba [T, 4, P] f32, counts [4] i64: taps,
+// rays_over_r, rays_step_capped, window_cut_pairs; cut [K] i32, 1 for a
+// prim whose window was cut), the counts and flags 0 unless count.
+std::vector<at::Tensor> mvp_march(
+    const at::Tensor& raypos, const at::Tensor& raydir,
+    const at::Tensor& tminmax, const at::Tensor& tile_start,
+    const at::Tensor& tile_end, const at::Tensor& sorted_prim,
+    const at::Tensor& prims, const at::Tensor& rows, const at::Tensor& wrows,
+    int64_t tile_size, int64_t ntx, int64_t img_h, int64_t img_w,
+    std::vector<int64_t> tshape, std::vector<int64_t> wshape, int64_t S,
+    int64_t Sp, int64_t M, int64_t R, int64_t fadeexp, double stepsize,
+    double cap_off, double fadescale, bool count) {
+  check_march_inputs(raypos, raydir, tminmax, tile_start, tile_end,
+                     sorted_prim, prims, rows, wrows, tile_size, tshape,
+                     wshape, S, Sp, M, R, fadeexp);
+  const bool has_warp = wrows.numel() > 0;
+  const int64_t T = raypos.size(0), P = raypos.size(1);
+  const int64_t K = prims.size(0);
+  TORCH_CHECK(ntx >= 1 && T % ntx == 0, "T must be a multiple of ntx");
+  for (int64_t v : {img_h, img_w})
     TORCH_CHECK(v <= INT32_MAX, "a size is out of range");
   const c10::cuda::CUDAGuard guard(raypos.device());
   at::Tensor out = at::empty({T, 4, P}, raypos.options());
@@ -354,6 +382,54 @@ std::vector<at::Tensor> mvp_march(
           cut.data_ptr<int32_t>(), at::cuda::getCurrentCUDAStream().stream()),
       "mvp_march");
   return {out, counts, cut};
+}
+
+// K10. K8's inputs (as mvp_march) and grad_out [T, 4, P] f32, the gradient
+// of K8's rgba. Returns (d_rows [K*tD*tH*tW, 8], d_wrows [K*wD*wH*wW, 6]
+// or empty without a warp, d_prims [K, 15]: d primpos 3, d primrot 9
+// row-major, d primscale 3), f32, zeroed here and added into by the
+// kernel; d_prims stays 0 unless prim_grad.
+std::vector<at::Tensor> mvp_march_bwd(
+    const at::Tensor& raypos, const at::Tensor& raydir,
+    const at::Tensor& tminmax, const at::Tensor& tile_start,
+    const at::Tensor& tile_end, const at::Tensor& sorted_prim,
+    const at::Tensor& prims, const at::Tensor& rows, const at::Tensor& wrows,
+    const at::Tensor& grad_out, int64_t tile_size,
+    std::vector<int64_t> tshape, std::vector<int64_t> wshape, int64_t S,
+    int64_t Sp, int64_t M, int64_t R, int64_t fadeexp, double stepsize,
+    double fadescale, bool prim_grad) {
+  check_march_inputs(raypos, raydir, tminmax, tile_start, tile_end,
+                     sorted_prim, prims, rows, wrows, tile_size, tshape,
+                     wshape, S, Sp, M, R, fadeexp);
+  check_input(grad_out, at::kFloat, 3, "grad_out");
+  const int64_t T = raypos.size(0), P = raypos.size(1);
+  const int64_t K = prims.size(0);
+  TORCH_CHECK(grad_out.device() == raypos.device() &&
+                  grad_out.size(0) == T && grad_out.size(1) == 4 &&
+                  grad_out.size(2) == P,
+              "grad_out must be [T, 4, P] on the rays' device");
+  const bool has_warp = wrows.numel() > 0;
+  const c10::cuda::CUDAGuard guard(raypos.device());
+  at::Tensor d_rows = at::zeros_like(rows);
+  at::Tensor d_wrows = has_warp ? at::zeros_like(wrows)
+                                : at::empty({0}, rows.options());
+  at::Tensor d_prims = at::zeros({K, 15}, rows.options());
+  check_launch(
+      goliath_mvp_march_bwd(
+          raypos.data_ptr<float>(), raydir.data_ptr<float>(),
+          tminmax.data_ptr<float>(), tile_start.data_ptr<int32_t>(),
+          tile_end.data_ptr<int32_t>(), sorted_prim.data_ptr<int32_t>(),
+          prims.data_ptr<float>(), rows.data_ptr<float>(),
+          has_warp ? wrows.data_ptr<float>() : nullptr,
+          grad_out.data_ptr<float>(), T, tile_size, tshape[0], tshape[1],
+          tshape[2], wshape[0], wshape[1], wshape[2], S, Sp, M, R, fadeexp,
+          (float)stepsize, (float)fadescale, prim_grad ? 1 : 0,
+          d_rows.data_ptr<float>(),
+          has_warp ? d_wrows.data_ptr<float>() : nullptr,
+          d_prims.data_ptr<float>(),
+          at::cuda::getCurrentCUDAStream().stream()),
+      "mvp_march_bwd");
+  return {d_rows, d_wrows, d_prims};
 }
 
 // K9. density [D, H, W] f32, points [n, 3] f32, light_pos [3] f32, all on
@@ -396,6 +472,8 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
         "K1 (K6 with n_imgs > 1, P1 with a variant): tile compositor forward");
   m.def("zbuffer", &zbuffer, "K5: mesh z-buffer, nearest face per pixel");
   m.def("mvp_march", &mvp_march, "K8: the tiled MVP march's forward");
+  m.def("mvp_march_bwd", &mvp_march_bwd,
+        "K10: the tiled MVP march's backward (K8's)");
   m.def("shadow_integral", &shadow_integral,
         "K9: the deep-shadow integral from a light to each point");
 }

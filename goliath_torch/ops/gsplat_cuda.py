@@ -3,10 +3,12 @@ the build and binding code of all the port's kernels (counterpart of the
 JAX package's ops/gsplat_pallas.py).
 
 Kernels (sources in ``ops/csrc/``; the mesh z-buffer K5 of
-``ops/rasterizer_cuda.py``, the MVP march's forward K8 and the deep-shadow
-integral K9 of ``ops/mvp_cuda.py`` among them) are built at first use into one
-extension module with ``torch.utils.cpp_extension.load``: nvcc compiles each
-``.cu`` for ``sm_90a`` and the host compiler ``csrc/bindings.cpp``, whose
+``ops/rasterizer_cuda.py``, the MVP march's forward K8, its backward K10
+and the deep-shadow integral K9 of ``ops/mvp_cuda.py`` among them) are built
+at first use into one extension module with
+``torch.utils.cpp_extension.load``: nvcc compiles each ``.cu`` (with the
+headers beside it) for ``sm_90a`` and the host compiler
+``csrc/bindings.cpp``, whose
 bindings check their tensors and launch on the current stream. The build
 goes to ``build/kernels/`` at the repo root and is reused while the sources
 are unchanged.
@@ -94,6 +96,7 @@ SOURCES = {"compositor_fwd": "compositor_fwd.cu",
            "cumsum_rows": "cumsum.cu",
            "zbuffer": "zbuffer.cu",
            "mvp_march": "mvp_march.cu",
+           "mvp_march_bwd": "mvp_march_bwd.cu",
            "shadow_integral": "mvp_shadow.cu",
            **{f"probe_{v}": "compositor_fwd.cu" for v in PROBE_VARIANTS}}
 # what each launch name stands for in the JAX package (file:line in its
@@ -109,9 +112,11 @@ REPLACES = {
     "cumsum1d": "ops/gsplat_pallas.py:110",
     "cumsum_rows": "ops/gsplat_pallas.py:71",
     "zbuffer": "ops/rasterizer_pallas.py:28",
-    # XLA functions of the JAX package (no pallas_call): the march's group
-    # and the deep-shadow integral
+    # XLA functions of the JAX package (no pallas_call): the march's group,
+    # its backward (XLA's AD of the group under jax.checkpoint) and the
+    # deep-shadow integral
     "mvp_march": "ops/mvp.py:482",
+    "mvp_march_bwd": "ops/mvp.py:681",
     "shadow_integral": "ops/mvp.py:814",
     **{f"probe_{v}": "scripts/probe_kernel.py:49" for v in PROBE_VARIANTS},
 }

@@ -23,16 +23,18 @@ first ``max_prims_per_tile`` pairs; each ray marches its nearest
 ``max_prims_per_ray`` hit prims; each (prim, ray) pair takes
 ``window_steps`` steps from its span's entry; the march takes
 ``max_steps`` steps. ``march_inputs`` bins and cuts the rays into tiles
-(``MarchInputs``); the tiles are then marched by K8, the hand-written
-forward of ``ops/mvp_cuda.py`` (CUDA tensors without gradient), or by the
-plain tile groups (``march_tiles_plain``). How the plain route groups
-tiles is the port's own: empty tiles are skipped, and a group holds as
-many tiles as ``GROUP_TAPS`` samples allow. Window samples land on the
+(``MarchInputs``); the tiles are then marched on CUDA tensors by K8, the
+hand-written forward of ``ops/mvp_cuda.py`` (under autograd through
+``mvp_cuda.MVPMarch``, whose backward is the hand-written K10), and on CPU
+tensors by the plain tile groups (``march_tiles_plain``). How the plain
+route groups tiles is the port's own: empty tiles are skipped, and a group
+holds as many tiles as ``GROUP_TAPS`` samples allow. Window samples land on the
 step grid by one ``scatter_add_`` (the JAX package's one-hot einsum
 deposit, a TPU device for avoiding scatters, computes the same sums).
-Under autograd each tile group is recomputed in the backward
+Under autograd on the CPU each tile group is recomputed in the backward
 (``torch.utils.checkpoint``, the JAX package's group remat): the binning
-and the tile order stay outside the recomputed part.
+and the tile order stay outside the recomputed part. K10 replays K8's
+forward tile by tile in its backward the same way.
 
 ``march_reference`` is the exact oracle over every prim and every ray.
 
@@ -416,6 +418,16 @@ def march_inputs(
     return inp, t_min, t_max
 
 
+def _rt_dot(R: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(R^T v)_j = sum_i R[..., i, j] v[..., i], the three products summed
+    in the order i = 0, 1, 2, each operation rounded on its own, as K8 sums
+    them: y = Ac * t + Bc cancels terms much larger than y, so another
+    rounding (a matrix product's, with fused multiply-adds on the card)
+    moves y, a tap's mask and its trilinear cell off K8's."""
+    return (R[..., 0, :] * v[..., 0, None] + R[..., 1, :] * v[..., 1, None]
+            + R[..., 2, :] * v[..., 2, None])
+
+
 def march_group(inp: MarchInputs, counts, rp_g, rd_g, tm_g, pids, pm, ins,
                 primpos, primrot, primscale, rows, wrows):
     """rgba [g, 4, P] of a group of tiles: the plain march of K8's work
@@ -474,9 +486,9 @@ def march_group(inp: MarchInputs, counts, rp_g, rd_g, tm_g, pids, pm, ins,
         # prim coords along the ray: y_j(t) = A_j t + B_j
         Rr = primrot[gp]                                    # [g,P,rc,3,3]
         psc = primscale[gp]                                 # [g,P,rc,3]
-        Ac = torch.einsum("gpkij,gpi->gpkj", Rr, rd_g) * psc
+        Ac = _rt_dot(Rr, rd_g[:, :, None]) * psc
         rel0 = rp_g[:, :, None] - primpos[gp]               # [g,P,rc,3]
-        Bc = torch.einsum("gpkij,gpki->gpkj", Rr, rel0) * psc
+        Bc = _rt_dot(Rr, rel0) * psc
         # spans of the oriented slabs |y_j(t)| < 1, the exact support
         # of the samples' validity
         invA = 1.0 / torch.where(Ac.abs() < 1e-12,
@@ -514,12 +526,30 @@ def march_group(inp: MarchInputs, counts, rp_g, rd_g, tm_g, pids, pm, ins,
 
     steps_t = t0[..., None] + stepsize * iota_S               # [g, P, S]
     live_s = (steps_t <= t_exit[..., None] + 1e-5) & any_hit[..., None]
-    alpha = acc[:, :, 3] * live_s
+    return composite(acc, live_s, stepsize)
+
+
+def composite(acc: torch.Tensor, live_s: torch.Tensor, stepsize: float
+              ) -> torch.Tensor:
+    """rgba [g, 4, P] of the step grid ``acc`` [g, P, 4, S] (each step's
+    (rgb * a, a) sums) under ``live_s`` [g, P, S]: alpha = acc_a * live_s,
+    the alpha-weighted mean colour acc_rgb / where(alpha > 0, alpha, 1),
+    ``saturate`` and the mean colours weighted by each step's share, as the
+    JAX package's march group computes them (its stepsize a float32), here
+    in float64 and the rgba cast back. In float32 the share of a step whose
+    alpha * stepsize is a few ulps of A rounds to 0 or to a multiple of
+    that ulp, so autograd's contrib / alpha there is off by up to its whole
+    value (jax.grad's is); in float64 it is stepsize to ~1e-16 * A / (alpha
+    * stepsize), the derivative K10 computes."""
+    step = float(torch.tensor(stepsize, dtype=torch.float32))
+    acc64 = acc.double()
+    alpha = acc64[:, :, 3] * live_s
     safe = torch.where(alpha > 0, alpha, torch.ones_like(alpha))
-    rgb_mean = acc[:, :, :3] / safe[:, :, None]
-    A_clip, contrib = saturate(alpha, stepsize)
+    rgb_mean = acc64[:, :, :3] / safe[:, :, None]
+    A_clip, contrib = saturate(alpha, step)
     rgb_out = (rgb_mean * contrib[:, :, None]).sum(-1)      # [g, P, 3]
-    return torch.cat([rgb_out, A_clip[..., -1:]], -1).transpose(1, 2)
+    return torch.cat([rgb_out, A_clip[..., -1:]], -1).transpose(1, 2).to(
+        acc.dtype)
 
 
 # the in-group counts of the march (``march_tiles_plain`` and K8): the
@@ -634,14 +664,16 @@ def mvp_raymarch_tiled(
     GROUP_TAPS samples allow (the JAX package's ``tile_group``).
 
     Route: the binning (``march_inputs``) always runs here, its two prefix
-    sums on K4 for CUDA tensors. The tiles are then marched by K8
-    (``mvp_cuda.mvp_march``, one launch for every tile, no host sync) when
-    the tensors lie on a CUDA device and no input needs a gradient (or
-    gradient is off); otherwise by the plain tile groups
-    (``march_tiles_plain``): on the CPU and under autograd (every training
-    step). On the card K8 takes an integer ``fadeexp`` of at least 1 and
-    raises ValueError for any other; a K8 that fails to build or launch
-    raises too.
+    sums on K4 for CUDA tensors. On CUDA tensors the tiles are then marched
+    by K8 (``mvp_cuda.mvp_march``, one launch for every tile, no host sync)
+    and, under autograd (grad enabled and an input needing a gradient:
+    every training step), through ``mvp_cuda.MVPMarch``, K8 forward and K10
+    backward (one launch each). On CPU tensors they are marched by the
+    plain tile groups (``march_tiles_plain``). On the card K8 and K10 take
+    an integer ``fadeexp`` of at least 1 and raise ValueError for any
+    other, and K10 computes no gradient of the rays: a raypos, raydir or
+    tminmax that needs one raises ValueError there (the CPU route gives
+    it). A kernel that fails to build or launch raises too.
 
     With ``drops`` given (a dict), the march adds to it what each drop
     removed, as tensors: ``pairs_wanted`` (tile pairs after the per-prim
@@ -658,16 +690,17 @@ def mvp_raymarch_tiled(
     K8 on its route); with gradient enabled on an input that needs one it
     raises ValueError instead (the recomputed groups would count twice).
 
-    Under autograd (grad enabled, an input needing gradient) each group is
-    marched again in the backward (``torch.utils.checkpoint``), as the JAX
-    package rematerializes its groups: the forward keeps no tap's
-    temporaries. The prims' AABBs, which pick the tiles, each ray's prims
-    and its first step, carry no gradient.
+    Under autograd the forward keeps no tap's temporaries, as the JAX
+    package rematerializes its groups: on the CPU each group is marched
+    again in the backward (``torch.utils.checkpoint``), on the card K10
+    replays K8's forward. The prims' AABBs, which pick the tiles, each
+    ray's prims and its first step, carry no gradient.
     """
-    recompute = torch.is_grad_enabled() and any(
+    grad = torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in (
-            primpos, primrot, primscale, _rows(template), _rows(warp)))
-    if recompute and drops is not None:
+            raypos, raydir, tminmax, primpos, primrot, primscale,
+            _rows(template), _rows(warp)))
+    if grad and drops is not None:
         raise ValueError("the march counts drops without gradient: call it "
                          "under torch.no_grad()")
     inp, t_min, t_max = march_inputs(
@@ -699,12 +732,15 @@ def mvp_raymarch_tiled(
         _count(drops, "pairs_past_list", (counts - M).clamp(min=0))
 
     in_group = None if drops is None else {}
-    if target_backend(raypos) == "cuda" and not recompute:
+    if target_backend(raypos) == "cuda":
         from goliath_torch.ops import mvp_cuda
 
-        out, in_group = mvp_cuda.mvp_march(inp, drops is not None)
+        if grad:
+            out = mvp_cuda.march(inp)
+        else:
+            out, in_group = mvp_cuda.mvp_march(inp, drops is not None)
     else:
-        out = march_tiles_plain(inp, in_group, recompute)
+        out = march_tiles_plain(inp, in_group, grad)
     if drops is not None:
         drops["tiles_marched"] = (counts > 0).sum()
         drops["group_tiles"] = torch.tensor(march_group_tiles(inp))

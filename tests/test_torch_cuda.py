@@ -31,9 +31,11 @@ shadow integrals at rtol 1e-5 plus 1e-5, the small teacher forward at rtol
 1e-3 plus 1e-3 of each output's largest value. K8 against its plain
 version on the card: rgba at rtol 1e-4 plus 1e-6 of the largest value
 (the plain deposit's atomics sum in other orders), the in-group counts
-exact; K9 against its plain version at rtol 1e-5 plus 1e-6 of the largest
-value. The envmap functions (plain
-PyTorch on both sides) at rtol 1e-4 plus 1e-4 of the largest value; the
+exact; K10 against its plain version on the same inputs and a seeded
+upstream gradient: each gradient at rtol 1e-3 plus 1e-3 of its largest
+value (float atomics sum in a changing order); K9 against its plain
+version at rtol 1e-5 plus 1e-6 of the largest value. The envmap functions
+(plain PyTorch on both sides) at rtol 1e-4 plus 1e-4 of the largest value; the
 small relight spin frame as chip_smoke.py's reference (rtol 1e-3 plus 1e-3
 of each part's largest entry; the composite panel's mirrorball inset and
 the rest of it are held apart). parallel/: K1 and K4 at a band's shapes as
@@ -936,8 +938,10 @@ def test_mvp_march_on_the_card_matches_the_cpu(cuda):
 
 def _march_inputs(device, case):
     """ops/mvp.py march_inputs on the scenes of tests/test_torch_mvp.py
-    (12 random boxes, 32x32 rays, step 0.05) and of its warp test (8 boxes,
-    16x16 rays, step 0.1, an identity warp plus N(0, 0.15)); "unstaged":
+    (12 random boxes, 32x32 rays, step 0.05: its MARCH_CASES "exact",
+    "window", "drops" and "step_cap", and "long_list") and of its warp
+    test (8 boxes, 16x16 rays, step 0.1, an identity warp plus N(0,
+    0.15)); "unstaged":
     300 small boxes in one 16x16 tile, step 0.005 on a grid of 1,600 steps,
     so that the tile list is longer than K8_STAGE_MAX (its rows read from
     the global table) and a block's step grids leave room for 7 warps, not
@@ -969,9 +973,13 @@ def _march_inputs(device, case):
     K_cam = torch.tensor([[30.0, 0, W / 2], [0, 30.0, H / 2], [0, 0, 1]])
     Rt = torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 3.0]])
     kw = {"exact": dict(max_steps=100, max_prims_per_tile=16, chunk=8),
+          "window": dict(max_steps=100, max_prims_per_tile=16, chunk=8,
+                         window_steps=48),
           "drops": dict(max_steps=100, max_prims_per_tile=4, chunk=2,
                         max_prims_per_ray=2, window_steps=6,
                         max_tiles_per_prim=2, pair_budget_mult=1),
+          "step_cap": dict(max_steps=12, max_prims_per_tile=16, chunk=8,
+                           max_prims_per_ray=8),
           "long_list": dict(max_steps=100, max_prims_per_tile=K,
                             max_prims_per_ray=1, chunk=1),
           "warp": dict(max_steps=60, max_prims_per_tile=8, chunk=4),
@@ -984,6 +992,40 @@ def _march_inputs(device, case):
     args = [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
     return mvp.march_inputs(*args, warp=None if warp is None
                             else warp.to(device), **kw)[0]
+
+
+def _tie_inputs(device):
+    """MarchInputs on which the accumulated alpha reaches 1 exactly: one
+    axis-aligned box [-1, 1]^3 (a 4^3 template, each x column's alpha
+    constant: 2, 1, 4 and 0.5), 16x16 rays along +z from z = -2 whose x and
+    y are the voxel centres, steps of 0.25, no fade (fadescale 0), so each
+    tap's alpha is its column's exactly and A = 1 is hit at steps 2, 4 and 1
+    of the first three columns (the fourth stays at 0.875). The camera sits
+    inside the box's AABB, which bins the box to every tile."""
+    from goliath_torch.ops import mvp
+
+    rng = np.random.RandomState(8)
+    H = W = 16
+    centres = np.asarray([-0.75, -0.25, 0.25, 0.75], np.float32)
+    rp = np.zeros((H, W, 3), np.float32)
+    rp[..., 0] = centres[np.arange(W) % 4][None]
+    rp[..., 1] = centres[np.arange(H) % 4][:, None]
+    rp[..., 2] = -2.0
+    rd = np.zeros((H, W, 3), np.float32)
+    rd[..., 2] = 1.0
+    tminmax = np.zeros((H, W, 2), np.float32)
+    tminmax[..., 1] = 10.0
+    tpl = rng.rand(1, 4, 4, 4, 4).astype(np.float32)
+    tpl[0, 3] = np.asarray([2.0, 1.0, 4.0, 0.5], np.float32)[None, None]
+    args = [torch.from_numpy(rp), torch.from_numpy(rd), 0.25,
+            torch.from_numpy(tminmax), torch.zeros(1, 3), torch.eye(3)[None],
+            torch.ones(1, 3), torch.from_numpy(tpl),
+            torch.tensor([[16.0, 0, 8], [0, 16.0, 8], [0, 0, 1]]),
+            torch.tensor([[1.0, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 0]])]
+    args = [a.to(device) if isinstance(a, torch.Tensor) else a for a in args]
+    return mvp.march_inputs(*args, max_steps=16, max_prims_per_tile=4,
+                            chunk=1, max_prims_per_ray=1,
+                            fadescale=0.0)[0]
 
 
 @pytest.mark.parametrize("case", ["exact", "drops", "long_list", "warp",
@@ -1012,6 +1054,47 @@ def test_k8_matches_its_plain_version(cuda, case):
     assert (int(counts["window_cut_pairs"]) > 0) == (case == "drops")
     if case == "unstaged":
         assert int((inp.tile_end - inp.tile_start).max()) > 256
+
+
+@pytest.mark.parametrize("case", ["exact", "window", "drops", "step_cap",
+                                  "warp", "unstaged", "tie"])
+def test_k10_matches_its_plain_version(cuda, case):
+    """K10 (ops/mvp_cuda.py mvp_march_backward) against its plain version
+    on the card on the same MarchInputs and a seeded N(0, 1) upstream
+    gradient of the tiles' rgba: tests/test_torch_mvp.py's MARCH_CASES, the
+    warp scene, the unstaged list (past K8_STAGE_MAX) and the saturation
+    tie (A = 1 exactly: half the gradient); each gradient at rtol 1e-3 plus
+    1e-3 of its largest |value| (float atomics in K10, the plain version's
+    deposit and gathers sum in other orders); one launch a call; without
+    the prims' gradients the rows' the same and the prims' zero."""
+    from goliath_torch.ops import mvp_cuda as mc
+
+    inp = _tie_inputs(cuda) if case == "tie" else _march_inputs(cuda, case)
+    T, P = inp.raypos.shape[:2]
+    g = torch.Generator().manual_seed(5)
+    up = torch.randn(T, 4, P, generator=g).to(cuda)
+    ref = mc.mvp_march_backward_plain(inp, up)
+    before = gc.LAUNCHES["mvp_march_bwd"]
+    got = mc.mvp_march_backward(inp, up)
+    rows_only = mc.mvp_march_backward(inp, up, prim_grad=False)
+    torch.cuda.synchronize()
+    assert gc.LAUNCHES["mvp_march_bwd"] == before + 2
+    assert (got["wrows"] is None) == (case != "warp")
+    for name in mc.MARCH_GRADS:
+        if ref[name] is None:
+            continue
+        scale = float(ref[name].abs().max())
+        assert scale > 0 and bool(torch.isfinite(got[name]).all()), name
+        torch.testing.assert_close(got[name], ref[name], rtol=1e-3,
+                                   atol=1e-3 * scale, msg=name)
+        if name.startswith("prim"):
+            assert not bool(rows_only[name].any()), name
+        else:
+            torch.testing.assert_close(rows_only[name], ref[name], rtol=1e-3,
+                                       atol=1e-3 * scale, msg=name)
+    if case == "tie":
+        A = mc.mvp_march_plain(inp)[0][:, 3]
+        assert bool((A == 1.0).any()) and bool((A < 1.0).any())
 
 
 def test_k9_matches_its_plain_version(cuda):
@@ -1043,8 +1126,9 @@ def test_mvp_march_gradients_on_the_card_match_the_cpu(cuda):
     """The tiled march's gradients of primpos, primrot, primscale and the
     template under a seeded upstream gradient, on the scene of
     test_mvp_march_on_the_card_matches_the_cpu without its drops (tile
-    lists of 16, 8 slots a ray, no window), card against CPU; the binning
-    runs once on the card (K4 twice), not in the backward."""
+    lists of 16, 8 slots a ray, no window), card (K8 forward, K10
+    backward) against CPU (the plain groups); on the card the binning runs
+    once (K4 twice), not in the backward, and K8 and K10 once each."""
     from goliath_torch.ops import mvp, raygen
 
     rng = np.random.RandomState(0)
@@ -1066,12 +1150,15 @@ def test_mvp_march_gradients_on_the_card_match_the_cpu(cuda):
     for device in ("cpu", cuda):
         leaves = [torch.from_numpy(a.astype(np.float32)).to(device)
                   .requires_grad_() for a in (pos, rot, scale, tpl)]
-        before = gc.LAUNCHES["cumsum1d"]
+        before = dict(gc.LAUNCHES)
         out = mvp.mvp_raymarch_tiled(
             rp[0].to(device), rd[0].to(device), 0.05, tm[0].to(device),
             *leaves, K_cam.to(device), Rt.to(device), **kw)
         (out * up.to(device)).sum().backward()
-        assert gc.LAUNCHES["cumsum1d"] == before + (device != "cpu") * 2
+        on_card = int(device != "cpu")
+        assert {k: gc.LAUNCHES[k] - before[k] for k in before} == {
+            **{k: 0 for k in before}, "cumsum1d": 2 * on_card,
+            "mvp_march": on_card, "mvp_march_bwd": on_card}
         grads[str(device)] = [x.grad.cpu() for x in leaves]
     for got, ref in zip(grads[str(cuda)], grads["cpu"]):
         torch.testing.assert_close(got, ref, rtol=1e-3,
@@ -1080,16 +1167,36 @@ def test_mvp_march_gradients_on_the_card_match_the_cpu(cuda):
 
 
 @pytest.mark.parametrize("model", ["hand_mvp", "hand_teacher"])
-def test_mvp_small_training_step_on_the_card_matches_the_cpu(cuda, model):
+def test_mvp_small_training_step_on_the_card_matches_the_cpu(cuda, model,
+                                                            monkeypatch):
     """chip_smoke.py's small training reference of the MVP hand and of the
     OLAT teacher (run_train.main at HAND_MVP_SMALL / TEACHER_SMALL, one
-    step on the card and one on the CPU)."""
+    step on the card and one on the CPU): on the card each march launches
+    K8 once and each march under autograd K10 once."""
     import chip_smoke
+    from goliath_torch.utils import render_raymarcher
 
+    marches = {"all": 0, "grad": 0}
+    orig = render_raymarcher.mvp_raymarch_tiled
+
+    def counted(*args, **kw):
+        if args[0].is_cuda:
+            marches["all"] += 1
+            marches["grad"] += torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in args)
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(render_raymarcher, "mvp_raymarch_tiled", counted)
     fn = {"hand_mvp": chip_smoke.hand_mvp_small_train_reference,
           "hand_teacher": chip_smoke.teacher_small_train_reference}[model]
+    before = dict(gc.LAUNCHES)
     out = fn(torch)
     assert out["losses_rel_err"] <= chip_smoke.SMALL_RTOL
+    assert marches["grad"] > 0
+    assert gc.LAUNCHES["mvp_march"] - before["mvp_march"] == marches["all"]
+    assert gc.LAUNCHES["mvp_march_bwd"] - before["mvp_march_bwd"] == \
+        marches["grad"]
 
 
 def _deep_shadow_scene(seed, K, spread, TD=4):

@@ -9,7 +9,8 @@ counts (rays over R, step-capped rays, window-cut pairs and prims,
 deposited taps) equal to those taken from the JAX package's own binning and
 arithmetic (``jax_march_counts``). The tests here: the march and the shadow
 integral on CPU tensors never load the kernels' extension, and on the
-card's route neither falls back to its plain version.
+card's route neither falls back to its plain version, the march under
+autograd (K8 and K10) included.
 """
 
 import jax
@@ -156,6 +157,10 @@ def _refuse(*a, **kw):
     raise AssertionError("the kernels' extension was loaded")
 
 
+def _plain_ran(*a, **kw):
+    raise AssertionError("the plain groups ran")
+
+
 def _march_args():
     scene, (rp, rd, tminmax, K_cam, Rt) = _scene(0), _rays(16, 16)
     return ([T(rp), T(rd), 0.05, T(tminmax), *(T(a) for a in scene),
@@ -194,13 +199,18 @@ def test_card_route_never_falls_back(monkeypatch):
     """With the tensors taken for the card's (ops/mvp.py's and
     ops/mvp_cuda.py's ``target_backend`` made to say cuda) and the loader
     made to raise: the march without gradient and with an integer fadeexp
-    reaches the loader; with fadeexp 7.5 K8's wrapper raises ValueError;
-    shadow_at_points reaches the loader under no_grad and raises ValueError
-    with gradient on a density that needs one (K9 computes none). No
-    route runs its plain version instead, and no launch is counted."""
+    reaches the loader (K8), and so does the march under autograd, whose
+    template needs a gradient (K8 in ``MVPMarch``, whose backward is K10);
+    with fadeexp 7.5 K8's wrapper raises ValueError, with and without
+    gradient; shadow_at_points reaches the loader under no_grad and raises
+    ValueError with gradient on a density that needs one (K9 computes
+    none). No route runs its plain version instead, and no launch is
+    counted."""
     monkeypatch.setattr(gc, "load_kernels", _refuse)
     monkeypatch.setattr(tm, "target_backend", lambda t: "cuda")
     monkeypatch.setattr(mc, "target_backend", lambda t: "cuda")
+    monkeypatch.setattr(tm, "march_tiles_plain", _plain_ran)
+    monkeypatch.setattr(mc, "march_tiles_plain", _plain_ran)
     before = dict(gc.LAUNCHES)
     args, kw = _march_args()
     with torch.no_grad():
@@ -208,6 +218,11 @@ def test_card_route_never_falls_back(monkeypatch):
             tm.mvp_raymarch_tiled(*args, drops={}, **kw)
         with pytest.raises(ValueError, match="integer fadeexp"):
             tm.mvp_raymarch_tiled(*args, fadeexp=7.5, **kw)
+    args[7].requires_grad_()
+    with pytest.raises(AssertionError, match="extension was loaded"):
+        tm.mvp_raymarch_tiled(*args, **kw)
+    with pytest.raises(ValueError, match="integer fadeexp"):
+        tm.mvp_raymarch_tiled(*args, fadeexp=7.5, **kw)
     density, pts, light = _shadow_args()
     with torch.no_grad(), \
             pytest.raises(AssertionError, match="extension was loaded"):
